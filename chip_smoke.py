@@ -6,17 +6,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. checks for CUDA and prints the card's name and power limit (nvidia-smi);
 2. builds every kernel of ``melogan_torch/csrc`` with nvcc (sm_90a), in parallel;
 3. turns TF32 off, then holds each kernel against its plain PyTorch version at
-   the main path's shapes, batch 1 and 4096, and times kernel, plain version
-   and one PyTorch library call (``F.conv_transpose1d``, a yardstick the port
-   never calls) with CUDA events; one JSON line per kernel and batch;
-4. sets every launch count to 0 and drives the main path through the entry
-   points a user calls: ``Sampler(GANConfig(), device="cuda")`` for the four
-   emotions and a batch of 4096 (the fused decoder kernel), a config whose
-   max_notes is not a multiple of 8 (the per-layer convt kernel),
-   ``generate_midi``, and the HTTP server answering four ``POST /generate``
-   and one ``GET /healthz``; then reads the counts, which must all be > 0;
-5. checks the notes against the port's CPU path on the same weights and inputs;
-6. prints the ``kernels`` JSON line, the nvidia-smi line, and last
+   the main paths' shapes and times kernel, plain version and one PyTorch
+   library call (a yardstick the port never calls) with CUDA events:
+   ``decoder_tail`` and ``convt1d`` at batch 1 and 4096 (the sampling path),
+   ``conv1d`` at the emotion discriminator's four layers at batch 32 (the
+   training batch) and 1024, plus the VAE encoder's stride-2 layer; then the
+   two backward routes (each conv's input gradient runs the other conv's
+   kernel) against autograd through the plain versions;
+4. drives the sampling path with every launch count set to 0:
+   ``Sampler(GANConfig(), device="cuda")`` for the four emotions and a batch
+   of 4096 (the fused decoder kernel), a config whose max_notes is not a
+   multiple of 8 (the per-layer convt kernel), ``generate_midi``, and the HTTP
+   server answering four ``POST /generate`` and one ``GET /healthz``; reads
+   the counts, which must be > 0, and checks the notes against the port's
+   CPU path;
+5. drives the training path with the counts set to 0 again:
+   ``train(GANConfig(), EDConfig(), ...)`` at full width on a seeded corpus
+   of 384 rows (2 groups and a 2-batch tail per epoch, batch 32) for 2
+   epochs, then 1 epoch with λ_fm = 1, EMA 0.9 and the ED feature-matching
+   targets, then serves the trained ``gan_final.pth`` through
+   ``Sampler(device="cuda")``; ``conv1d``, ``convt1d`` and ``decoder_tail``
+   must all have launched;
+6. times the group step (median wall of 10 steps after a first) and holds one
+   group step on the card against the port's CPU path from the same state
+   and random draws;
+7. prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without CUDA, or without the rest of
@@ -45,6 +59,19 @@ BATCHES = (1, 4096)
 MAIN_BATCH = 4096
 DECODER_M, DECODER_WIDTHS = 64, (256, 128, 64, 4)
 CONVT_LAYERS = [(64, 256, 128), (128, 128, 64), (256, 64, 4)]  # (L, Cin, Cout)
+# (L, Cin, Cout, K, stride, padding, name): the ED's four conv blocks, the
+# training path's shapes, and the VAE encoder's first (stride-2) layer
+ED_LAYERS = [(512, 4, 64, 5, 1, 2, "ed1"), (512, 64, 128, 3, 1, 1, "ed2"),
+             (512, 128, 256, 3, 1, 1, "ed3"), (512, 256, 256, 3, 1, 1, "ed4")]
+CONV1D_LAYERS = ED_LAYERS + [(512, 4, 32, 5, 2, 2, "vae1")]
+CONV1D_BATCHES = (32, 1024)
+TRAIN_BATCH = 32
+# ((L, Cin, Cout, K, s, p, output_padding), transposed, name): conv1d's input
+# gradient runs convt1d (the ED's layers), convT's runs conv1d (the decoder's)
+BACKWARD_LAYERS = [((l, cin, cout, k, s, p, 0), False, n) for l, cin, cout, k, s, p, n in ED_LAYERS] + [
+    ((l, cin, cout, 5, 2, 2, 1), True, f"dec{i + 1}") for i, (l, cin, cout) in enumerate(CONVT_LAYERS)]
+CORPUS_ROWS = 384  # batch 32: 12 batches, 2 groups of 5 and a 2-batch tail per epoch
+GROUP_STEPS = 10  # timed group steps after a first
 
 
 def emit(record, results):
@@ -151,6 +178,95 @@ def check_convt(torch, F, ops, b, gen, results):
     return recs
 
 
+def check_conv1d(torch, F, ops, b, gen, results):
+    """The conv1d kernel at the ED's four layers (and the VAE encoder's
+    stride-2 layer) against its plain version, timed beside ``F.conv1d``."""
+    recs = []
+    for l, cin, cout, k, s, p, what in CONV1D_LAYERS:
+        x = torch.randn((b, l, cin), device="cuda", generator=gen)
+        w = torch.randn((k, cin, cout), device="cuda", generator=gen) / (k * cin) ** 0.5
+        bias = 0.1 * torch.randn((cout,), device="cuda", generator=gen)
+        c1 = ops["conv1d"]
+        out = c1.conv1d_cuda(x, w, bias, s, p)
+        ref = c1.conv1d_plain(x, w, bias, s, p)
+        torch.cuda.synchronize()
+        err, rel = compare(out, ref, f"conv1d B={b} {what}")
+        xn, wt = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        iters = 10 if b > 64 else 100
+        flops = c1.conv1d_flops(b, l, cin, cout, k, s, p)
+        nbytes = 4 * (x.numel() + w.numel() + bias.numel() + out.numel())
+        rec = {
+            "kernel": "conv1d", "layer": what, "batch": b, "shape": [b, l, cin, cout, k, s, p],
+            "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL,
+            "kernel_ms": time_ms(torch, lambda: c1.conv1d_cuda(x, w, bias, s, p), iters),
+            "plain_ms": time_ms(torch, lambda: c1.conv1d_plain(x, w, bias, s, p), iters),
+            "library_ms": time_ms(torch, lambda: F.conv1d(xn, wt, bias, s, p), iters),
+            **bound(flops, nbytes), "flops": flops, "bytes": nbytes,
+        }
+        emit(rec, results)
+        recs.append(rec)
+    return recs
+
+
+def check_backward_routes(torch, F, ops, b, gen, results):
+    """Each conv Function's dx, dw and dbias on the card against autograd
+    through the plain versions, and the input-gradient route alone (the
+    other conv's kernel) timed beside one library call computing the same
+    function: cuDNN's conv1d input gradient, or ``F.conv1d`` for convT."""
+    conv = ops["conv"]
+    c1, ct = ops["conv1d"], ops["convt"]
+    recs = []
+    for (l, cin, cout, k, s, p, op), transposed, what in BACKWARD_LAYERS:
+        x = torch.randn((b, l, cin), device="cuda", generator=gen)
+        w = torch.randn((k, cin, cout), device="cuda", generator=gen) / (k * cin) ** 0.5
+        bias = 0.1 * torch.randn((cout,), device="cuda", generator=gen)
+        if transposed:
+            ours = lambda x_, w_, b_: conv.conv_transpose1d(x_, w_, s, p, op, bias=b_)  # noqa: E731
+            plain = lambda x_, w_, b_: ct.convt1d_plain(x_, w_, b_, s, p, op)  # noqa: E731
+        else:
+            ours = lambda x_, w_, b_: conv.conv1d(x_, w_, s, p, bias=b_)  # noqa: E731
+            plain = lambda x_, w_, b_: c1.conv1d_plain(x_, w_, b_, s, p)  # noqa: E731
+        g = torch.randn(plain(x, w, bias).shape, device="cuda", generator=gen)
+
+        def grads(fn):
+            xs, ws, bs = (t.detach().clone().requires_grad_() for t in (x, w, bias))
+            return torch.autograd.grad((fn(xs, ws, bs) * g).sum(), (xs, ws, bs))
+
+        got, want = grads(ours), grads(plain)
+        torch.cuda.synchronize()
+        errs = [compare(a, e, f"{what} grad {n}")[0] for a, e, n in zip(got, want, ("dx", "dw", "db"))]
+        wT = w.transpose(1, 2).contiguous()
+        if transposed:  # dx = conv1d(g, wᵀ)
+            route = lambda: c1.conv1d_cuda(g, wT, None, s, p)  # noqa: E731
+            route_plain = lambda: c1.conv1d_plain(g, wT, None, s, p)  # noqa: E731
+            gn, wl = g.transpose(1, 2).contiguous(), w.permute(1, 2, 0).contiguous()
+            library = lambda: F.conv1d(gn, wl, None, s, p)  # noqa: E731
+            flops = c1.conv1d_flops(b, g.shape[1], cout, cin, k, s, p)
+        else:  # dx = conv_transpose1d(g, wᵀ)
+            opx = (l + 2 * p - k) % s
+            route = lambda: ct.convt1d_cuda(g, wT, None, s, p, opx)  # noqa: E731
+            route_plain = lambda: ct.convt1d_plain(g, wT, None, s, p, opx)  # noqa: E731
+            gn, wl = g.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+            library = lambda: torch.nn.grad.conv1d_input((b, cin, l), wl, gn, s, p)  # noqa: E731
+            flops = ct.convt_flops(b, g.shape[1], cout, cin, k, s, p, opx)
+        lib_out = library()
+        compare(lib_out.transpose(1, 2), route(), f"{what} library dx")  # the same function
+        iters = 50
+        nbytes = 4 * (g.numel() + w.numel() + x.numel())
+        rec = {
+            "phase": "backward_route", "layer": what, "batch": b,
+            "dx_runs": "conv1d kernel" if transposed else "convt1d kernel",
+            "max_abs_err_dx_dw_db": errs, "tol_rel": TOL_REL,
+            "dx_kernel_ms": time_ms(torch, route, iters),
+            "dx_plain_ms": time_ms(torch, route_plain, iters),
+            "dx_library_ms": time_ms(torch, library, iters),
+            **bound(flops, nbytes), "flops": flops,
+        }
+        emit(rec, results)
+        recs.append(rec)
+    return recs
+
+
 def http(base, path, body=None):
     req = urllib.request.Request(base + path, data=body,
                                  headers={"Content-Type": "application/json"})
@@ -237,6 +353,195 @@ def check_against_cpu(torch, samplers, results):
              results)
 
 
+def make_corpus(np, n, seed=0):
+    """A seeded corpus at the real shapes: (n, 512, 4) raw notes (pitch,
+    start, duration, velocity) with 200-512 notes a song and padding rows
+    after, standardized numeric features, the four emotions in turn."""
+    from melogan_torch.data.datasets import SplitData
+
+    rng = np.random.default_rng(seed)
+    raw = np.zeros((n, 512, 4), np.float32)
+    raw[..., 0] = -1.0
+    for i in range(n):
+        m = int(rng.integers(200, 513))
+        steps = rng.choice([0.25, 0.5, 1.0], size=m)
+        raw[i, :m, 0] = rng.integers(36, 97, size=m)
+        raw[i, :m, 1] = np.cumsum(steps) - steps
+        raw[i, :m, 2] = steps * rng.uniform(0.5, 1.5, size=m)
+        raw[i, :m, 3] = rng.integers(40, 111, size=m)
+    emotions = np.array(["happy", "sad", "angry", "calm"] * (n // 4 + 1))[:n]
+    numeric = rng.normal(size=(n, 6)).astype(np.float32)
+    return SplitData(raw, emotions, numeric, [f"song{i}" for i in range(n)])
+
+
+def drive_training_path(torch, np, results):
+    """``train()`` as a user calls it, then the trained file served."""
+    import dataclasses
+
+    from melogan_torch import EMOTIONS
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.models.ed import EmotionDiscriminator
+    from melogan_torch.models.layers import torch_default_init_
+    from melogan_torch.sampling import Sampler
+    from melogan_torch.train.gan_loop import train
+    from melogan_torch.utils.weights import load_gan_final_pth
+
+    data = make_corpus(np, CORPUS_ROWS)
+    cfg, ed_cfg = GANConfig(), EDConfig()
+    workdir = os.path.join(WORK_DIR, "train")
+    t0 = time.perf_counter()
+    state, hist = train(cfg, ed_cfg, data, workdir=workdir, epochs=2, verbose=False, device="cuda")
+    emit({"phase": "train", "epochs": 2, "wall_s": time.perf_counter() - t0, "history": hist}, results)
+    # a pre-trained ED stands in as seeded random weights: it switches on the
+    # ED feature-matching targets, as a reference run with ed_best.pth does
+    ed = EmotionDiscriminator.from_config(ed_cfg.model_cfg())
+    torch_default_init_(ed, torch.Generator().manual_seed(7))
+    fm_cfg = dataclasses.replace(cfg, lambda_fm=1.0, ema_decay=0.9)
+    t0 = time.perf_counter()
+    state, hist_fm = train(fm_cfg, ed_cfg, data, ed_variables=ed.state_dict(), workdir=workdir,
+                           epochs=1, verbose=False, device="cuda")
+    emit({"phase": "train_fm_ema", "epochs": 1, "wall_s": time.perf_counter() - t0,
+          "history": hist_fm}, results)
+    for h, keys in ((hist, 9), (hist_fm, 10)):
+        if len(h) != keys or not all(np.isfinite(v) for v in h.values()):
+            raise SystemExit(f"train history: {h}")
+
+    path = os.path.join(workdir, cfg.checkpoint_dir, "gan_final.pth")
+    gen_sd, fe_sd, features = load_gan_final_pth(path, ema=True)
+    sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd,
+                      emotion_features=features, device="cuda")
+    notes = sampler.sample_notes(list(EMOTIONS), seed=0)
+    if notes.shape != (4, 512, 4) or not np.isfinite(notes).all():
+        raise SystemExit(f"trained sampler: notes {notes.shape} or not finite")
+    emit({"phase": "serve_trained", "checkpoint": os.path.relpath(path, ROOT),
+          "fused": sampler.generator.decoder.fuses(), "notes_std": float(notes.std())}, results)
+
+
+def _batches_and_draws(torch, np, cfg, fe, seed, device_list):
+    """One group's batches and random draws, made with numpy, on each device."""
+    from melogan_torch.train.gan_step import CriticDraws, GenDraws, GroupDraws
+
+    rng = np.random.default_rng(seed)
+    k, b = cfg.critic_iters, cfg.batch_size
+    data = make_corpus(np, k * b, seed=seed)
+    arrays = (data.notes_gan().reshape(k, b, 512, 4), data.emotion_idx.reshape(k, b),
+              np.zeros((k, b, cfg.latent_dim), np.float32), data.numeric.reshape(k, b, 6))
+    widths = [m.out_features for m in fe.net if isinstance(m, torch.nn.Linear)][:-1]
+
+    def masks():
+        return [rng.uniform(size=(b, w)) < 1.0 - cfg.encoder_dropout for w in widths]
+
+    critic = [(rng.normal(size=(b, cfg.noise_dim)), rng.uniform(size=(b, 1, 1)), masks()) for _ in range(k)]
+    gen = (rng.normal(size=(b, cfg.noise_dim)), masks())
+    out = []
+    for dev in device_list:
+        def t(a):
+            a = np.asarray(a)
+            return torch.as_tensor(a if a.dtype == bool else a.astype(
+                np.int64 if a.dtype.kind == "i" else np.float32), device=dev)
+
+        out.append((tuple(t(a) for a in arrays), GroupDraws(
+            critic=[CriticDraws(t(z), t(a), [t(m) for m in ms]) for z, a, ms in critic],
+            gen=GenDraws(t(gen[0]), [t(m) for m in gen[1]]))))
+    return out
+
+
+def time_group_step(torch, np, results):
+    """Wall time of one group step at batch 32, full width (host clock
+    around steps that end in a synchronize), with its launch counts."""
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.ops import conv1d, convt
+    from melogan_torch.train import gan_step
+    from melogan_torch.utils.flops import group_step_flops
+
+    cfg, ed_cfg = GANConfig(), EDConfig()
+    state = gan_step.init_state(cfg, gan_step.build_models(cfg, ed_cfg), seed=0, device="cuda")
+    steps = gan_step.make_train_steps(cfg)
+    (batches, _), = _batches_and_draws(torch, np, cfg, state.feature_encoder, 1, ["cuda"])
+    walls = []
+    for i in range(GROUP_STEPS + 1):
+        if i == 1:
+            c1, ct = conv1d.conv1d_cuda.launches, convt.convt1d_cuda.launches
+        t0 = time.perf_counter()
+        state, m = steps.group(state, batches)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            per_step = {"conv1d": conv1d.conv1d_cuda.launches - c1,
+                        "convt1d": convt.convt1d_cuda.launches - ct}
+    if not all(np.isfinite(float(v)) for v in m.values()):
+        raise SystemExit(f"group step metrics not finite: {m}")
+    flops = group_step_flops(cfg, ed_cfg)
+    med = float(np.median(walls[1:]))
+    rec = {"phase": "group_step", "batch": cfg.batch_size, "wall_ms_first": walls[0],
+           "wall_ms": walls[1:], "median_ms": med, "group_steps_per_s": 1e3 / med,
+           "flops": flops, "bound_ms": flops / PEAK_F32_FLOPS * 1e3,
+           "launches_per_group_step": per_step}
+    emit(rec, results)
+    return rec
+
+
+def check_group_step_against_cpu(torch, np, results):
+    """One group step on the card against the port's CPU path from the same
+    state and draws, shipped width. The critic starts away from its
+    N(0, 0.02) init (weights ×10, biases N(0, 0.05)): at the init its
+    pre-activations are so small that Adam's sign-like first moves (±lr)
+    flip LeakyReLU kinks, and two sums in different orders then send a
+    unit down different branches. Tolerances: metrics 1e-4 of their scale;
+    gradients (Adam's first moments) 1e-4 of their module group's largest;
+    parameters within 2·lr per update everywhere (an element whose true
+    gradient is zero moves ±lr at random on each side) and within 1e-6 per
+    update where the gradient is above 1e-4 of the group's largest."""
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.train import gan_step
+
+    cfg, ed_cfg = GANConfig(), EDConfig()
+    gpu = gan_step.init_state(cfg, gan_step.build_models(cfg, ed_cfg), seed=3, device="cuda")
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for m in gpu.critic.modules():
+            if isinstance(m, (torch.nn.Conv1d, torch.nn.Linear)):
+                m.weight.mul_(10.0)
+                m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=g))
+    cpu = gan_step.init_state(cfg, gan_step.build_models(cfg, ed_cfg), seed=3, device="cpu")
+    for name in ("generator", "feature_encoder", "critic", "ed"):
+        getattr(cpu, name).load_state_dict(getattr(gpu, name).state_dict())
+    steps = gan_step.make_train_steps(cfg)
+    on_gpu, on_cpu = _batches_and_draws(torch, np, cfg, gpu.feature_encoder, 2, ["cuda", "cpu"])
+    t0 = time.perf_counter()
+    _, mg = steps.group(gpu, *on_gpu)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, mc = steps.group(cpu, *on_cpu)
+    t2 = time.perf_counter()
+    worst = {}
+    for k in mc:
+        a, b = float(mg[k]), float(mc[k])
+        worst[f"metric {k}"] = abs(a - b) / max(abs(b), 1e-30)
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise SystemExit(f"group step GPU vs CPU: {k} {a} vs {b}")
+    for what, opt, lr, updates in (("generator", "opt_g", cfg.lr_g, 1),
+                                   ("feature_encoder", "opt_g", cfg.lr_g, 1),
+                                   ("critic", "opt_d", cfg.lr_d, cfg.critic_iters)):
+        pg = dict(getattr(gpu, what).named_parameters())
+        pc = dict(getattr(cpu, what).named_parameters())
+        mu = {n: getattr(cpu, opt).state[p]["exp_avg"] for n, p in pc.items()}
+        gmax = max(float(v.abs().max()) for v in mu.values())
+        for n in pc:
+            gerr = float((getattr(gpu, opt).state[pg[n]]["exp_avg"].cpu() - mu[n]).abs().max())
+            d = (pg[n].detach().cpu() - pc[n].detach()).abs()
+            big = mu[n].abs() > 1e-4 * gmax
+            dbig = float(d[big].max()) if bool(big.any()) else 0.0
+            worst[f"{what} grad"] = max(worst.get(f"{what} grad", 0.0), gerr / gmax)
+            worst[f"{what} param"] = max(worst.get(f"{what} param", 0.0), dbig)
+            if gerr > 1e-4 * gmax or float(d.max()) > 2 * lr * updates * (1 + 1e-3) or dbig > 1e-6 * updates:
+                raise SystemExit(f"group step GPU vs CPU: {what}.{n}: grad err {gerr:.3e} "
+                                 f"(group max {gmax:.3e}), param err {float(d.max()):.3e}, "
+                                 f"where the gradient is large {dbig:.3e}")
+    emit({"phase": "group_step_gpu_vs_cpu", "metrics_gpu": {k: float(v) for k, v in mg.items()},
+          "worst": worst, "gpu_s": t1 - t0, "cpu_s": t2 - t1}, results)
+
+
 def main() -> int:
     import torch
 
@@ -274,26 +579,59 @@ def main() -> int:
     # IEEE f32 for the plain versions and library calls as for the port
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ops = {"convt": convt, "decoder": decoder}
+    import numpy as np
+
+    from melogan_torch.ops import conv, conv1d
+
+    ops = {"convt": convt, "decoder": decoder, "conv1d": conv1d, "conv": conv}
+    wrappers = {"decoder_tail": decoder.decoder_tail_cuda, "convt1d": convt.convt1d_cuda,
+                "conv1d": conv1d.conv1d_cuda}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dec, cvt = {}, {}
+    dec, cvt, c1d = {}, {}, {}
     for b in BATCHES:
         dec[b] = check_decoder(torch, F, ops, b, gen, results)
         cvt[b] = check_convt(torch, F, ops, b, gen, results)
+    for b in CONV1D_BATCHES:
+        c1d[b] = check_conv1d(torch, F, ops, b, gen, results)
+    check_backward_routes(torch, F, ops, TRAIN_BATCH, gen, results)
 
-    convt.convt1d_cuda.launches = 0
-    decoder.decoder_tail_cuda.launches = 0
-    samplers = drive_main_path(torch, results)
-    launches = {"decoder_tail": decoder.decoder_tail_cuda.launches,
-                "convt1d": convt.convt1d_cuda.launches}
-    emit({"phase": "main_path_launches", **launches}, results)
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise SystemExit(f"main path never launched: {missing}")
+    def drive(path, fn, need):
+        """Run one main path with every launch count at 0; its counts."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        emit({"phase": "main_path_launches", "path": path, **counts}, results)
+        missing = [k for k in need if counts[k] <= 0]
+        if missing:
+            raise SystemExit(f"{path} path never launched: {missing}")
+        return out, counts
 
+    samplers, sampling = drive("sampling", lambda: drive_main_path(torch, results),
+                               ("decoder_tail", "convt1d"))
     check_against_cpu(torch, samplers, results)
+    _, training = drive("training", lambda: drive_training_path(torch, np, results),
+                        ("conv1d", "convt1d", "decoder_tail"))
+    step = time_group_step(torch, np, results)
+    check_group_step_against_cpu(torch, np, results)
+    launches = {k: sampling[k] + training[k] for k in wrappers}
 
     big_d, big_c = dec[BATCHES[-1]], cvt[BATCHES[-1]]  # batch 4096
+    ed32 = [r for r in c1d[TRAIN_BATCH] if r["layer"].startswith("ed")]
+
+    def summed(name, recs, **extra):
+        """One kernels-line entry over several layers (times and bounds summed)."""
+        return {
+            "name": name, "route": "cuda", **extra,
+            "launches": launches[name],
+            "ms": sum(r["kernel_ms"] for r in recs),
+            "plain_ms": sum(r["plain_ms"] for r in recs),
+            "bound_ms": sum(r["bound_ms"] for r in recs),
+            "bound_by": ("operations" if sum(r["ops_ms"] for r in recs)
+                         >= sum(r["bytes_ms"] for r in recs) else "bytes"),
+            "library_ms": sum(r["library_ms"] for r in recs),
+        }
+
     kernels = [
         {
             "name": "decoder_tail", "route": "cuda",
@@ -305,23 +643,21 @@ def main() -> int:
             "bound_ms": big_d["bound_ms"], "bound_by": big_d["bound_by"],
             "library_ms": big_d["library_ms"],
         },
-        {
-            # the three layers of the layered decoder tail at batch 4096, summed
-            "name": "convt1d", "route": "cuda",
-            "source": "melogan_torch/csrc/convt1d.cu",
-            "replaces": "melogan_tpu/ops/pallas/conv1d.py:140",
-            "launches": launches["convt1d"],
-            "max_abs_err": max(r["max_abs_err"] for b in BATCHES for r in cvt[b]),
-            "ms": sum(r["kernel_ms"] for r in big_c),
-            "plain_ms": sum(r["plain_ms"] for r in big_c),
-            "bound_ms": sum(r["bound_ms"] for r in big_c),
-            "bound_by": ("operations" if sum(r["ops_ms"] for r in big_c)
-                         >= sum(r["bytes_ms"] for r in big_c) else "bytes"),
-            "library_ms": sum(r["library_ms"] for r in big_c),
-        },
+        # the three layers of the layered decoder tail at batch 4096, summed
+        summed("convt1d", big_c, source="melogan_torch/csrc/convt1d.cu",
+               replaces="melogan_tpu/ops/pallas/conv1d.py:140",
+               max_abs_err=max(r["max_abs_err"] for b in BATCHES for r in cvt[b])),
+        # the ED's four layers at the training batch (32), summed
+        summed("conv1d", ed32, source="melogan_torch/csrc/conv1d.cu",
+               replaces="melogan_tpu/ops/pallas/conv1d.py:64",
+               max_abs_err=max(r["max_abs_err"] for b in CONV1D_BATCHES for r in c1d[b])),
     ]
+    emit({"phase": "summary", "group_steps_per_s": step["group_steps_per_s"],
+          "group_step_median_ms": step["median_ms"], "group_step_bound_ms": step["bound_ms"]},
+         results)
     line = {"kernels": kernels}
     results.append(line)
+    os.makedirs(WORK_DIR, exist_ok=True)
     with open(os.path.join(WORK_DIR, "results.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "results": results}, f, indent=1)
     print(json.dumps(line), flush=True)

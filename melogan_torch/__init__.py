@@ -1,9 +1,11 @@
 """melogan_torch — the PyTorch/CUDA port of ``melogan_tpu`` for NVIDIA Hopper.
 
-The port serves emotion-conditioned MIDI generation (``POST /generate``) with
-the generator decoder's transposed convolutions running in hand-written CUDA
-kernels (``melogan_torch/csrc``). It imports nothing of JAX or of the JAX
-package; the JAX package stays the reference it is tested against.
+The port serves emotion-conditioned MIDI generation (``POST /generate``) and
+trains the WGAN-GP generator (``train.gan_loop.train``), with the generator's
+transposed convolutions and the emotion discriminator's convolutions running
+in hand-written CUDA kernels (``melogan_torch/csrc``), forward and backward.
+It imports nothing of JAX or of the JAX package; the JAX package stays the
+reference it is tested against.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller asks for
 the CPU, where each kernel's plain PyTorch version runs instead.

@@ -1,12 +1,13 @@
-"""GAN configuration: the same fields and defaults as ``melogan_tpu.config.GANConfig``.
+"""GAN and emotion-discriminator configurations: the same fields and defaults
+as ``melogan_tpu.config.GANConfig`` and the model fields of its ``EDConfig``.
 
-Loading from YAML comes with a later slice; the shipped configuration is the
-default-constructed ``GANConfig()``.
+Loading from YAML comes with a later slice; the shipped configurations are the
+default-constructed ``GANConfig()`` and ``EDConfig()``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 
 def validate_ema_decay(d) -> float:
@@ -74,3 +75,41 @@ class GANConfig:
 
     def __post_init__(self):
         validate_ema_decay(self.ema_decay)
+
+
+@dataclass
+class EDConfig:
+    """Emotion-discriminator model config (reference config/ed_config.yaml).
+
+    Only the model fields: the ED trainer (optimizer, scheduler, paths) comes
+    with a later slice."""
+
+    name: str = "emotion_discriminator_v1"
+    input_mode: str = "notes"  # 'latent' | 'notes'
+    # 'normalized': trained on the GAN-normalized note layout (in-domain for
+    # the GAN's emotion loss); 'raw': the reference's raw .npz notes
+    notes_domain: str = "normalized"
+    n_classes: int = 4
+    labels: Tuple[str, ...] = ("happy", "sad", "angry", "calm")
+    latent_dim: int = 64  # unused in notes mode, kept for parity
+    note_dim: int = 4
+    max_notes: int = 512
+    notes_hidden: int = 256
+    notes_blocks: int = 4
+    mlp_hidden: Tuple[int, ...] = (256, 128)
+    dropout: float = 0.2
+    use_spectral_norm: bool = False
+
+    def model_cfg(self) -> Dict[str, Any]:
+        """Dict view consumed by the EmotionDiscriminator constructor."""
+        return {
+            "input_mode": self.input_mode,
+            "latent_dim": self.latent_dim,
+            "note_dim": self.note_dim,
+            "notes_hidden": self.notes_hidden,
+            "notes_blocks": self.notes_blocks,
+            "mlp_hidden": list(self.mlp_hidden),
+            "n_classes": self.n_classes,
+            "dropout": self.dropout,
+            "use_spectral_norm": self.use_spectral_norm,
+        }

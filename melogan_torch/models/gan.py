@@ -11,12 +11,17 @@ reference state dict, or one exported from JAX variables by
   (256→128→64→note_dim, k5/s2/p2/op1), trimmed or padded to ``max_notes``
 - ``Generator``: concat [noise, numeric_emb (+ AE latent in 'conditioning'
   mode)] → NoiseToLatent → decoder; returns (notes, latent)
+- ``Critic``: ``conv.{0,2,4}`` = three k5 s2 p2 convs 4→64→128→256, each
+  followed by LeakyReLU(0.2) (no batch-norm: WGAN-GP), mean-pool,
+  ``fc.1`` linear to 256 + LeakyReLU, concat the numeric embedding,
+  ``real_fake`` scalar score head
 - ``FeatureEncoder``: ``net.0..7`` = LayerNorm(6) → (Linear, GELU, Dropout)×2
-  → Linear, a 128-d embedding
+  → Linear, a 128-d embedding; its dropout masks are injected or drawn from
+  a ``torch.Generator``
 
 Notes are (B, max_notes, note_dim), channels last as in the JAX package. The
-convolutions run through ``ops`` in that layout; the Critic comes with the
-training slice.
+generator's convolutions run through ``ops`` in that layout, differentiable
+on both devices; the critic's are pinned to ``F.conv1d`` (see ``Critic``).
 """
 from __future__ import annotations
 
@@ -26,7 +31,14 @@ import torch
 from torch import nn
 
 from melogan_torch.config import GANConfig
-from melogan_torch.models.layers import batch_norm_lc, default_precision, trim_or_pad_length
+from melogan_torch.models.layers import (
+    Conv1d,
+    Dropout,
+    adaptive_avg_pool_1,
+    batch_norm_lc,
+    default_precision,
+    trim_or_pad_length,
+)
 from melogan_torch.ops.conv import conv_transpose1d
 from melogan_torch.ops.decoder import fold_bn_affine, fused_decoder_tail
 
@@ -175,8 +187,52 @@ class Generator(nn.Module):
         )
 
 
+class Critic(nn.Module):
+    """WGAN-GP critic: raw realness score per sample (B,).
+
+    Batch-norm-free, conditioned on the numeric embedding by concatenation
+    before the score head. Its convolutions are pinned to ``F.conv1d``
+    (``Conv1d(native=True)``), as the JAX critic pins its own to XLA's conv
+    (``pallas=False``): the gradient penalty differentiates the critic's
+    input gradient again w.r.t. its parameters, and the port's conv
+    Functions are first-order only.
+    """
+
+    def __init__(self, note_dim: int = 4, emb_dim: int = 256, numeric_embed_dim: int = 128):
+        super().__init__()
+        self.numeric_embed_dim = numeric_embed_dim
+        layers = []
+        cin = note_dim
+        for ch in (64, 128, 256):
+            layers += [Conv1d(cin, ch, 5, stride=2, padding=2, native=True), nn.LeakyReLU(0.2)]
+            cin = ch
+        self.conv = nn.Sequential(*layers)
+        self.fc = nn.Sequential(nn.Flatten(), nn.Linear(cin, emb_dim), nn.LeakyReLU(0.2))
+        self.real_fake = nn.Linear(emb_dim + numeric_embed_dim, 1)
+
+    def forward(self, notes: torch.Tensor,
+                numeric_embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.numeric_embed_dim > 0:
+            if numeric_embedding is None or numeric_embedding.shape[-1] != self.numeric_embed_dim:
+                raise ValueError(
+                    f"critic needs a numeric embedding of dim {self.numeric_embed_dim}, got "
+                    f"{None if numeric_embedding is None else tuple(numeric_embedding.shape)}")
+        x = self.fc(adaptive_avg_pool_1(self.conv(notes)))
+        if self.numeric_embed_dim > 0:
+            x = torch.cat([x, numeric_embedding], dim=1)
+        return self.real_fake(x).squeeze(1)
+
+    @classmethod
+    def from_config(cls, cfg: GANConfig) -> "Critic":
+        return cls(note_dim=cfg.note_dim,
+                   numeric_embed_dim=cfg.encoder_out_dim if cfg.use_numeric_encoder else 0)
+
+
 class FeatureEncoder(nn.Module):
-    """Numeric feature (6,) → conditioning embedding (out_dim,)."""
+    """Numeric feature (6,) → conditioning embedding (out_dim,).
+
+    In train mode each Dropout takes its keep mask from ``masks`` (one per
+    hidden layer, of shape (B, hidden)) or draws it from ``generator``."""
 
     def __init__(
         self,
@@ -193,13 +249,34 @@ class FeatureEncoder(nn.Module):
         layers = [nn.LayerNorm(in_dim)]
         prev = in_dim
         for h in hidden_dims:
-            layers += [nn.Linear(prev, h), nn.GELU(), nn.Dropout(dropout)]
+            layers += [nn.Linear(prev, h), nn.GELU(), Dropout(dropout)]
             prev = h
         layers.append(nn.Linear(prev, out_dim))
         self.net = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x)
+    @property
+    def dropouts(self) -> Sequence[Dropout]:
+        return [m for m in self.net if isinstance(m, Dropout)]
+
+    def draw_masks(self, batch: int, generator: torch.Generator) -> Sequence[torch.Tensor]:
+        """Keep masks for one train-mode forward over ``batch`` rows, drawn
+        from ``generator`` on its device."""
+        widths = [m.out_features for m in self.net if isinstance(m, nn.Linear)][:-1]
+        return [d.draw_mask((batch, w), generator, generator.device)
+                for d, w in zip(self.dropouts, widths)]
+
+    def forward(self, x: torch.Tensor, masks: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if masks is not None and len(masks) != len(self.dropouts):
+            raise ValueError(f"expected {len(self.dropouts)} dropout masks, got {len(masks)}")
+        i = 0
+        for m in self.net:
+            if isinstance(m, Dropout):
+                x = m(x, None if masks is None else masks[i], generator)
+                i += 1
+            else:
+                x = m(x)
+        return x
 
     @classmethod
     def from_config(cls, cfg: GANConfig, dropout: Optional[float] = None) -> "FeatureEncoder":

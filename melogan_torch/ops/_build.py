@@ -131,7 +131,8 @@ def check(err: int, what: str) -> None:
 def check_operand(kernel: str, t, name: str, dev, shape=None, aligned: bool = False) -> None:
     """Raise on an operand a kernel does not take: another device, not
     float32, not contiguous, another shape, not 16-byte aligned (where the
-    kernel loads float4s), or requiring grad (the kernels have no backward)."""
+    kernel loads float4s), or requiring grad (a wrapper launches a forward
+    kernel only; ``ops.conv`` gives the convolutions their backward)."""
     if t.device != dev:
         raise ValueError(f"{kernel}: {name} is on {t.device}, x on {dev}")
     if t.dtype != torch.float32:
@@ -144,4 +145,5 @@ def check_operand(kernel: str, t, name: str, dev, shape=None, aligned: bool = Fa
         raise ValueError(f"{kernel}: {name} must be 16-byte aligned (float4 loads)")
     if torch.is_grad_enabled() and t.requires_grad:
         raise NotImplementedError(
-            f"{kernel} is forward-only; its backward comes with the training slice")
+            f"{kernel}: the kernel wrapper is forward-only; for gradients call "
+            f"melogan_torch.ops.conv.conv1d / conv_transpose1d")

@@ -179,12 +179,14 @@ def create_server(
     a threaded WSGI server. The caller runs ``serve_forever`` and, at the
     end, ``shutdown`` and ``server_close``."""
     cfg = GANConfig()
-    gen_sd = fe_sd = None
+    gen_sd = fe_sd = features = None
     if checkpoint:
         from melogan_torch.utils.weights import load_gan_final_pth
 
-        gen_sd, fe_sd = load_gan_final_pth(checkpoint)
-    sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd, device=device)
+        # the training corpus's emotion centroids come along where train() saved them
+        gen_sd, fe_sd, features = load_gan_final_pth(checkpoint)
+    sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd,
+                      emotion_features=features, device=device)
     # warm up before accepting traffic: the first call builds the kernels
     sampler.sample_notes(["happy"], seed=0)
     state = AppState(cfg, sampler, ckpt_path=checkpoint)

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from melogan_torch.config import GANConfig
+from melogan_torch.ops import conv as conv_ops
+from melogan_torch.ops.conv1d import conv1d_cuda, conv1d_plain
 from melogan_torch.ops.convt import convt1d_cuda, convt1d_plain
 from melogan_torch.ops.decoder import decoder_tail_cuda, decoder_tail_plain, fused_decoder_tail
 from melogan_torch.sampling import Sampler
@@ -29,7 +31,7 @@ CONVT_SHAPES = [
     (2, 20, 8, 4, 3, 1, 1, 0),
     (3, 8, 24, 12, 5, 2, 2, 1),
     (4, 64, 256, 128, 5, 2, 2, 1),
-    # large enough for the tiled kernel (4 waves of blocks, Cout >= 64),
+    # large enough for the tiled kernel (a block per SM, Cout >= 64),
     # with float4 weights, scalar weights (Cout % 4 != 0) and stride 3
     (288, 64, 256, 128, 5, 2, 2, 1),
     (2048, 16, 32, 66, 5, 2, 2, 1),
@@ -68,6 +70,74 @@ def test_convt1d_kernel_matches_plain(cuda, rng, b, l, cin, cout, k, s, p, op):
     # without bias too
     torch.testing.assert_close(convt1d_cuda(x, w, None, s, p, op),
                                convt1d_plain(x, w, None, s, p, op), atol=1e-4, rtol=1e-4)
+
+
+CONV1D_SHAPES = [
+    # (b, l, cin, cout, k, s, p): the ED's four layers, ...
+    (4, 512, 4, 64, 5, 1, 2),
+    (4, 512, 64, 128, 3, 1, 1),
+    (4, 512, 128, 256, 3, 1, 1),
+    (2, 512, 256, 256, 3, 1, 1),
+    # ... the VAE encoder's k5 s2 p2, the decoder convts' input gradients
+    # (k5 s2 p2 from 4, 64 and 128 channels), and ragged edges: a Cin chunk
+    # that is not full, Cout not a multiple of 64 or of 4, stride 3, K = 7
+    (3, 512, 4, 64, 5, 2, 2),
+    (4, 128, 128, 256, 5, 2, 2),
+    (3, 37, 20, 70, 7, 3, 3),
+    (2, 65, 17, 6, 2, 1, 0),
+]
+
+
+@pytest.mark.parametrize("b,l,cin,cout,k,s,p", CONV1D_SHAPES)
+def test_conv1d_kernel_matches_plain(cuda, rng, b, l, cin, cout, k, s, p):
+    x = _t(rng.normal(size=(b, l, cin)), cuda)
+    w = _t(rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin), cuda)
+    bias = _t(rng.normal(size=(cout,)) * 0.1, cuda)
+    before = conv1d_cuda.launches
+    out = conv1d_cuda(x, w, bias, s, p)
+    torch.cuda.synchronize()
+    assert conv1d_cuda.launches == before + 1
+    torch.testing.assert_close(out, conv1d_plain(x, w, bias, s, p), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(conv1d_cuda(x, w, None, s, p),
+                               conv1d_plain(x, w, None, s, p), atol=1e-4, rtol=1e-4)
+
+
+def _grads(fn, x, w, bias, g):
+    x, w, bias = (t.detach().clone().requires_grad_() for t in (x, w, bias))
+    (fn(x, w, bias) * g).sum().backward()
+    return x.grad, w.grad, bias.grad
+
+
+@pytest.mark.parametrize("b,l,cin,cout,k,s,p,op,transposed", [
+    (4, 512, 4, 64, 5, 1, 2, 0, False),  # ED layer 1: dx is convt to 4 channels
+    (32, 512, 64, 128, 3, 1, 1, 0, False),  # dx takes convt's tiled path at stride 1
+    (3, 512, 4, 64, 5, 2, 2, 0, False),
+    (3, 511, 8, 16, 5, 2, 2, 0, False),  # (L + 2p - K) odd: dx needs output_padding 1
+    (4, 64, 256, 128, 5, 2, 2, 1, True),  # the generator's three convts
+    (4, 128, 128, 64, 5, 2, 2, 1, True),
+    (4, 256, 64, 4, 5, 2, 2, 1, True),
+])
+def test_conv_backward_runs_the_other_kernel(cuda, rng, b, l, cin, cout, k, s, p, op, transposed):
+    """Each Function's dx, dw and dbias on the card against autograd through
+    the plain version; the input gradient launches the other conv's kernel."""
+    x = _t(rng.normal(size=(b, l, cin)), cuda)
+    w = _t(rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin), cuda)
+    bias = _t(rng.normal(size=(cout,)) * 0.1, cuda)
+    if transposed:
+        ours = lambda x, w, bias: conv_ops.conv_transpose1d(x, w, s, p, op, bias)  # noqa: E731
+        plain = lambda x, w, bias: convt1d_plain(x, w, bias, s, p, op)  # noqa: E731
+        other = conv1d_cuda
+    else:
+        ours = lambda x, w, bias: conv_ops.conv1d(x, w, s, p, bias)  # noqa: E731
+        plain = lambda x, w, bias: conv1d_plain(x, w, bias, s, p)  # noqa: E731
+        other = convt1d_cuda
+    g = _t(rng.normal(size=tuple(plain(x, w, bias).shape)), cuda)
+    before = other.launches
+    got = _grads(ours, x, w, bias, g)
+    torch.cuda.synchronize()
+    assert other.launches == before + 1
+    for a, e in zip(got, _grads(plain, x, w, bias, g)):
+        torch.testing.assert_close(a, e, atol=1e-4 * float(e.abs().max()), rtol=1e-4)
 
 
 @pytest.mark.parametrize("b,m,widths", [

@@ -182,7 +182,7 @@ def test_build_command_targets_hopper(tmp_path):
     assert "-gencode arch=compute_90a,code=sm_90a" in joined
     assert "-shared" in cmd and "-O3" in cmd and "-fPIC" in cmd
     assert cmd[-1].endswith("csrc/convt1d.cu")
-    assert _build.kernel_names() == ["convt1d", "decoder_tail"]
+    assert _build.kernel_names() == ["conv1d", "convt1d", "decoder_tail"]
 
 
 def test_build_rebuilds_when_source_is_newer(tmp_path, monkeypatch):
