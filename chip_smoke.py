@@ -8,9 +8,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3. turns TF32 off, then holds each kernel against its plain PyTorch version at
    the main paths' shapes and times kernel, plain version and one PyTorch
    library call (a yardstick the port never calls) with CUDA events:
-   ``decoder_tail`` and ``convt1d`` at batch 1 and 4096 (the sampling path),
-   ``conv1d`` at the emotion discriminator's four layers at batch 32 (the
-   training batch) and 1024, plus the VAE encoder's stride-2 layer; then the
+   ``decoder_tail`` at batch 1 and 4096 (the sampling path), ``convt1d`` at
+   the decoder's three layers at batch 1, 32 (the generator forward of a
+   training step) and 4096, ``conv1d`` at the emotion discriminator's four
+   layers at batch 32 (the training batch) and 1024, plus the VAE encoder's
+   stride-2 layer; the conv bounds are taken at the 3xTF32 rate; then the
    two backward routes (each conv's input gradient runs the other conv's
    kernel) against autograd through the plain versions;
 4. drives the sampling path with every launch count set to 0:
@@ -48,12 +50,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")  # results.json, a .mid
 
 # H100 SXM data sheet, dense, at the full 700 W power limit
-PEAK_F32_FLOPS = 67e12  # IEEE f32 outside the tensor cores
+PEAK_F32_FLOPS = 67e12  # IEEE f32 outside the tensor cores (decoder_tail)
+PEAK_3XTF32_FLOPS = 495e12 / 3  # f32 work in 3xTF32 on the tensor cores (the convs)
 PEAK_HBM_BYTES = 3.35e12
-# kernel vs plain version, both IEEE f32 with sums in different orders over
-# at most 5·256 products per stage and three stages: agreement is ~1e-6 of
-# the output scale, so 1e-4 of it leaves a wide margin and still catches a
-# wrong tap, channel or boundary (those are O(1) of the scale)
+# kernel vs plain version. decoder_tail sums in IEEE f32; the two conv
+# kernels sum in 3xTF32 (each operand split into two TF32 halves, three
+# tensor-core products into one f32 sum), which is f32-accurate: about 5e-7
+# of the output scale against a float64 product at these widths, as IEEE f32
+# is (tests/test_torch_igemm.py), so max_rel_err should read near 1e-6. The
+# plain version sums in IEEE f32 in another order over at most 5·256
+# products a layer. 1e-4 of the scale leaves a wide margin and still catches
+# a wrong tap, channel or boundary (those are O(1) of the scale), and one-pass
+# TF32 (about 3e-4) fails it.
 TOL_REL = 1e-4
 BATCHES = (1, 4096)
 MAIN_BATCH = 4096
@@ -66,6 +74,7 @@ ED_LAYERS = [(512, 4, 64, 5, 1, 2, "ed1"), (512, 64, 128, 3, 1, 1, "ed2"),
 CONV1D_LAYERS = ED_LAYERS + [(512, 4, 32, 5, 2, 2, "vae1")]
 CONV1D_BATCHES = (32, 1024)
 TRAIN_BATCH = 32
+CONVT_BATCHES = (1, TRAIN_BATCH, 4096)
 # ((L, Cin, Cout, K, s, p, output_padding), transposed, name): conv1d's input
 # gradient runs convt1d (the ED's layers), convT's runs conv1d (the decoder's)
 BACKWARD_LAYERS = [((l, cin, cout, k, s, p, 0), False, n) for l, cin, cout, k, s, p, n in ED_LAYERS] + [
@@ -100,13 +109,14 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    """Least time on the card (ms): the larger of operations over the f32
-    peak and bytes (each input read once, each output written once) over
-    the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def bound(flops, nbytes, peak_flops):
+    """Least time on the card (ms): the larger of operations over the
+    kernel's peak (IEEE f32 for decoder_tail, 3xTF32 for the convs) and
+    bytes (each input read once, each output written once) over the HBM
+    rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops_ms": t_ops, "bytes_ms": t_bytes}
+            "ops_ms": t_ops, "bytes_ms": t_bytes, "peak_flops": peak_flops}
 
 
 def compare(out, ref, what):
@@ -145,7 +155,7 @@ def check_decoder(torch, F, ops, b, gen, results):
         "kernel_ms": time_ms(torch, lambda: ops["decoder"].decoder_tail_cuda(x, stages), iters),
         "plain_ms": time_ms(torch, lambda: ops["decoder"].decoder_tail_plain(x, stages), iters),
         "library_ms": time_ms(torch, library, iters),
-        **bound(flops, nbytes), "flops": flops, "bytes": nbytes,
+        **bound(flops, nbytes, PEAK_F32_FLOPS), "flops": flops, "bytes": nbytes,
     }
     emit(rec, results)
     return rec
@@ -171,7 +181,7 @@ def check_convt(torch, F, ops, b, gen, results):
             "kernel_ms": time_ms(torch, lambda: ops["convt"].convt1d_cuda(x, w, bias, 2, 2, 1), iters),
             "plain_ms": time_ms(torch, lambda: ops["convt"].convt1d_plain(x, w, bias, 2, 2, 1), iters),
             "library_ms": time_ms(torch, lambda: F.conv_transpose1d(xn, wt, bias, 2, 2, 1), iters),
-            **bound(flops, nbytes), "flops": flops, "bytes": nbytes,
+            **bound(flops, nbytes, PEAK_3XTF32_FLOPS), "flops": flops, "bytes": nbytes,
         }
         emit(rec, results)
         recs.append(rec)
@@ -201,7 +211,7 @@ def check_conv1d(torch, F, ops, b, gen, results):
             "kernel_ms": time_ms(torch, lambda: c1.conv1d_cuda(x, w, bias, s, p), iters),
             "plain_ms": time_ms(torch, lambda: c1.conv1d_plain(x, w, bias, s, p), iters),
             "library_ms": time_ms(torch, lambda: F.conv1d(xn, wt, bias, s, p), iters),
-            **bound(flops, nbytes), "flops": flops, "bytes": nbytes,
+            **bound(flops, nbytes, PEAK_3XTF32_FLOPS), "flops": flops, "bytes": nbytes,
         }
         emit(rec, results)
         recs.append(rec)
@@ -260,7 +270,7 @@ def check_backward_routes(torch, F, ops, b, gen, results):
             "dx_kernel_ms": time_ms(torch, route, iters),
             "dx_plain_ms": time_ms(torch, route_plain, iters),
             "dx_library_ms": time_ms(torch, library, iters),
-            **bound(flops, nbytes), "flops": flops,
+            **bound(flops, nbytes, PEAK_3XTF32_FLOPS), "flops": flops,
         }
         emit(rec, results)
         recs.append(rec)
@@ -590,6 +600,7 @@ def main() -> int:
     dec, cvt, c1d = {}, {}, {}
     for b in BATCHES:
         dec[b] = check_decoder(torch, F, ops, b, gen, results)
+    for b in CONVT_BATCHES:
         cvt[b] = check_convt(torch, F, ops, b, gen, results)
     for b in CONV1D_BATCHES:
         c1d[b] = check_conv1d(torch, F, ops, b, gen, results)
@@ -616,7 +627,7 @@ def main() -> int:
     check_group_step_against_cpu(torch, np, results)
     launches = {k: sampling[k] + training[k] for k in wrappers}
 
-    big_d, big_c = dec[BATCHES[-1]], cvt[BATCHES[-1]]  # batch 4096
+    big_d, big_c = dec[BATCHES[-1]], cvt[CONVT_BATCHES[-1]]  # batch 4096
     ed32 = [r for r in c1d[TRAIN_BATCH] if r["layer"].startswith("ed")]
 
     def summed(name, recs, **extra):
@@ -630,6 +641,7 @@ def main() -> int:
             "bound_by": ("operations" if sum(r["ops_ms"] for r in recs)
                          >= sum(r["bytes_ms"] for r in recs) else "bytes"),
             "library_ms": sum(r["library_ms"] for r in recs),
+            "peak_flops": recs[0]["peak_flops"],
         }
 
     kernels = [
@@ -641,12 +653,12 @@ def main() -> int:
             "max_abs_err": max(dec[b]["max_abs_err"] for b in BATCHES),
             "ms": big_d["kernel_ms"], "plain_ms": big_d["plain_ms"],
             "bound_ms": big_d["bound_ms"], "bound_by": big_d["bound_by"],
-            "library_ms": big_d["library_ms"],
+            "library_ms": big_d["library_ms"], "peak_flops": big_d["peak_flops"],
         },
         # the three layers of the layered decoder tail at batch 4096, summed
         summed("convt1d", big_c, source="melogan_torch/csrc/convt1d.cu",
                replaces="melogan_tpu/ops/pallas/conv1d.py:140",
-               max_abs_err=max(r["max_abs_err"] for b in BATCHES for r in cvt[b])),
+               max_abs_err=max(r["max_abs_err"] for b in CONVT_BATCHES for r in cvt[b])),
         # the ED's four layers at the training batch (32), summed
         summed("conv1d", ed32, source="melogan_torch/csrc/conv1d.cu",
                replaces="melogan_tpu/ops/pallas/conv1d.py:64",

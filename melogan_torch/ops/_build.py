@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library with a plain C interface under ``build/melogan_torch/`` of the
 checkout, at first use, and loads with ``ctypes``. A library is rebuilt when
-its source is newer. :func:`build_all` compiles every stale source at once,
+its source, or any header ``csrc/*.cuh`` (the shared implicit-GEMM core), is
+newer. :func:`build_all` compiles every stale source at once,
 one ``nvcc`` process each, started together.
 
 Nothing here runs at import: the CPU tests import every module of the port,
@@ -46,9 +47,14 @@ def log_path(name: str) -> Path:
     return BUILD_DIR / f"{name}.log"
 
 
+def sources(name: str) -> List[Path]:
+    """What library ``name`` is built from: its ``.cu`` and every header."""
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+
+
 def is_stale(name: str) -> bool:
     lib = library_path(name)
-    return not lib.exists() or (CSRC / f"{name}.cu").stat().st_mtime > lib.stat().st_mtime
+    return not lib.exists() or max(p.stat().st_mtime for p in sources(name)) > lib.stat().st_mtime
 
 
 def find_nvcc() -> str:

@@ -15,9 +15,7 @@ from typing import Optional
 import torch
 
 from melogan_torch.ops import _build
-
-MAX_K = 7
-MAX_STRIDE = 16
+from melogan_torch.ops.igemm import MAX_K, MAX_STRIDE, conv1d_plan
 
 
 def conv_out_len(l: int, k: int, stride: int, padding: int) -> int:
@@ -62,7 +60,7 @@ def _lib():
     lib = _build.load("conv1d")
     if not getattr(lib, "_melogan_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.melogan_conv1d.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.melogan_conv1d.argtypes = [p, p, p, p, p, i, p]
         lib.melogan_conv1d.restype = ctypes.c_int
         lib._melogan_typed = True
     return lib
@@ -70,7 +68,8 @@ def _lib():
 
 def conv1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 1,
                 padding: int = 0):
-    """Launch ``csrc/conv1d.cu`` on PyTorch's current stream.
+    """Launch ``csrc/conv1d.cu`` (the implicit-GEMM core) on PyTorch's
+    current stream.
 
     Takes CUDA float32 contiguous tensors only and raises on anything else
     (K ≤ 7, stride ≤ 16). Forward only: gradients come from
@@ -100,7 +99,7 @@ def conv1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 1,
         return y
     err = _lib().melogan_conv1d(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), b, l, cin, cout, k, stride, padding, lout,
+        y.data_ptr(), ctypes.byref(conv1d_plan(b, l, cin, cout, k, stride, padding).c_struct()),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "conv1d launch")

@@ -10,27 +10,16 @@ the tensor's device.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from melogan_torch.ops import _build
+from melogan_torch.ops.igemm import check_limits, convt_plan, convt_taps
 
 
 def convt_out_len(l: int, k: int, stride: int, padding: int, output_padding: int) -> int:
     return (l - 1) * stride - 2 * padding + k + output_padding
-
-
-def convt_taps(k: int, stride: int, padding: int, r: int) -> List[Tuple[int, int]]:
-    """Output parity class r: (tap_j, x_offset) pairs with
-    out[stride·t + r] = Σ_j x[t + off_j] · w_flipped[j]
-    (``_convt_taps`` of the JAX package)."""
-    padlo = k - 1 - padding
-    return [
-        (j, (r + j - padlo) // stride)
-        for j in range(k)
-        if (r + j - padlo) % stride == 0
-    ]
 
 
 def convt1d_plain(x, w, bias=None, stride: int = 2, padding: int = 0,
@@ -77,7 +66,7 @@ def _lib():
     lib = _build.load("convt1d")
     if not getattr(lib, "_melogan_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.melogan_convt1d.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.melogan_convt1d.argtypes = [p, p, p, p, p, i, p]
         lib.melogan_convt1d.restype = ctypes.c_int
         lib._melogan_typed = True
     return lib
@@ -85,10 +74,12 @@ def _lib():
 
 def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
                  padding: int = 0, output_padding: int = 0):
-    """Launch ``csrc/convt1d.cu`` on PyTorch's current stream.
+    """Launch ``csrc/convt1d.cu`` (the implicit-GEMM core, every parity class
+    in one launch) on PyTorch's current stream.
 
-    Takes CUDA float32 contiguous tensors only and raises on anything else;
-    forward only (no autograd), so it refuses inputs that require grad."""
+    Takes CUDA float32 contiguous tensors only and raises on anything else
+    (K ≤ 7, stride ≤ 16); forward only (no autograd), so it refuses inputs
+    that require grad."""
     if x.device.type != "cuda":
         raise ValueError(f"convt1d_cuda needs CUDA tensors, got {x.device}")
     if x.dim() != 3 or w.dim() != 3:
@@ -101,6 +92,7 @@ def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
     if stride < 1 or padding < 0 or output_padding < 0 or output_padding >= stride:
         raise ValueError(f"convt1d: bad geometry stride={stride} padding={padding} "
                          f"output_padding={output_padding}")
+    check_limits("convt1d", k, stride)
     dev = x.device
     _build.check_operand("convt1d", x, "x", dev)
     _build.check_operand("convt1d", w, "w", dev)
@@ -112,11 +104,10 @@ def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
     y = torch.empty((b, lout, cout), device=dev, dtype=torch.float32)
     if y.numel() == 0:
         return y
-    if -(-y.numel() // 256) >= 2**31:
-        raise ValueError(f"convt1d: output of {y.numel()} elements exceeds one grid")
+    plan = convt_plan(b, l, cin, cout, k, stride, padding, output_padding)
     err = _lib().melogan_convt1d(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), b, l, cin, cout, k, stride, padding, lout,
+        y.data_ptr(), ctypes.byref(plan.c_struct()),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "convt1d launch")

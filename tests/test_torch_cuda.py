@@ -7,9 +7,13 @@ installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerance: kernel and plain version both sum in IEEE f32 (TF32 off), in
-different orders, over at most 5·Cin products per output; 1e-4 absolute and
-relative on O(1) outputs is about 100× that rounding.
+Tolerance: the conv kernels sum in 3xTF32 on the tensor cores (each
+operand split into two TF32 halves, three products into one f32 sum), which
+is f32-accurate (about 5e-7 of the output scale against float64 at full
+width, as IEEE f32 is; tests/test_torch_igemm.py); ``decoder_tail`` and the
+plain versions sum in IEEE f32 (TF32 off), all in different orders over at
+most 5·Cin products per output. 1e-4 absolute and relative on O(1) outputs is
+about 100× that rounding; one-pass TF32 would miss it.
 """
 import numpy as np
 import pytest
@@ -25,17 +29,24 @@ from melogan_torch.sampling import Sampler
 pytestmark = pytest.mark.cuda
 
 CONVT_SHAPES = [
+    # (b, l, cin, cout, k, s, p, op)
     (2, 16, 32, 16, 5, 2, 2, 1),
     (2, 32, 16, 8, 5, 2, 2, 1),
-    (2, 20, 8, 4, 3, 2, 1, 1),
+    (2, 20, 8, 4, 3, 2, 1, 1),  # Cout = 4: one 8-wide N tile straddles both classes
     (2, 20, 8, 4, 3, 1, 1, 0),
     (3, 8, 24, 12, 5, 2, 2, 1),
     (4, 64, 256, 128, 5, 2, 2, 1),
-    # large enough for the tiled kernel (a block per SM, Cout >= 64),
-    # with float4 weights, scalar weights (Cout % 4 != 0) and stride 3
-    (288, 64, 256, 128, 5, 2, 2, 1),
-    (2048, 16, 32, 66, 5, 2, 2, 1),
+    (2048, 16, 32, 66, 5, 2, 2, 1),  # N = 132: 64-wide tiles straddle classes, 4-byte weight copies
+    (3, 37, 66, 66, 5, 2, 2, 1),  # Cin and Cout not multiples of 4, ragged row tile
     (1200, 20, 16, 64, 4, 3, 1, 2),
+    (2, 45, 4, 32, 5, 2, 2, 1),  # Cin = 4: one 4-channel chunk, reduction 5·4 → 24
+    (2, 41, 17, 40, 5, 2, 2, 1),  # Cin = 17: a chunk of 32 with 15 zero channels
+    (2, 29, 12, 20, 7, 3, 3, 2),  # K = 7, stride 3: classes of 2 and 3 taps
+    (64, 300, 64, 128, 3, 1, 1, 0),  # stride 1 (conv1d's input gradient), 128-row tiles
+    # the decoder's three layers at full width, B = 288
+    (288, 64, 256, 128, 5, 2, 2, 1),
+    (288, 128, 128, 64, 5, 2, 2, 1),
+    (288, 256, 64, 4, 5, 2, 2, 1),
 ]
 
 
@@ -78,13 +89,19 @@ CONV1D_SHAPES = [
     (4, 512, 64, 128, 3, 1, 1),
     (4, 512, 128, 256, 3, 1, 1),
     (2, 512, 256, 256, 3, 1, 1),
+    (32, 512, 256, 256, 3, 1, 1),  # enough CTAs for 128-row tiles
     # ... the VAE encoder's k5 s2 p2, the decoder convts' input gradients
-    # (k5 s2 p2 from 4, 64 and 128 channels), and ragged edges: a Cin chunk
-    # that is not full, Cout not a multiple of 64 or of 4, stride 3, K = 7
+    # (k5 s2 p2 from 4, 64 and 128 channels), and the tiles' edges: a Cin
+    # chunk that is not full (20, 17), Cout not a multiple of 64 or of 4,
+    # narrow N tiles (6, 16, 32), stride 3 with K = 7, a ragged row tile
     (3, 512, 4, 64, 5, 2, 2),
     (4, 128, 128, 256, 5, 2, 2),
     (3, 37, 20, 70, 7, 3, 3),
     (2, 65, 17, 6, 2, 1, 0),
+    (2, 77, 4, 16, 7, 3, 3),
+    (3, 130, 17, 32, 3, 1, 1),
+    (2, 300, 12, 66, 5, 2, 2),
+    (2, 900, 8, 20, 7, 16, 3),  # stride 16: the shared-memory envelope's corner
 ]
 
 
@@ -110,9 +127,10 @@ def _grads(fn, x, w, bias, g):
 
 @pytest.mark.parametrize("b,l,cin,cout,k,s,p,op,transposed", [
     (4, 512, 4, 64, 5, 1, 2, 0, False),  # ED layer 1: dx is convt to 4 channels
-    (32, 512, 64, 128, 3, 1, 1, 0, False),  # dx takes convt's tiled path at stride 1
+    (32, 512, 64, 128, 3, 1, 1, 0, False),  # dx is a stride-1 convT (taps flipped, Q = K)
     (3, 512, 4, 64, 5, 2, 2, 0, False),
     (3, 511, 8, 16, 5, 2, 2, 0, False),  # (L + 2p - K) odd: dx needs output_padding 1
+    (32, 512, 256, 256, 3, 1, 1, 0, False),  # ED layer 4: dx is a stride-1 convT, 256 wide
     (4, 64, 256, 128, 5, 2, 2, 1, True),  # the generator's three convts
     (4, 128, 128, 64, 5, 2, 2, 1, True),
     (4, 256, 64, 4, 5, 2, 2, 1, True),
@@ -171,6 +189,24 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     w = torch.zeros((5, 6, 4), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError):
         convt1d_cuda(x, w)
+    with pytest.raises(ValueError, match="K <= 7"):
+        convt1d_cuda(x, torch.zeros((8, 6, 4), device=cuda))
+    with pytest.raises(ValueError, match="stride <= 16"):
+        conv1d_cuda(torch.zeros((2, 40, 6), device=cuda), torch.zeros((3, 6, 4), device=cuda), None, 17)
+
+
+def test_conv_kernels_take_unaligned_operands(cuda, rng):
+    """Operands one float past a 16-byte boundary take the 4-byte copies."""
+    def unaligned(shape):
+        a = _t(rng.normal(size=(int(np.prod(shape)) + 1,)), cuda)[1:].view(shape)
+        assert a.data_ptr() % 16 and a.is_contiguous()
+        return a
+
+    x, w = unaligned((3, 40, 8)), unaligned((5, 8, 12))
+    torch.testing.assert_close(convt1d_cuda(x, w, None, 2, 2, 1), convt1d_plain(x, w, None, 2, 2, 1),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(conv1d_cuda(x, w, None, 2, 2), conv1d_plain(x, w, None, 2, 2),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_sampler_on_card_matches_cpu(cuda, rng):

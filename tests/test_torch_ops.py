@@ -190,7 +190,7 @@ def test_build_rebuilds_when_source_is_newer(tmp_path, monkeypatch):
     assert _build.is_stale("convt1d")  # no library yet
     lib = _build.library_path("convt1d")
     lib.write_bytes(b"")
-    src_mtime = (_build.CSRC / "convt1d.cu").stat().st_mtime
+    src_mtime = max(p.stat().st_mtime for p in _build.sources("convt1d"))  # .cu and headers
     import os
 
     os.utime(lib, (src_mtime + 10, src_mtime + 10))
