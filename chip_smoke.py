@@ -8,20 +8,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3. turns TF32 off, then holds each kernel against its plain PyTorch version at
    the main paths' shapes and times kernel, plain version and one PyTorch
    library call (a yardstick the port never calls) with CUDA events:
-   ``decoder_tail`` at batch 1 and 4096 (the sampling path), ``convt1d`` at
-   the decoder's three layers at batch 1, 32 (the generator forward of a
-   training step) and 4096, ``conv1d`` at the emotion discriminator's four
-   layers at batch 32 (the training batch) and 1024, plus the VAE encoder's
-   stride-2 layer; the conv bounds are taken at the 3xTF32 rate; then the
-   two backward routes (each conv's input gradient runs the other conv's
-   kernel) against autograd through the plain versions;
+   ``decoder_tail`` at batch 1 and 4096 with M = 64 and at batch 2048 with
+   M = 128 (max_notes 1024; the sampling path; one call must show three
+   device launches of the implicit-GEMM core in a ``torch.profiler``
+   trace), ``convt1d`` at the decoder's three layers at batch 1, 32 (the
+   generator forward of a training step) and 4096, ``conv1d`` at the
+   emotion discriminator's four layers at batch 32 (the training batch)
+   and 1024, plus the VAE encoder's stride-2 layer;
+   every kernel's bound is taken at the 3xTF32 rate; then the two backward
+   routes (each conv's input gradient runs the other conv's kernel) against
+   autograd through the plain versions;
 4. drives the sampling path with every launch count set to 0:
    ``Sampler(GANConfig(), device="cuda")`` for the four emotions and a batch
-   of 4096 (the fused decoder kernel), a config whose max_notes is not a
-   multiple of 8 (the per-layer convt kernel), ``generate_midi``, and the HTTP
-   server answering four ``POST /generate`` and one ``GET /healthz``; reads
-   the counts, which must be > 0, and checks the notes against the port's
-   CPU path;
+   of 4096 (the decoder-tail kernel), max_notes 1024 (the same kernel at
+   M = 128), a config whose max_notes is not a multiple of 8 (the per-layer
+   convt kernel), ``generate_midi``, and the HTTP server answering four
+   ``POST /generate`` and one ``GET /healthz``; reads the counts, which must
+   be > 0, and checks the notes of each config against the port's CPU path;
 5. drives the training path with the counts set to 0 again:
    ``train(GANConfig(), EDConfig(), ...)`` at full width on a seeded corpus
    of 384 rows (2 groups and a 2-batch tail per epoch, batch 32) for 2
@@ -50,22 +53,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")  # results.json, a .mid
 
 # H100 SXM data sheet, dense, at the full 700 W power limit
-PEAK_F32_FLOPS = 67e12  # IEEE f32 outside the tensor cores (decoder_tail)
-PEAK_3XTF32_FLOPS = 495e12 / 3  # f32 work in 3xTF32 on the tensor cores (the convs)
+PEAK_F32_FLOPS = 67e12  # IEEE f32 outside the tensor cores (the group step's bound)
+PEAK_3XTF32_FLOPS = 495e12 / 3  # f32 work in 3xTF32 on the tensor cores (the kernels)
 PEAK_HBM_BYTES = 3.35e12
-# kernel vs plain version. decoder_tail sums in IEEE f32; the two conv
-# kernels sum in 3xTF32 (each operand split into two TF32 halves, three
-# tensor-core products into one f32 sum), which is f32-accurate: about 5e-7
-# of the output scale against a float64 product at these widths, as IEEE f32
-# is (tests/test_torch_igemm.py), so max_rel_err should read near 1e-6. The
-# plain version sums in IEEE f32 in another order over at most 5·256
-# products a layer. 1e-4 of the scale leaves a wide margin and still catches
-# a wrong tap, channel or boundary (those are O(1) of the scale), and one-pass
-# TF32 (about 3e-4) fails it.
+# kernel vs plain version. The kernels sum in 3xTF32 (each operand split into
+# two TF32 halves, three tensor-core products into one f32 sum), which is
+# f32-accurate: about 5e-7 of the output scale against a float64 product at
+# these widths, as IEEE f32 is (tests/test_torch_igemm.py), so max_rel_err
+# should read near 1e-6. The plain version sums in IEEE f32 in another order
+# over at most 5·256 products a layer. 1e-4 of the scale leaves a wide margin
+# and still catches a wrong tap, channel or boundary (those are O(1) of the
+# scale), and one-pass TF32 (about 3e-4) fails it.
 TOL_REL = 1e-4
-BATCHES = (1, 4096)
 MAIN_BATCH = 4096
-DECODER_M, DECODER_WIDTHS = 64, (256, 128, 64, 4)
+# (batch, M) of decoder_tail: /generate, bulk sampling, and max_notes 1024
+DECODER_CASES = [(1, 64), (MAIN_BATCH, 64), (2048, 128)]
+DECODER_WIDTHS = (256, 128, 64, 4)
+DECODER_LAUNCHES = 3  # igemm_conv launches a decoder_tail call must show in the trace
 CONVT_LAYERS = [(64, 256, 128), (128, 128, 64), (256, 64, 4)]  # (L, Cin, Cout)
 # (L, Cin, Cout, K, stride, padding, name): the ED's four conv blocks, the
 # training path's shapes, and the VAE encoder's first (stride-2) layer
@@ -111,9 +115,8 @@ def time_ms(torch, fn, iters):
 
 def bound(flops, nbytes, peak_flops):
     """Least time on the card (ms): the larger of operations over the
-    kernel's peak (IEEE f32 for decoder_tail, 3xTF32 for the convs) and
-    bytes (each input read once, each output written once) over the HBM
-    rate."""
+    kernel's peak (3xTF32) and bytes (each input read once, each output
+    written once) over the HBM rate."""
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops_ms": t_ops, "bytes_ms": t_bytes, "peak_flops": peak_flops}
@@ -127,8 +130,10 @@ def compare(out, ref, what):
     return err, err / scale if scale else 0.0
 
 
-def check_decoder(torch, F, ops, b, gen, results):
-    m, widths = DECODER_M, DECODER_WIDTHS
+def check_decoder(torch, F, ops, b, m, gen, results):
+    from melogan_torch.profile_sample import device_kernels_per_call
+
+    widths = DECODER_WIDTHS
     x = torch.randn((b, m, widths[0]), device="cuda", generator=gen)
     stages = []
     for cin, cout in zip(widths[:-1], widths[1:]):
@@ -137,7 +142,14 @@ def check_decoder(torch, F, ops, b, gen, results):
     out = ops["decoder"].decoder_tail_cuda(x, stages)
     ref = ops["decoder"].decoder_tail_plain(x, stages)
     torch.cuda.synchronize()
-    err, rel = compare(out, ref, f"decoder_tail B={b}")
+    err, rel = compare(out, ref, f"decoder_tail B={b} M={m}")
+    # the most of three traces: a trace can lose a kernel's record (one of six
+    # went missing once at batch 4096), never invent one
+    launches = max(device_kernels_per_call(lambda: ops["decoder"].decoder_tail_cuda(x, stages),
+                                           "igemm_conv") for _ in range(3))
+    if launches != DECODER_LAUNCHES:
+        raise SystemExit(f"decoder_tail B={b} M={m}: {launches} igemm_conv launches a call "
+                         f"in the trace, want {DECODER_LAUNCHES}")
     xn = x.transpose(1, 2).contiguous()
     wt = [(w.permute(1, 2, 0).contiguous(), bias) for w, bias in stages]
 
@@ -151,11 +163,12 @@ def check_decoder(torch, F, ops, b, gen, results):
     nbytes = 4 * (x.numel() + out.numel() + sum(w.numel() + bb.numel() for w, bb in stages))
     rec = {
         "kernel": "decoder_tail", "batch": b, "shape": [b, m, *widths],
+        "device_launches_per_call": launches,
         "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL,
         "kernel_ms": time_ms(torch, lambda: ops["decoder"].decoder_tail_cuda(x, stages), iters),
         "plain_ms": time_ms(torch, lambda: ops["decoder"].decoder_tail_plain(x, stages), iters),
         "library_ms": time_ms(torch, library, iters),
-        **bound(flops, nbytes, PEAK_F32_FLOPS), "flops": flops, "bytes": nbytes,
+        **bound(flops, nbytes, PEAK_3XTF32_FLOPS), "flops": flops, "bytes": nbytes,
     }
     emit(rec, results)
     return rec
@@ -309,6 +322,11 @@ def drive_main_path(torch, results):
     emit({"phase": "sample_notes", "batch": MAIN_BATCH, "wall_s": walls,
           "samples_per_s_best": MAIN_BATCH / min(walls)}, results)
 
+    long_sampler = Sampler(GANConfig(max_notes=1024), seed=0, device="cuda")
+    if not long_sampler.generator.decoder.fuses():
+        raise SystemExit("max_notes=1024 should take the decoder-tail kernel")
+    check_notes(long_sampler.sample_notes(list(EMOTIONS), seed=5), (4, 1024, 4),
+                "max_notes=1024 sample_notes")
     layered = Sampler(GANConfig(max_notes=500), seed=0, device="cuda")
     if layered.generator.decoder.fuses():
         raise SystemExit("max_notes=500 should take the layered path")
@@ -339,7 +357,7 @@ def drive_main_path(torch, results):
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    return sampler, layered
+    return sampler, long_sampler, layered
 
 
 def check_against_cpu(torch, samplers, results):
@@ -598,8 +616,8 @@ def main() -> int:
                 "conv1d": conv1d.conv1d_cuda}
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec, cvt, c1d = {}, {}, {}
-    for b in BATCHES:
-        dec[b] = check_decoder(torch, F, ops, b, gen, results)
+    for b, m in DECODER_CASES:
+        dec[b, m] = check_decoder(torch, F, ops, b, m, gen, results)
     for b in CONVT_BATCHES:
         cvt[b] = check_convt(torch, F, ops, b, gen, results)
     for b in CONV1D_BATCHES:
@@ -627,7 +645,7 @@ def main() -> int:
     check_group_step_against_cpu(torch, np, results)
     launches = {k: sampling[k] + training[k] for k in wrappers}
 
-    big_d, big_c = dec[BATCHES[-1]], cvt[CONVT_BATCHES[-1]]  # batch 4096
+    big_d, big_c = dec[MAIN_BATCH, 64], cvt[CONVT_BATCHES[-1]]  # batch 4096
     ed32 = [r for r in c1d[TRAIN_BATCH] if r["layer"].startswith("ed")]
 
     def summed(name, recs, **extra):
@@ -641,7 +659,6 @@ def main() -> int:
             "bound_by": ("operations" if sum(r["ops_ms"] for r in recs)
                          >= sum(r["bytes_ms"] for r in recs) else "bytes"),
             "library_ms": sum(r["library_ms"] for r in recs),
-            "peak_flops": recs[0]["peak_flops"],
         }
 
     kernels = [
@@ -650,10 +667,11 @@ def main() -> int:
             "source": "melogan_torch/csrc/decoder_tail.cu",
             "replaces": "melogan_tpu/ops/pallas/decoder.py:73",
             "launches": launches["decoder_tail"],
-            "max_abs_err": max(dec[b]["max_abs_err"] for b in BATCHES),
+            "device_launches_per_call": min(r["device_launches_per_call"] for r in dec.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in dec.values()),
             "ms": big_d["kernel_ms"], "plain_ms": big_d["plain_ms"],
             "bound_ms": big_d["bound_ms"], "bound_by": big_d["bound_by"],
-            "library_ms": big_d["library_ms"], "peak_flops": big_d["peak_flops"],
+            "library_ms": big_d["library_ms"],
         },
         # the three layers of the layered decoder tail at batch 4096, summed
         summed("convt1d", big_c, source="melogan_torch/csrc/convt1d.cu",

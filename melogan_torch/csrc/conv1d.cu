@@ -24,5 +24,5 @@ extern "C" int melogan_conv1d(const float* x, const float* w, const float* bias,
       plan->q != plan->k) {
     return (int)cudaErrorInvalidValue;
   }
-  return igemm::run(x, w, bias, y, *plan, device, stream);
+  return igemm::run(x, w, bias, y, *plan, /*relu=*/0, device, stream);
 }

@@ -24,5 +24,5 @@ extern "C" int melogan_convt1d(const float* x, const float* w, const float* bias
   if (plan == nullptr || plan->sigma != 1 || plan->classes != plan->stride) {
     return (int)cudaErrorInvalidValue;
   }
-  return igemm::run(x, w, bias, y, *plan, device, stream);
+  return igemm::run(x, w, bias, y, *plan, /*relu=*/0, device, stream);
 }

@@ -1,9 +1,12 @@
-// Implicit-GEMM core of the port's two conv kernels (convt1d.cu, conv1d.cu):
-// tensor cores in 3xTF32, operands staged by cp.async in three stages.
+// Implicit-GEMM core of the port's kernels (convt1d.cu, conv1d.cu,
+// decoder_tail.cu): tensor cores in 3xTF32, operands staged by cp.async in
+// three stages.
 //
-// Replaces, through those two entry points:
+// Replaces, through those entry points:
 //   melogan_tpu/ops/pallas/conv1d.py::_convt_kernel  (transposed conv)
 //   melogan_tpu/ops/pallas/conv1d.py::_conv1d_kernel (strided conv)
+//   melogan_tpu/ops/pallas/decoder.py::_decoder_kernel (three transposed
+//     convs, bias and ReLU after the first two: three launches)
 //
 // What it computes: one generalised conv over channels-last rows,
 //   Y[b, t, n] = bias[n mod Cout]
@@ -54,7 +57,8 @@
 //   pair of k-steps are summed from zero and folded into the f32 sum by
 //   IEEE adds.
 // - The store works out each column's class and channel once per thread and
-//   writes 8-byte pairs of channels where Cout is even.
+//   writes 8-byte pairs of channels where Cout is even. With `relu` set it
+//   clamps each sum at zero after the bias (the decoder tail's stages).
 // Later work: wgmma with TMA, and a persistent CTA per SM.
 
 #pragma once
@@ -145,7 +149,7 @@ template <int TN, int kWarpsM, int kWarpsN>
 __global__ void __launch_bounds__(32 * kWarpsM * kWarpsN)
 igemm_conv(const float* __restrict__ x, const float* __restrict__ w,
            const float* __restrict__ bias, float* __restrict__ y,
-           const __grid_constant__ Plan p, int vec_x, int vec_w) {
+           const __grid_constant__ Plan p, int vec_x, int vec_w, int relu) {
   constexpr int kThreads = 32 * kWarpsM * kWarpsN;
   constexpr int kWM = 2;
   constexpr int kWN = TN / 8 / kWarpsN;
@@ -366,8 +370,12 @@ igemm_conv(const float* __restrict__ x, const float* __restrict__ w,
       float* yb = y + (long long)b * p.lout * p.cout;
 #pragma unroll
       for (int j = 0; j < kWN; ++j) {
-        const float v0 = acc[i][j][2 * h] + col_bias[j][0];
-        const float v1 = acc[i][j][2 * h + 1] + col_bias[j][1];
+        float v0 = acc[i][j][2 * h] + col_bias[j][0];
+        float v1 = acc[i][j][2 * h + 1] + col_bias[j][1];
+        if (relu) {  // uniform over the grid
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
         const int yrow0 = p.classes * t + col_r[j][0];
         if (pairs) {
           if (yrow0 < p.lout) {
@@ -386,7 +394,7 @@ igemm_conv(const float* __restrict__ x, const float* __restrict__ w,
 
 template <int TN, int kWarpsM, int kWarpsN>
 cudaError_t launch_tile(const float* x, const float* w, const float* bias, float* y,
-                        const Plan& p, int vec_x, int vec_w, cudaStream_t stream) {
+                        const Plan& p, int vec_x, int vec_w, int relu, cudaStream_t stream) {
   auto kernel = igemm_conv<TN, kWarpsM, kWarpsN>;
   if (p.smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -397,7 +405,7 @@ cudaError_t launch_tile(const float* x, const float* w, const float* bias, float
   const int gy = (p.n + TN - 1) / TN;
   if (gx >= (1LL << 31) || gy > 65535) return cudaErrorInvalidValue;
   kernel<<<dim3((unsigned)gx, (unsigned)gy), 32 * kWarpsM * kWarpsN, p.smem_bytes, stream>>>(
-      x, w, bias, y, p, vec_x, vec_w);
+      x, w, bias, y, p, vec_x, vec_w, relu);
   return cudaGetLastError();
 }
 
@@ -420,9 +428,10 @@ inline bool plan_ok(const Plan& p) {
   return true;
 }
 
-// One launch on `stream`; returns a cudaError_t as an int (0: launched).
+// One launch on `stream`, y = relu ? max(sum + bias, 0) : sum + bias; returns
+// a cudaError_t as an int (0: launched).
 inline int run(const float* x, const float* w, const float* bias, float* y, const Plan& p,
-               int device, void* stream) {
+               int relu, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!plan_ok(p)) return (int)cudaErrorInvalidValue;
@@ -430,11 +439,11 @@ inline int run(const float* x, const float* w, const float* bias, float* y, cons
   const int vec_x = (p.cin % 4 == 0 && ((uintptr_t)x & 15) == 0) ? 1 : 0;
   const int vec_w = (p.cout % 4 == 0 && ((uintptr_t)w & 15) == 0) ? 1 : 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (p.tile_n == 64 && p.tile_m == 64) err = launch_tile<64, 2, 2>(x, w, bias, y, p, vec_x, vec_w, s);
-  else if (p.tile_n == 64 && p.tile_m == 128) err = launch_tile<64, 4, 2>(x, w, bias, y, p, vec_x, vec_w, s);
-  else if (p.tile_n == 32 && p.tile_m == 128) err = launch_tile<32, 4, 1>(x, w, bias, y, p, vec_x, vec_w, s);
-  else if (p.tile_n == 16 && p.tile_m == 128) err = launch_tile<16, 4, 1>(x, w, bias, y, p, vec_x, vec_w, s);
-  else if (p.tile_n == 8 && p.tile_m == 128) err = launch_tile<8, 4, 1>(x, w, bias, y, p, vec_x, vec_w, s);
+  if (p.tile_n == 64 && p.tile_m == 64) err = launch_tile<64, 2, 2>(x, w, bias, y, p, vec_x, vec_w, relu, s);
+  else if (p.tile_n == 64 && p.tile_m == 128) err = launch_tile<64, 4, 2>(x, w, bias, y, p, vec_x, vec_w, relu, s);
+  else if (p.tile_n == 32 && p.tile_m == 128) err = launch_tile<32, 4, 1>(x, w, bias, y, p, vec_x, vec_w, relu, s);
+  else if (p.tile_n == 16 && p.tile_m == 128) err = launch_tile<16, 4, 1>(x, w, bias, y, p, vec_x, vec_w, relu, s);
+  else if (p.tile_n == 8 && p.tile_m == 128) err = launch_tile<8, 4, 1>(x, w, bias, y, p, vec_x, vec_w, relu, s);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

@@ -25,7 +25,7 @@ on both devices; the critic's are pinned to ``F.conv1d`` (see ``Critic``).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -65,11 +65,11 @@ class GeneratorDecoder(nn.Module):
     """(B, latent_dim) → (B, max_notes, out_channels), raw values.
 
     In eval mode at f32 precision, the three transposed convs with their
-    BatchNorm affines folded in run as ONE fused kernel
-    (``ops/decoder.py``), which keeps the activations on chip. Otherwise —
-    training, which must update the BN statistics per stage, or a
-    lower-precision request — the layered path runs each conv through
-    ``ops/conv.py``.
+    BatchNorm affines folded in run as one kernel call
+    (``ops/decoder.py``: three launches of the implicit-GEMM core, the bias
+    and ReLU in its store). Otherwise — training, which must update the BN
+    statistics per stage, or a lower-precision request — the layered path
+    runs each conv through ``ops/conv.py``.
     """
 
     def __init__(self, latent_dim: int = 128, max_notes: int = 512, out_channels: int = 4):
@@ -88,21 +88,53 @@ class GeneratorDecoder(nn.Module):
             nn.ReLU(),
             nn.ConvTranspose1d(64, out_channels, **_CONVT),
         )
+        self._folded = None  # (key, source tensors, stages) of folded_stages
 
     def fuses(self) -> bool:
         """The fuse gate of ``melogan_tpu/models/gan.py:94-103``: eval mode,
         f32 precision, and a max_notes the three ×2 stages reach exactly. The
         JAX gate's batch cap (≤ 32768) was the TPU compiler's envelope and is
-        dropped: the CUDA kernel runs one CTA per sample at any batch."""
+        dropped: each stage's launch spreads its tiles over every SM at any
+        batch, and the core takes any channel count and length."""
         return (
             not self.training
             and default_precision() == "f32"
             and self.max_notes == 8 * self.reduced_len
         )
 
+    def _fold_sources(self) -> List[torch.Tensor]:
+        """Every tensor the folded stages are computed from."""
+        out = []
+        for i in (0, 3, 6):
+            out += [self.deconv[i].weight, self.deconv[i].bias]
+        for i in (1, 4):
+            bn = self.deconv[i]
+            out += [bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.num_batches_tracked]
+        return out
+
     def folded_stages(self) -> Sequence[tuple]:
         """The three (HIO weight, bias) pairs with eval BN folded into the
-        first two, as the fused kernel takes them."""
+        first two, as the fused kernel takes them.
+
+        Without grad mode they are cached, keyed on the version counter and
+        data pointer of every source tensor: ``load_state_dict``, in-place
+        optimiser steps and moves to another device all change a key. A
+        train-mode BatchNorm updates its running statistics without bumping
+        their version counters, but it bumps ``num_batches_tracked``'s. The
+        entry holds the source tensors, so a parameter replaced by a new
+        one cannot pass its address on while the entry lives. With grad mode
+        on they are folded afresh, so that gradients flow to the parameters."""
+        if torch.is_grad_enabled():
+            return self._fold()
+        sources = self._fold_sources()
+        key = tuple((t._version, t.data_ptr()) for t in sources)
+        cached = self._folded
+        if cached is None or cached[0] != key:
+            cached = (key, sources, self._fold())
+            self._folded = cached
+        return cached[2]
+
+    def _fold(self) -> List[tuple]:
         convs = [self.deconv[0], self.deconv[3], self.deconv[6]]
         bns = [self.deconv[1], self.deconv[4]]
         stages = []

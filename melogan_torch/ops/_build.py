@@ -134,11 +134,11 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def check_operand(kernel: str, t, name: str, dev, shape=None, aligned: bool = False) -> None:
+def check_operand(kernel: str, t, name: str, dev, shape=None) -> None:
     """Raise on an operand a kernel does not take: another device, not
-    float32, not contiguous, another shape, not 16-byte aligned (where the
-    kernel loads float4s), or requiring grad (a wrapper launches a forward
-    kernel only; ``ops.conv`` gives the convolutions their backward)."""
+    float32, not contiguous, another shape, or requiring grad (a wrapper
+    launches a forward kernel only; ``ops.conv`` gives the convolutions
+    their backward)."""
     if t.device != dev:
         raise ValueError(f"{kernel}: {name} is on {t.device}, x on {dev}")
     if t.dtype != torch.float32:
@@ -147,8 +147,6 @@ def check_operand(kernel: str, t, name: str, dev, shape=None, aligned: bool = Fa
         raise ValueError(f"{kernel}: {name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if aligned and t.data_ptr() % 16:
-        raise ValueError(f"{kernel}: {name} must be 16-byte aligned (float4 loads)")
     if torch.is_grad_enabled() and t.requires_grad:
         raise NotImplementedError(
             f"{kernel}: the kernel wrapper is forward-only; for gradients call "

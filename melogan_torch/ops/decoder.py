@@ -1,5 +1,6 @@
-"""Fused generator-decoder tail: the CUDA kernel ``csrc/decoder_tail.cu`` and
-its plain PyTorch version.
+"""Generator-decoder tail: the CUDA kernel ``csrc/decoder_tail.cu`` (three
+launches of the implicit-GEMM core, ``csrc/igemm.cuh``) and its plain
+PyTorch version.
 
 Port of ``melogan_tpu/ops/pallas/decoder.py::_decoder_kernel``: (B, M, C0) →
 (B, 8·M, C3) through three k5/s2/p2/op1 transposed convolutions with bias and
@@ -14,7 +15,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from melogan_torch.ops import _build
+from melogan_torch.ops import _build, igemm
 
 K = 5
 STRIDE = 2
@@ -78,22 +79,27 @@ def decoder_tail_flops(b: int, m: int, widths: Sequence[int]) -> int:
 def _lib():
     lib = _build.load("decoder_tail")
     if not getattr(lib, "_melogan_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.melogan_decoder_tail.argtypes = [p] * 8 + [i] * 8 + [p]
+        p = ctypes.c_void_p
+        lib.melogan_decoder_tail.argtypes = [p] * 11 + [ctypes.c_int, p]
         lib.melogan_decoder_tail.restype = ctypes.c_int
-        lib.melogan_decoder_tail_smem_bytes.argtypes = [i] * 6
-        lib.melogan_decoder_tail_smem_bytes.restype = ctypes.c_int
         lib._melogan_typed = True
     return lib
 
 
+def stage_plans(b: int, m: int, widths: Sequence[int]) -> Tuple[igemm.Plan, ...]:
+    """The core's plan of each stage: a k5/s2/p2/op1 transposed conv from
+    length m·2^i and widths[i] channels to widths[i + 1] (cached)."""
+    return tuple(igemm.convt_plan(b, m << i, widths[i], widths[i + 1], K, STRIDE, PADDING, 1)
+                 for i in range(3))
+
+
 def decoder_tail_cuda(x, stages: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
-    """Launch ``csrc/decoder_tail.cu`` on PyTorch's current stream: one CTA
-    per sample, activations in shared memory. Raises on what the kernel does
-    not take: non-CUDA, non-f32, non-contiguous or unaligned tensors, channel
-    counts not a multiple of 4 (or outputs above 1024), or widths whose
-    activations exceed the card's shared memory per block (at 256/128/64/4
-    that is M > 91, max_notes > 728)."""
+    """Launch ``csrc/decoder_tail.cu`` on PyTorch's current stream: three
+    launches of the implicit-GEMM core (x → h1 → h2 → y, ReLU in the first
+    two stores), one call and one counted launch. h1 and h2 come from the
+    caching allocator on the same stream. Raises on what the kernel does not
+    take: non-CUDA, non-f32, non-contiguous or misshapen operands, or a
+    plan outside the core's envelope."""
     if x.device.type != "cuda":
         raise ValueError(f"decoder_tail_cuda needs CUDA tensors, got {x.device}")
     if len(stages) != 3:
@@ -103,30 +109,23 @@ def decoder_tail_cuda(x, stages: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
     b, m, c0 = x.shape
     dev = x.device
     widths = [c0] + [int(w.shape[-1]) for w, _ in stages]
-    if any(c % 4 for c in widths) or max(widths[1:]) > 1024 or m < 1:
-        raise ValueError(f"decoder_tail: channel counts {widths} must be multiples of 4, "
-                         f"outputs at most 1024, and M={m} positive")
-    _build.check_operand("decoder_tail", x, "x", dev, (b, m, c0), aligned=True)
+    if m < 1:
+        raise ValueError(f"decoder_tail: M={m} must be positive")
+    _build.check_operand("decoder_tail", x, "x", dev, (b, m, c0))
     for i, (w, bias) in enumerate(stages):
-        _build.check_operand("decoder_tail", w, f"w{i + 1}", dev, (K, widths[i], widths[i + 1]),
-                             aligned=True)
-        _build.check_operand("decoder_tail", bias, f"b{i + 1}", dev, (widths[i + 1],),
-                             aligned=True)
-    lib = _lib()
-    # Hopper's opt-in limit (227 KB) where an older torch lacks the field
-    limit = getattr(torch.cuda.get_device_properties(dev),
-                    "shared_memory_per_block_optin", 232448)
-    if lib.melogan_decoder_tail_smem_bytes(m, *widths, limit) < 0:
-        raise ValueError(f"decoder_tail: M={m} with widths {widths} does not fit in "
-                         f"{limit} B of shared memory per block")
+        _build.check_operand("decoder_tail", w, f"w{i + 1}", dev, (K, widths[i], widths[i + 1]))
+        _build.check_operand("decoder_tail", bias, f"b{i + 1}", dev, (widths[i + 1],))
     y = torch.empty((b, 8 * m, widths[3]), device=dev, dtype=torch.float32)
     if b == 0:
         return y
+    plans = (igemm.CPlan * 3)(*(p.c_struct() for p in stage_plans(b, m, widths)))
+    h1 = torch.empty((b, 2 * m, widths[1]), device=dev, dtype=torch.float32)
+    h2 = torch.empty((b, 4 * m, widths[2]), device=dev, dtype=torch.float32)
     (w1, b1), (w2, b2), (w3, b3) = stages
-    err = lib.melogan_decoder_tail(
+    err = _lib().melogan_decoder_tail(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), y.data_ptr(),
-        b, m, *widths, limit, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        w3.data_ptr(), b3.data_ptr(), h1.data_ptr(), h2.data_ptr(), y.data_ptr(),
+        plans, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "decoder_tail launch")
     _build.count_launch(decoder_tail_cuda)

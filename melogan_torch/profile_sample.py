@@ -7,12 +7,15 @@ warms it up, then
 
 1. times the stages of the sample step with CUDA events, each over
    ``--repeats`` runs of the same inputs: jitter and noise draws, the feature
-   encoder, NoiseToLatent plus the decoder pre-net, the fused decoder tail
-   kernel (BN folding included), and the device→host copy of the notes
+   encoder, NoiseToLatent plus the decoder pre-net, the decoder tail kernel
+   (the folded stages come from their cache), and the device→host copy of the notes
    (through page-locked memory, as ``Sampler`` does);
 2. wall-clocks whole ``sample_notes`` calls (host clock, ending in the copy);
 3. traces one ``sample_notes`` call with ``torch.profiler`` and lists device
-   time by kernel name.
+   time by kernel name;
+4. times the decoder-tail stage with the folded BN stages from their cache
+   against folding them on every call, in turn over three rounds: CUDA-event
+   ms and host-clock ms a call, and the device kernels of one call.
 
 Prints one JSON object per part; needs CUDA.
 """
@@ -89,6 +92,50 @@ def wall_times(sampler: Sampler, batch: int, repeats: int) -> list:
     return out
 
 
+def device_kernels_per_call(fn, name: str = "", calls: int = 2) -> float:
+    """Device kernels whose name holds ``name`` (any, by default) that one
+    ``fn()`` launches, read from a ``torch.profiler`` trace of ``calls``
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if str(ev.device_type).endswith("CUDA") and name in ev.key)
+    return n / calls
+
+
+def fold_cost(sampler: Sampler, batch: int, repeats: int, rounds: int = 3) -> dict:
+    """The decoder-tail stage on a seeded (batch, M, 256) input, with the
+    stages from ``folded_stages`` (cached) and from ``_fold`` (BN folded on
+    every call), alternated."""
+    dec = sampler.generator.decoder
+    rng = torch.Generator(device=sampler.device).manual_seed(0)
+    y = torch.randn((batch, dec.reduced_len, 256), generator=rng, device=sampler.device)
+    variants = {"cached": dec.folded_stages, "fold_each_call": dec._fold}
+    out = {k: {"event_ms": [], "host_ms": []} for k in variants}
+    with torch.inference_mode():
+        for _ in range(rounds):
+            for k, stages in variants.items():
+                def tail():
+                    fused_decoder_tail(y, stages())
+
+                out[k]["event_ms"].append(_event_ms(tail, repeats))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(repeats):
+                    tail()
+                torch.cuda.synchronize()
+                out[k]["host_ms"].append((time.perf_counter() - t0) * 1e3 / repeats)
+        for k, stages in variants.items():
+            out[k]["device_kernels_per_call"] = device_kernels_per_call(
+                lambda: fused_decoder_tail(y, stages()))
+    return out
+
+
 def kernel_table(sampler: Sampler, batch: int, top: int = 12) -> list:
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,6 +167,7 @@ def main(argv=None) -> None:
     print(json.dumps({**info, "sample_notes_wall_ms": wall_times(sampler, args.batch, args.repeats)}))
     table = kernel_table(sampler, args.batch)
     print(json.dumps({**info, "profiler_top_kernels": table}))
+    print(json.dumps({**info, "decoder_tail_fold": fold_cost(sampler, args.batch, args.repeats)}))
 
 
 if __name__ == "__main__":

@@ -7,13 +7,14 @@ installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerance: the conv kernels sum in 3xTF32 on the tensor cores (each
-operand split into two TF32 halves, three products into one f32 sum), which
-is f32-accurate (about 5e-7 of the output scale against float64 at full
-width, as IEEE f32 is; tests/test_torch_igemm.py); ``decoder_tail`` and the
-plain versions sum in IEEE f32 (TF32 off), all in different orders over at
-most 5·Cin products per output. 1e-4 absolute and relative on O(1) outputs is
-about 100× that rounding; one-pass TF32 would miss it.
+Tolerance: the kernels (the two convs and the decoder tail, all on one
+core) sum in 3xTF32 on the tensor cores (each operand split into two TF32
+halves, three products into one f32 sum), which is f32-accurate (about 5e-7
+of the output scale against float64 at full width, as IEEE f32 is;
+tests/test_torch_igemm.py); the plain versions sum in IEEE f32 (TF32 off),
+all in different orders over at most 5·Cin products per output. 1e-4
+absolute and relative on O(1) outputs is about 100× that rounding; one-pass
+TF32 would miss it.
 """
 import numpy as np
 import pytest
@@ -158,29 +159,43 @@ def test_conv_backward_runs_the_other_kernel(cuda, rng, b, l, cin, cout, k, s, p
         torch.testing.assert_close(a, e, atol=1e-4 * float(e.abs().max()), rtol=1e-4)
 
 
+def _decoder_stages(rng, widths, dev):
+    return [(_t(rng.normal(size=(5, cin, cout)) / np.sqrt(5 * cin), dev),
+             _t(rng.normal(size=(cout,)) * 0.1, dev))
+            for cin, cout in zip(widths[:-1], widths[1:])]
+
+
 @pytest.mark.parametrize("b,m,widths", [
     (2, 16, (24, 16, 8, 4)),
-    (3, 5, (8, 12, 8, 4)),  # M not a multiple of the 4-row tile
-    (4, 64, (256, 128, 64, 4)),  # the main path's widths
+    (3, 5, (8, 12, 8, 4)),  # M = 5: a ragged row tile in every stage
+    (2, 7, (6, 10, 6, 3)),  # channel counts not multiples of 4: 4-byte copies
+    (3, 9, (66, 33, 18, 5)),  # odd Cout: 4-byte stores, N tiles straddling classes
+    (4, 64, (256, 128, 64, 4)),  # the main path's widths (max_notes 512)
+    (2, 128, (256, 128, 64, 4)),  # max_notes 1024
 ])
 def test_decoder_tail_kernel_matches_plain(cuda, rng, b, m, widths):
+    """One wrapper call is one counted launch of the decoder-tail kernel
+    (three device launches of the core), and never goes through the
+    ``convt1d`` wrapper."""
     x = _t(rng.normal(size=(b, m, widths[0])), cuda)
-    stages = []
-    for cin, cout in zip(widths[:-1], widths[1:]):
-        stages.append((_t(rng.normal(size=(5, cin, cout)) / np.sqrt(5 * cin), cuda),
-                       _t(rng.normal(size=(cout,)) * 0.1, cuda)))
-    before = decoder_tail_cuda.launches
+    stages = _decoder_stages(rng, widths, cuda)
+    before, before_convt = decoder_tail_cuda.launches, convt1d_cuda.launches
     out = fused_decoder_tail(x, stages)
     torch.cuda.synchronize()
     assert decoder_tail_cuda.launches == before + 1
+    assert convt1d_cuda.launches == before_convt
     torch.testing.assert_close(out, decoder_tail_plain(x, stages), atol=1e-4, rtol=1e-4)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros((2, 8, 6), device=cuda)
-    stages = [(torch.zeros((5, 6, 8), device=cuda), torch.zeros(8, device=cuda))] * 3
-    with pytest.raises(ValueError, match="multiples of 4"):
-        decoder_tail_cuda(x, stages)
+    stages = [(torch.zeros((5, 6, 6), device=cuda), torch.zeros(6, device=cuda))] * 3
+    with pytest.raises(ValueError, match="float32"):
+        decoder_tail_cuda(x.double(), stages)
+    with pytest.raises(ValueError, match="contiguous"):
+        decoder_tail_cuda(x, [(stages[0][0].transpose(1, 2), stages[0][1])] + stages[1:])
+    with pytest.raises(ValueError, match="shape"):
+        decoder_tail_cuda(x, [(torch.zeros((5, 6, 8), device=cuda), torch.zeros(8, device=cuda))] * 3)
     with pytest.raises(ValueError, match="float32"):
         convt1d_cuda(x.double(), torch.zeros((5, 6, 4), device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="contiguous"):
@@ -209,10 +224,28 @@ def test_conv_kernels_take_unaligned_operands(cuda, rng):
                                atol=1e-4, rtol=1e-4)
 
 
+def test_decoder_tail_takes_unaligned_operands(cuda, rng):
+    """x and the weights one float past a 16-byte boundary take the core's
+    4-byte copies."""
+    def unaligned(a):
+        t = _t(np.concatenate([[0.0], a.ravel()]), cuda)[1:].view(a.shape)
+        assert t.data_ptr() % 16 and t.is_contiguous()
+        return t
+
+    widths = (12, 8, 8, 4)
+    x = unaligned(rng.normal(size=(3, 10, widths[0])))
+    stages = [(unaligned(rng.normal(size=(5, cin, cout)) / np.sqrt(5 * cin)), bias)
+              for (cin, cout), (_, bias) in zip(zip(widths[:-1], widths[1:]),
+                                                 _decoder_stages(rng, widths, cuda))]
+    torch.testing.assert_close(decoder_tail_cuda(x, stages), decoder_tail_plain(x, stages),
+                               atol=1e-4, rtol=1e-4)
+
+
 def test_sampler_on_card_matches_cpu(cuda, rng):
     """The whole slice on the card (kernels) against the port's CPU path
-    (plain versions), same weights and inputs, both decoder paths."""
-    for cfg in (GANConfig(), GANConfig(max_notes=500)):
+    (plain versions), same weights and inputs, both decoder paths (the
+    decoder-tail kernel at max_notes 512 and 1024)."""
+    for cfg in (GANConfig(), GANConfig(max_notes=1024), GANConfig(max_notes=500)):
         gpu = Sampler(cfg, seed=0, device="cuda")
         cpu = Sampler(cfg, gen_variables=gpu.generator.state_dict(),
                       fe_variables=gpu.feature_encoder.state_dict(), device="cpu")

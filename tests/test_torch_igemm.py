@@ -6,9 +6,11 @@ Y[b, t, n] = bias[n mod Cout] + Σ_q Σ_ci X[b, σ·t + o_min + q, ci] · W'[q, 
 from a plan made here. These tests hold the plan's tap table against the JAX
 package's ``_convt_taps``, execute the plan with torch matmuls (the core's
 algebra: gather rows by σ·t + o_q, multiply by the table's taps, mask the
-store) against ``convt1d_plain`` and ``conv1d_plain``, emulate its 3xTF32
-arithmetic at full width, and check its shared-memory envelope and its C
-mirror. The kernel itself is held against the plain versions on the card by
+store) against ``convt1d_plain`` and ``conv1d_plain``, chain the decoder
+tail's three plans with the ReLU of its store against ``decoder_tail_plain``
+and JAX's ``fused_decoder_tail``, emulate its 3xTF32 arithmetic at full
+width, and check its shared-memory envelope and its C mirror. The kernels
+themselves are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
 import importlib.util
@@ -20,11 +22,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from melogan_tpu.ops.pallas import decoder as jax_decoder
 from melogan_tpu.ops.pallas.conv1d import _convt_taps
 
 from melogan_torch.ops import _build, igemm
 from melogan_torch.ops.conv1d import conv1d_plain, conv_out_len
 from melogan_torch.ops.convt import convt1d_plain, convt_out_len
+from melogan_torch.ops.decoder import decoder_tail_plain, stage_plans
 
 ROOT = Path(__file__).resolve().parents[1]
 GRID = [(k, s) for k in range(1, 8) for s in range(1, 5)]
@@ -168,6 +174,74 @@ def test_3xtf32_is_f32_accurate_at_full_width(op, l, cin, cout, k, s, p, opad):
     assert err1 > 1e-5 * scale
 
 
+def run_tail(x, stages, matmul=torch.matmul):
+    """The decoder tail as ``decoder_tail_cuda`` runs it: the three
+    ``stage_plans`` chained through the core's arithmetic, the ReLU of the
+    first two stages in the store."""
+    b, m, c0 = x.shape
+    widths = [c0] + [int(w.shape[-1]) for w, _ in stages]
+    y = x
+    for i, (plan, (w, bias)) in enumerate(zip(stage_plans(b, m, widths), stages)):
+        y = run_plan(plan, y, w, bias, matmul)
+        if i < 2:
+            y = torch.relu(y)
+    return y
+
+
+def _tail_inputs(rng, b, m, widths):
+    x = rng.normal(size=(b, m, widths[0])).astype(np.float32)
+    stages = [((rng.normal(size=(5, cin, cout)) / np.sqrt(5 * cin)).astype(np.float32),
+               (0.1 * rng.normal(size=(cout,))).astype(np.float32))
+              for cin, cout in zip(widths[:-1], widths[1:])]
+    return x, stages
+
+
+TAIL_SHAPES = [
+    # (b, m, widths): narrow widths, M = 5 (a ragged row tile), channel
+    # counts that are not multiples of 4, and the main path's full width
+    # at M = 64 (max_notes 512) and M = 128 (max_notes 1024)
+    (2, 16, (24, 16, 8, 4)),
+    (3, 5, (8, 12, 8, 4)),
+    (2, 7, (6, 10, 6, 3)),
+    (3, 5, (5, 7, 9, 3)),
+    (2, 64, (256, 128, 64, 4)),
+    (1, 128, (256, 128, 64, 4)),
+]
+
+
+@pytest.mark.parametrize("b,m,widths", TAIL_SHAPES)
+def test_decoder_tail_plans_execute_to_plain_and_jax(b, m, widths):
+    """The three chained plans, run with f32 matmuls, equal
+    ``decoder_tail_plain`` and JAX's ``fused_decoder_tail`` (its Pallas
+    kernel in interpret mode, as the JAX tests run it on the CPU) within
+    1e-5 of the output scale: all three sum the same f32 products in other
+    orders."""
+    rng = np.random.default_rng(b * 1000 + m + sum(widths))
+    x, stages = _tail_inputs(rng, b, m, widths)
+    tstages = [(_t(w), _t(bias)) for w, bias in stages]
+    got = run_tail(_t(x), tstages)
+    plain = decoder_tail_plain(_t(x), tstages)
+    theirs = torch.from_numpy(np.array(jax_decoder.fused_decoder_tail(
+        jnp.asarray(x), [(jnp.asarray(w), jnp.asarray(bias)) for w, bias in stages])))
+    assert got.shape == plain.shape == theirs.shape == (b, 8 * m, widths[-1])
+    for want in (plain, theirs):
+        torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+
+
+def test_3xtf32_decoder_tail_is_f32_accurate_at_full_width():
+    """3xTF32 through the three chained plans at full width (M = 64, B = 2),
+    each stage's output stored in f32 as h1 and h2 are, within 2e-6 of the
+    output scale of the same chain in float64; one-pass TF32 misses it."""
+    x, stages = _tail_inputs(np.random.default_rng(5), 2, 64, (256, 128, 64, 4))
+    tstages = [(_t(w), _t(bias)) for w, bias in stages]
+    exact = run_tail(_t(x).double(), [(w.double(), bias.double()) for w, bias in tstages])
+    scale = float(exact.abs().max())
+    err3 = float((run_tail(_t(x), tstages, matmul_3xtf32).double() - exact).abs().max())
+    err1 = float((run_tail(_t(x), tstages, matmul_tf32).double() - exact).abs().max())
+    assert err3 <= 2e-6 * scale
+    assert err1 > 1e-5 * scale
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
@@ -177,6 +251,8 @@ def _chip_smoke():
 
 def _chip_smoke_plans():
     cs = _chip_smoke()
+    for b, m in cs.DECODER_CASES:  # B = 1 and 4096 at M = 64, M = 128
+        yield from stage_plans(b, m, cs.DECODER_WIDTHS)
     for b in cs.CONVT_BATCHES:
         for l, cin, cout in cs.CONVT_LAYERS:
             yield igemm.convt_plan(b, l, cin, cout, 5, 2, 2, 1)
@@ -194,10 +270,12 @@ def _chip_smoke_plans():
 
 
 def test_shared_memory_envelope():
-    """Every plan ``chip_smoke.py`` launches, and the corners of the limits
-    (K ≤ 7, stride ≤ 16), fit 227 KB of shared memory in three stages."""
+    """Every plan ``chip_smoke.py`` launches (the decoder tail's three
+    stages among them), and the corners of the limits (K ≤ 7, stride ≤ 16),
+    fit 227 KB of shared memory in three stages."""
     plans = list(_chip_smoke_plans())
-    assert len(plans) > 20
+    assert len(plans) > 29
+    assert igemm.convt_plan(2048, 512, 64, 4, 5, 2, 2, 1) in plans  # M = 128, stage 3
     for k in (1, 3, 7):
         for s in (1, 2, 16):
             for cin in (4, 17, 256):

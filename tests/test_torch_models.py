@@ -203,6 +203,101 @@ def test_precision_switch_gates_fusion_per_thread():
         set_default_precision("bf16")
 
 
+def _perturb_torch_bn(dec, rng):
+    with torch.no_grad():
+        for i in (1, 4):
+            bn = dec.deconv[i]
+            n = bn.num_features
+            bn.running_mean.copy_(torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)))
+            bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)))
+            bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)))
+            bn.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)))
+
+
+def _layered(dec, latent):
+    """The decoder's layered path (no folding) on the same module."""
+    set_default_precision("fast")  # closes the fuse gate
+    try:
+        assert not dec.fuses()
+        with torch.no_grad():
+            return dec(latent)
+    finally:
+        set_default_precision("f32")
+
+
+@pytest.fixture
+def counted_folds(monkeypatch):
+    """Each fold of a GeneratorDecoder's stages appends to the list."""
+    folds, fold = [], tgan.GeneratorDecoder._fold
+
+    def counting(self):
+        folds.append(self)
+        return fold(self)
+
+    monkeypatch.setattr(tgan.GeneratorDecoder, "_fold", counting)
+    return folds
+
+
+def test_folded_stages_fold_once_and_follow_load_state_dict(rng, counted_folds):
+    """Two forwards without grad fold BN once; a ``load_state_dict`` with
+    other weights is seen, and the output matches the layered path."""
+    dec = tgan.GeneratorDecoder(latent_dim=8, max_notes=64).eval()
+    _perturb_torch_bn(dec, rng)
+    latent = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
+    with torch.inference_mode():
+        a = dec(latent)
+        b = dec(latent)
+    assert len(counted_folds) == 1 and dec.fuses()
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert_close_scaled(a.numpy(), _layered(dec, latent).numpy())
+
+    other = tgan.GeneratorDecoder(latent_dim=8, max_notes=64)
+    _perturb_torch_bn(other, rng)
+    dec.load_state_dict(other.state_dict())
+    with torch.no_grad():
+        c = dec(latent)
+    assert len(counted_folds) == 2
+    assert not np.allclose(a.numpy(), c.numpy())
+    assert_close_scaled(c.numpy(), _layered(dec, latent).numpy())
+
+
+def test_folded_stages_follow_in_place_updates(rng, counted_folds):
+    """An in-place optimiser step on a conv weight, and a train-mode forward
+    that moves the BN running statistics, each invalidate the cache."""
+    dec = tgan.GeneratorDecoder(latent_dim=8, max_notes=64).eval()
+    _perturb_torch_bn(dec, rng)
+    latent = torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32))
+    with torch.no_grad():
+        before = dec(latent)
+        dec.deconv[3].weight.add_(0.05)
+        after_step = dec(latent)
+    assert len(counted_folds) == 2
+    assert not np.allclose(before.numpy(), after_step.numpy())
+    assert_close_scaled(after_step.numpy(), _layered(dec, latent).numpy())
+
+    dec.train()
+    with torch.no_grad():
+        dec(latent)  # updates running_mean and running_var in place
+    dec.eval()
+    with torch.no_grad():
+        after_bn = dec(latent)
+    assert len(counted_folds) == 3
+    assert_close_scaled(after_bn.numpy(), _layered(dec, latent).numpy())
+
+
+def test_folded_stages_with_grad_are_differentiable(rng, counted_folds):
+    """With grad mode on the stages are folded afresh on every forward,
+    so gradients reach the conv and BN parameters."""
+    dec = tgan.GeneratorDecoder(latent_dim=8, max_notes=64).eval()
+    latent = torch.from_numpy(rng.normal(size=(2, 8)).astype(np.float32))
+    for _ in range(2):
+        dec.zero_grad()
+        dec(latent).square().sum().backward()
+    assert len(counted_folds) == 2
+    for p in (dec.deconv[0].weight, dec.deconv[1].weight, dec.deconv[4].bias, dec.deconv[6].weight):
+        assert p.grad is not None and float(p.grad.abs().max()) > 0
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="SpectralNorm"):
         tgan.FeatureEncoder.from_config(GANConfig(encoder_use_sn=True))

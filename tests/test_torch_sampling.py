@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from melogan_tpu.config import GANConfig as JaxGANConfig
 from melogan_tpu.midi import codec as jax_codec
+from melogan_tpu.ops import conv as jax_conv_ops
 from melogan_tpu.sampling import Sampler as JaxSampler
 
 from melogan_torch import EMOTIONS
@@ -80,6 +81,25 @@ def test_sample_from_matches_jax_conditioning_small(rng):
     ts = _port_of(js, GANConfig(integration_mode="conditioning", **SMALL))
     feats, noise = _inputs(rng, list(EMOTIONS), 16)
     assert_close_scaled(ts.sample_from(feats, noise), _jax_notes(js, feats, noise, jcfg))
+
+
+def test_sample_from_matches_jax_max_notes_1024(rng):
+    """max_notes 1024 (M = 128) at full width, where JAX's fuse gate takes
+    its fused Pallas tail (interpret mode) and the port its decoder-tail
+    path: same weights, same features and noise."""
+    prev = jax_conv_ops.pallas_mode()
+    jax_conv_ops.set_use_pallas("on")
+    try:
+        jcfg = JaxGANConfig(max_notes=1024)
+        js = JaxSampler(jcfg, seed=0)
+        ts = _port_of(js, GANConfig(max_notes=1024))
+        assert ts.generator.decoder.fuses()
+        feats, noise = _inputs(rng, list(EMOTIONS), 128)
+        ours = ts.sample_from(feats, noise)
+        assert ours.shape == (4, 1024, 4) and np.isfinite(ours).all()
+        assert_close_scaled(ours, _jax_notes(js, feats, noise, jcfg))
+    finally:
+        jax_conv_ops.set_use_pallas(prev)
 
 
 def test_sample_notes_shapes_and_determinism():
