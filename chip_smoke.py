@@ -26,17 +26,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``POST /generate`` and one ``GET /healthz``; reads the counts, which must
    be > 0, and checks the notes of each config against the port's CPU path;
 5. drives the training path with the counts set to 0 again:
-   ``train(GANConfig(), EDConfig(), ...)`` at full width on a seeded corpus
-   of 384 rows (2 groups and a 2-batch tail per epoch, batch 32) for 2
-   epochs, then 1 epoch with λ_fm = 1, EMA 0.9 and the ED feature-matching
-   targets, then serves the trained ``gan_final.pth`` through
+   ``train(GANConfig(save_freq=1), EDConfig(), ...)`` at full width on a
+   seeded corpus of 384 rows (2 groups and a 2-batch tail per epoch, batch
+   32) for 2 epochs, then 1 epoch with λ_fm = 1, EMA 0.9 and the ED
+   feature-matching targets, each saving a ``gan_epochNNNN.ckpt`` every
+   epoch, then serves the trained ``gan_final.pth`` through
    ``Sampler(device="cuda")``; ``conv1d``, ``convt1d`` and ``decoder_tail``
    must all have launched;
-6. times the group step (median wall of 10 steps after a first) and holds one
-   group step on the card against the port's CPU path from the same state
-   and random draws;
-7. prints the ``kernels`` JSON line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+6. ``checkpoint``: the size of the full-width periodic checkpoints, their
+   ``load_checkpoint`` and ``save_checkpoint`` seconds (a load and a save
+   must give the same bytes) and ``export_train_payload``'s;
+7. ``resume`` (counts at 0): ``train(resume=True)`` from a copy of the
+   2-epoch run's ``gan_epoch0001.ckpt`` to epoch 2 on the card, held
+   against the run done in one go: it reports whether the two are bit for
+   bit equal, and fails unless every parameter is within 2·lr per update,
+   Adam's steps and the CUDA random stream agree exactly; ``conv1d`` and
+   ``convt1d`` must have launched;
+8. ``serve_ckpt`` (counts at 0): ``create_server`` on the EMA run's
+   ``gan_final.ckpt`` with ``use_ema=True`` answering four ``POST
+   /generate`` and one ``GET /healthz`` (``"ema": true``, platform gpu);
+   ``decoder_tail`` must have launched;
+9. ``determinism``: which operations of a training step repeat bit for bit
+   on the same inputs, with ``torch.backends.cudnn.deterministic`` off and
+   on (the training state turns it on);
+10. times the group step (median wall of 10 steps after a first) and holds
+    one group step on the card against the port's CPU path from the same
+    state and random draws;
+11. prints the ``kernels`` JSON line (launches summed over the four driven
+    paths), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing a result.
@@ -339,7 +356,9 @@ def drive_main_path(torch, results):
         if f.read(4) != b"MThd":
             raise SystemExit("generate_midi wrote no MIDI file")
 
-    httpd, _state = create_server("127.0.0.1", 0, device="cuda")
+    # a workdir without checkpoints: seeded random weights, whatever the checkout holds
+    httpd, _state = create_server("127.0.0.1", 0, workdir=os.path.join(WORK_DIR, "no_checkpoint"),
+                                  device="cuda")
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
@@ -403,7 +422,8 @@ def make_corpus(np, n, seed=0):
 
 
 def drive_training_path(torch, np, results):
-    """``train()`` as a user calls it, then the trained file served."""
+    """``train()`` as a user calls it, then the trained file served. The
+    runs save a periodic checkpoint every epoch (``save_freq=1``)."""
     import dataclasses
 
     from melogan_torch import EMOTIONS
@@ -412,10 +432,10 @@ def drive_training_path(torch, np, results):
     from melogan_torch.models.layers import torch_default_init_
     from melogan_torch.sampling import Sampler
     from melogan_torch.train.gan_loop import train
-    from melogan_torch.utils.weights import load_gan_final_pth
+    from melogan_torch.utils.weights import load_gan_final_full
 
     data = make_corpus(np, CORPUS_ROWS)
-    cfg, ed_cfg = GANConfig(), EDConfig()
+    cfg, ed_cfg = GANConfig(save_freq=1), EDConfig()
     workdir = os.path.join(WORK_DIR, "train")
     t0 = time.perf_counter()
     state, hist = train(cfg, ed_cfg, data, workdir=workdir, epochs=2, verbose=False, device="cuda")
@@ -425,24 +445,251 @@ def drive_training_path(torch, np, results):
     ed = EmotionDiscriminator.from_config(ed_cfg.model_cfg())
     torch_default_init_(ed, torch.Generator().manual_seed(7))
     fm_cfg = dataclasses.replace(cfg, lambda_fm=1.0, ema_decay=0.9)
+    fm_workdir = os.path.join(WORK_DIR, "train_fm_ema")
     t0 = time.perf_counter()
-    state, hist_fm = train(fm_cfg, ed_cfg, data, ed_variables=ed.state_dict(), workdir=workdir,
-                           epochs=1, verbose=False, device="cuda")
+    _, hist_fm = train(fm_cfg, ed_cfg, data, ed_variables=ed.state_dict(), workdir=fm_workdir,
+                       epochs=1, verbose=False, device="cuda")
     emit({"phase": "train_fm_ema", "epochs": 1, "wall_s": time.perf_counter() - t0,
           "history": hist_fm}, results)
     for h, keys in ((hist, 9), (hist_fm, 10)):
         if len(h) != keys or not all(np.isfinite(v) for v in h.values()):
             raise SystemExit(f"train history: {h}")
 
-    path = os.path.join(workdir, cfg.checkpoint_dir, "gan_final.pth")
-    gen_sd, fe_sd, features = load_gan_final_pth(path, ema=True)
+    path = os.path.join(fm_workdir, cfg.checkpoint_dir, "gan_final.pth")
+    gen_sd, fe_sd, extras = load_gan_final_full(path, ema=True)
     sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd,
-                      emotion_features=features, device="cuda")
+                      emotion_features=extras["emotion_features"], device="cuda")
     notes = sampler.sample_notes(list(EMOTIONS), seed=0)
     if notes.shape != (4, 512, 4) or not np.isfinite(notes).all():
         raise SystemExit(f"trained sampler: notes {notes.shape} or not finite")
     emit({"phase": "serve_trained", "checkpoint": os.path.relpath(path, ROOT),
           "fused": sampler.generator.decoder.fuses(), "notes_std": float(notes.std())}, results)
+    return {"data": data, "cfg": cfg, "ed_cfg": ed_cfg, "state": state, "history": hist,
+            "workdir": workdir, "fm_workdir": fm_workdir}
+
+
+def check_checkpoint_files(np, trained, results):
+    """Size, ``load_checkpoint`` and ``save_checkpoint`` seconds of the
+    training runs' periodic checkpoints at full width (the plain run's
+    epoch 2: G, the critic, the feature encoder and both Adams; the EMA
+    run's epoch 1 adds G_ema and the raw EMA stream), and the seconds
+    ``export_train_payload`` takes to build the first from the live state."""
+    from melogan_torch.train import gan_step
+    from melogan_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from melogan_torch.utils.weights import export_train_payload
+
+    cfg, state = trained["cfg"], trained["state"]
+    rec = {"phase": "checkpoint"}
+    for name, workdir, ckpt in (("plain", trained["workdir"], "gan_epoch0002.ckpt"),
+                                ("ema", trained["fm_workdir"], "gan_epoch0001.ckpt")):
+        path = os.path.join(workdir, cfg.checkpoint_dir, ckpt)
+        t0 = time.perf_counter()
+        tree = load_checkpoint(path)
+        t1 = time.perf_counter()
+        copy = os.path.join(WORK_DIR, f"resaved_{name}.ckpt")
+        save_checkpoint(copy, tree)
+        t2 = time.perf_counter()
+        with open(path, "rb") as f, open(copy, "rb") as g:
+            if f.read() != g.read():
+                raise SystemExit(f"{path}: a load and save does not give the same bytes")
+        os.remove(copy)
+        rec[name] = {"file": os.path.relpath(path, ROOT), "mb": os.path.getsize(path) / 1e6,
+                     "load_s": t1 - t0, "save_s": t2 - t1}
+    t0 = time.perf_counter()
+    export_train_payload(state, 2, np.zeros((4, 6), np.float32),
+                         g_ema=gan_step.ema_weights(state, cfg.ema_decay))
+    rec["plain"]["export_train_payload_s"] = time.perf_counter() - t0
+    emit(rec, results)
+
+
+def drive_resume(torch, trained, results):
+    """``train(resume=True)`` on the card from a copy of the plain run's
+    ``gan_epoch0001.ckpt``, to epoch 2, held against the run done in one
+    go: bit for bit where every operation is deterministic, else to the
+    tolerances of ``check_group_step_against_cpu`` (2·lr per update)."""
+    import shutil
+
+    from melogan_torch.train.gan_loop import train
+
+    cfg, straight = trained["cfg"], trained["state"]
+    workdir = os.path.join(WORK_DIR, "resume")
+    shutil.rmtree(workdir, ignore_errors=True)
+    ckpt_dir = os.path.join(workdir, cfg.checkpoint_dir)
+    os.makedirs(ckpt_dir)
+    shutil.copy(os.path.join(trained["workdir"], cfg.checkpoint_dir, "gan_epoch0001.ckpt"), ckpt_dir)
+    t0 = time.perf_counter()
+    resumed, hist = train(cfg, trained["ed_cfg"], trained["data"], workdir=workdir, epochs=2,
+                          verbose=False, resume=True, device="cuda")
+    wall = time.perf_counter() - t0
+    if resumed.step != straight.step:
+        raise SystemExit(f"resume: step {resumed.step}, straight-through {straight.step}")
+    # updates each module group took in the resumed epoch: 12 critic updates
+    # (2 groups of 5 and a 2-batch tail) and 2 generator updates
+    n_batches = CORPUS_ROWS // cfg.batch_size
+    n_groups = n_batches // cfg.critic_iters
+    lr_updates = {"generator": (cfg.lr_g, n_groups), "feature_encoder": (cfg.lr_g, n_groups),
+                  "critic": (cfg.lr_d, n_batches)}
+    differing, worst = [], {}
+    for what, (lr, updates) in lr_updates.items():
+        a, b = getattr(straight, what).state_dict(), getattr(resumed, what).state_dict()
+        for name in a:
+            if torch.equal(a[name], b[name]):
+                continue
+            d = float((a[name].double() - b[name].double()).abs().max())
+            differing.append(f"{what}.{name}")
+            worst[what] = max(worst.get(what, 0.0), d)
+            limit = 2 * lr * updates * (1 + 1e-3)
+            if not a[name].is_floating_point() or ("running" not in name and d > limit):
+                raise SystemExit(f"resume: {what}.{name} differs by {d:.3e} (limit {limit:.3e})")
+    for opt in ("opt_g", "opt_d"):
+        oa, ob = getattr(straight, opt), getattr(resumed, opt)
+        for pa, pb in zip(oa.param_groups[0]["params"], ob.param_groups[0]["params"]):
+            if not torch.equal(oa.state[pa]["step"], ob.state[pb]["step"]):
+                raise SystemExit(f"resume: {opt} steps differ")
+            for k in ("exp_avg", "exp_avg_sq"):
+                if not torch.equal(oa.state[pa][k], ob.state[pb][k]):
+                    differing.append(f"{opt}.{k}")
+    if not torch.equal(straight.rng.get_state(), resumed.rng.get_state()):
+        raise SystemExit("resume: the CUDA random stream did not continue")
+    same_history = all(hist[k] == trained["history"][k] for k in hist if k != "epoch_seconds")
+    rec = {"phase": "resume", "wall_s": wall, "bit_identical": not differing and same_history,
+           "differing": sorted(set(differing))[:20], "n_differing": len(set(differing)),
+           "max_abs_diff": worst, "same_history": same_history,
+           "param_limit": {w: 2 * lr * n for w, (lr, n) in lr_updates.items()}}
+    emit(rec, results)
+    return rec
+
+
+def probe_determinism(torch, np, results):
+    """Which operations of a training step give the same bits when run three
+    times on the same inputs and weights (full width, batch 32), one
+    operation at a time: cuDNN's conv1d weight and input gradients at the
+    critic's three layers, cuBLAS's Linear gradients at the critic's head,
+    the port's conv Functions' backward (kernels for dx, matmuls for dw) at
+    the ED's and the decoder's layers, the generator's gradients through
+    the frozen ED (no critic), and the critic's parameter gradients and the
+    gradient penalty; with ``torch.backends.cudnn.deterministic`` off and
+    on (the training state sets it on), each with the critic's gradient and
+    penalty times (CUDA events)."""
+    import torch.nn.functional as F
+
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.ops import conv as port_conv
+    from melogan_torch.train import gan_step
+
+    cfg = GANConfig()
+    state = gan_step.init_state(cfg, gan_step.build_models(cfg, EDConfig()), seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    b = cfg.batch_size
+
+    def rand(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+
+    real, fake = rand(b, cfg.max_notes, 4), rand(b, cfg.max_notes, 4)
+    emb, noise = rand(b, cfg.encoder_out_dim), rand(b, cfg.noise_dim)
+    alpha = torch.rand((b, 1, 1), device="cuda", generator=g)
+    labels = torch.arange(b, device="cuda") % 4
+    critic_params = list(state.critic.parameters())
+
+    def grads(out, wrt):
+        return [d for d in torch.autograd.grad(out, wrt, allow_unused=True) if d is not None]
+
+    def cudnn_conv(wrt_input):
+        def fn():
+            outs, length = [], cfg.max_notes
+            for layer in state.critic.conv[::2]:
+                x = rand(b, layer.weight.shape[1], length).requires_grad_(wrt_input)
+                w = layer.weight.detach().requires_grad_(not wrt_input)
+                y = F.conv1d(x, w, None, 2, 2)
+                outs += grads((y * rand(*y.shape)).sum(), [x if wrt_input else w])
+                length = y.shape[-1]
+            return outs
+        return fn
+
+    def cublas_linear():
+        outs = []
+        for lin in (state.critic.fc[1], state.critic.real_fake):
+            x = rand(b, lin.in_features).requires_grad_(True)
+            w = lin.weight.detach().requires_grad_(True)
+            y = F.linear(x, w)
+            outs += grads((y * rand(*y.shape)).sum(), [x, w])
+        return outs
+
+    def port_convs():
+        outs = []
+        for (l, cin, cout, k, st, p, op), transposed, _ in BACKWARD_LAYERS:
+            x = rand(b, l, cin).requires_grad_(True)
+            w = (rand(k, cin, cout) / (k * cin) ** 0.5).requires_grad_(True)
+            y = (port_conv.conv_transpose1d(x, w, st, p, op) if transposed
+                 else port_conv.conv1d(x, w, st, p))
+            outs += grads((y * rand(*y.shape)).sum(), [x, w])
+        return outs
+
+    def generator_through_ed():
+        notes, _ = state.generator(noise, None, emb)
+        return grads(gan_step.cross_entropy(state.ed(notes), labels), list(state.generator.parameters()))
+
+    def critic_grads():
+        return grads(state.critic(real, emb).square().sum(), critic_params)
+
+    def gp_grads():
+        return grads(gan_step.gradient_penalty(state.critic, real, fake, emb, alpha), critic_params)
+
+    def same_bits(make):
+        """Three runs from the same generator state: equal bits?"""
+        runs = []
+        for _ in range(3):
+            g.manual_seed(9)
+            runs.append([t.clone() for t in make()])
+        return all(torch.equal(x, y) for r in runs[1:] for x, y in zip(runs[0], r))
+
+    ops = (("cudnn_conv1d_weight_grad", cudnn_conv(False)), ("cudnn_conv1d_input_grad", cudnn_conv(True)),
+           ("cublas_linear_grads", cublas_linear), ("port_conv_backward", port_convs),
+           ("generator_through_frozen_ed", generator_through_ed),
+           ("critic_param_grads", critic_grads), ("gradient_penalty", gp_grads))
+    rec = {"phase": "determinism"}
+    prev = torch.backends.cudnn.deterministic  # train.gan_step.init_state sets it
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.deterministic = flag
+            rec[f"cudnn_deterministic_{flag}"] = {
+                "same_bits_in_3_runs": {name: same_bits(fn) for name, fn in ops},
+                "critic_param_grads_ms": time_ms(torch, critic_grads, 20),
+                "gradient_penalty_ms": time_ms(torch, gp_grads, 20)}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    emit(rec, results)
+
+
+def drive_serve_ckpt(torch, trained, results):
+    """``create_server`` on the EMA run's ``gan_final.ckpt`` with
+    ``use_ema=True``: four ``POST /generate`` and one ``GET /healthz``."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.config import GANConfig
+    from melogan_torch.serving.app import create_server
+
+    path = os.path.join(trained["fm_workdir"], trained["cfg"].checkpoint_dir, "gan_final.ckpt")
+    httpd, state = create_server("127.0.0.1", 0, config=GANConfig(ema_decay=0.9), checkpoint=path,
+                                 use_ema=True, device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        for emotion in EMOTIONS:
+            status, body = http(base, "/generate", json.dumps({"emotion": emotion}).encode())
+            if status != 200 or body[:4] != b"MThd":
+                raise SystemExit(f"/generate {emotion} from the .ckpt: status {status}")
+        status, body = http(base, "/healthz")
+        health = json.loads(body)
+        if (status != 200 or health["device"]["platform"] != "gpu" or health["ema"] is not True
+                or health["generator"] != "checkpoint"):
+            raise SystemExit(f"/healthz serving the .ckpt: {status} {health}")
+        emit({"phase": "serve_ckpt", "checkpoint": os.path.relpath(path, ROOT), "generate": 4,
+              "fused": state.sampler.generator.decoder.fuses(), "healthz": health}, results)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
 
 
 def _batches_and_draws(torch, np, cfg, fe, seed, device_list):
@@ -639,11 +886,17 @@ def main() -> int:
     samplers, sampling = drive("sampling", lambda: drive_main_path(torch, results),
                                ("decoder_tail", "convt1d"))
     check_against_cpu(torch, samplers, results)
-    _, training = drive("training", lambda: drive_training_path(torch, np, results),
-                        ("conv1d", "convt1d", "decoder_tail"))
+    trained, training = drive("training", lambda: drive_training_path(torch, np, results),
+                              ("conv1d", "convt1d", "decoder_tail"))
+    check_checkpoint_files(np, trained, results)
+    _, resuming = drive("resume", lambda: drive_resume(torch, trained, results),
+                        ("conv1d", "convt1d"))
+    _, serving = drive("serve_ckpt", lambda: drive_serve_ckpt(torch, trained, results),
+                       ("decoder_tail",))
+    probe_determinism(torch, np, results)
     step = time_group_step(torch, np, results)
     check_group_step_against_cpu(torch, np, results)
-    launches = {k: sampling[k] + training[k] for k in wrappers}
+    launches = {k: sampling[k] + training[k] + resuming[k] + serving[k] for k in wrappers}
 
     big_d, big_c = dec[MAIN_BATCH, 64], cvt[CONVT_BATCHES[-1]]  # batch 4096
     ed32 = [r for r in c1d[TRAIN_BATCH] if r["layer"].startswith("ed")]

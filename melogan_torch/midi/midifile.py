@@ -141,6 +141,15 @@ class MidiSong:
         with open(path, "wb") as f:
             f.write(self.to_bytes())
 
+    def note_array(self) -> np.ndarray:
+        """All notes across instruments as (N, 4) float64: pitch, velocity, start, end."""
+        rows = [
+            (n.pitch, n.velocity, n.start, n.end)
+            for inst in self.instruments
+            for n in inst.notes
+        ]
+        return np.array(rows, dtype=np.float64).reshape(-1, 4)
+
 
 # ---------------------------------------------------------------------------
 # Reading

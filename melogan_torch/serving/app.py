@@ -9,16 +9,22 @@ A stdlib WSGI app, the port of the generation part of
 
 Generation math matches the reference serving path: per-emotion feature base
 + N(0, 0.15²) jitter, zeros latent, emotion→bpm/scale maps (app.py:53-65,
-109-110), a fresh seed per request. Text and camera emotion, ``/video_feed``,
-``/metrics``, ``/reload`` and the sample pool come with later slices.
+109-110), a fresh seed per request. As in the JAX ``serve``, the weights come
+from ``<workdir>/<cfg.checkpoint_dir>/gan_final.ckpt`` unless a checkpoint
+(``.ckpt`` or ``.pth``) is named, with random weights and a warning when the
+file is absent, and ``use_ema`` serves the file's EMA generator. The config
+is a ``GANConfig``; YAML config files, text and camera emotion,
+``/video_feed``, ``/metrics``, ``/reload`` and the sample pool come with
+later slices.
 
-Run: ``python -m melogan_torch.serving.app [--port 5000] [--checkpoint
-gan_final.pth] [--device cuda]``.
+Run: ``python -m melogan_torch.serving.app [--port 5000] [--workdir .]
+[--checkpoint gan_final.ckpt] [--ema] [--device cuda]``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import threading
 from socketserver import ThreadingMixIn
 from typing import Dict, Optional, Tuple
@@ -41,10 +47,13 @@ _DRAIN_CAP = 8 << 20
 class AppState:
     """The sampler, the per-request seed counter and the in-flight count."""
 
-    def __init__(self, cfg: GANConfig, sampler: Sampler, ckpt_path: Optional[str] = None):
+    def __init__(self, cfg: GANConfig, sampler: Sampler, ckpt_path: Optional[str] = None,
+                 loaded: bool = False, use_ema: bool = False):
         self.cfg = cfg
         self.sampler = sampler
-        self.ckpt_path = ckpt_path  # the checkpoint the sampler serves, if any
+        self.ckpt_path = ckpt_path  # the checkpoint path served from, if any
+        self.loaded = loaded  # whether the sampler holds its weights
+        self.use_ema = use_ema
         self.seed_counter = 0
         self._inflight = 0
         self._lock = threading.Lock()
@@ -118,8 +127,9 @@ def build_app(state: AppState):
                     "status": "ok",
                     # weight provenance: random weights until a checkpoint is
                     # served — an operator must be able to see that
-                    "generator": "checkpoint" if state.ckpt_path else "random-weights",
+                    "generator": "checkpoint" if state.loaded else "random-weights",
                     "checkpoint": state.ckpt_path,
+                    "ema": state.use_ema,
                     "device": device_info(state.sampler.device),
                 },
             )
@@ -168,39 +178,67 @@ class ThreadingWSGIServer(ThreadingMixIn, WSGIServer):
     daemon_threads = True
 
 
+def _resolve_config(config) -> GANConfig:
+    if config is None:
+        return GANConfig()
+    if isinstance(config, GANConfig):
+        return config
+    raise NotImplementedError(
+        f"config {config!r}: YAML config files are not ported yet (ROADMAP A.2, "
+        f"from_yaml); pass a GANConfig")
+
+
 def create_server(
     host: str = "0.0.0.0",
     port: int = 5000,
+    workdir: str = ".",
+    config: Optional[GANConfig] = None,
     checkpoint: Optional[str] = None,
+    use_ema: bool = False,
     device="cuda",
 ) -> Tuple[WSGIServer, AppState]:
-    """Build the sampler (from a reference-layout ``gan_final.pth`` when
-    ``checkpoint`` is given, else seeded random weights), warm it up, and bind
-    a threaded WSGI server. The caller runs ``serve_forever`` and, at the
-    end, ``shutdown`` and ``server_close``."""
-    cfg = GANConfig()
-    gen_sd = fe_sd = features = None
-    if checkpoint:
-        from melogan_torch.utils.weights import load_gan_final_pth
+    """Build the sampler, warm it up, and bind a threaded WSGI server. The
+    caller runs ``serve_forever`` and, at the end, ``shutdown`` and
+    ``server_close``.
 
+    ``config``: a ``GANConfig``, or None for ``GANConfig()``. ``checkpoint``:
+    a ``gan_final`` (``.ckpt`` or ``.pth``); by default
+    ``<workdir>/<cfg.checkpoint_dir>/gan_final.ckpt``. When the file is
+    absent the weights are seeded random ones and a warning is printed.
+    ``use_ema``: serve the file's EMA generator (``G_ema``)."""
+    from melogan_torch.utils.weights import load_gan_final_full
+
+    cfg = _resolve_config(config)
+    gen_sd = fe_sd = features = None
+    ckpt_path = checkpoint or os.path.join(workdir, cfg.checkpoint_dir, "gan_final.ckpt")
+    loaded = os.path.exists(ckpt_path)
+    if loaded:
         # the training corpus's emotion centroids come along where train() saved them
-        gen_sd, fe_sd, features = load_gan_final_pth(checkpoint)
+        gen_sd, fe_sd, extras = load_gan_final_full(ckpt_path, ema=use_ema)
+        features = extras["emotion_features"]
+        print(f"[INIT] loaded GAN checkpoint from {ckpt_path}"
+              + (" (EMA weights)" if use_ema else "")
+              + ("" if features is None else " (corpus-calibrated conditioning)"))
+    else:
+        print(f"[WARN] GAN checkpoint not found at {ckpt_path}; serving random weights")
     sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd,
                       emotion_features=features, device=device)
     # warm up before accepting traffic: the first call builds the kernels
     sampler.sample_notes(["happy"], seed=0)
-    state = AppState(cfg, sampler, ckpt_path=checkpoint)
+    state = AppState(cfg, sampler, ckpt_path=ckpt_path, loaded=loaded, use_ema=use_ema)
     httpd = make_server(host, port, build_app(state), server_class=ThreadingWSGIServer)
     return httpd, state
 
 
-def serve(host: str = "0.0.0.0", port: int = 5000, checkpoint: Optional[str] = None,
-          device="cuda") -> None:
+def serve(host: str = "0.0.0.0", port: int = 5000, workdir: str = ".",
+          config: Optional[GANConfig] = None, checkpoint: Optional[str] = None,
+          use_ema: bool = False, device="cuda") -> None:
     """Serve ``/generate`` and ``/healthz`` until interrupted."""
-    httpd, state = create_server(host, port, checkpoint=checkpoint, device=device)
+    httpd, state = create_server(host, port, workdir=workdir, config=config,
+                                 checkpoint=checkpoint, use_ema=use_ema, device=device)
     print(f"[INIT] serving on http://{host}:{httpd.server_address[1]} "
           f"({device_info(state.sampler.device)['kind']}, "
-          f"{'checkpoint ' + checkpoint if checkpoint else 'random weights'})")
+          f"{'checkpoint ' + state.ckpt_path if state.loaded else 'random weights'})")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -213,10 +251,14 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="melogan_torch generation server")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=5000)
-    ap.add_argument("--checkpoint", default=None, help="reference-layout gan_final.pth")
+    ap.add_argument("--workdir", default=".",
+                    help="the default checkpoint is <workdir>/experiments/gan/checkpoints/gan_final.ckpt")
+    ap.add_argument("--checkpoint", default=None, help="a gan_final .ckpt or .pth")
+    ap.add_argument("--ema", action="store_true", help="serve the checkpoint's EMA generator (G_ema)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    serve(args.host, args.port, checkpoint=args.checkpoint, device=args.device)
+    serve(args.host, args.port, workdir=args.workdir, checkpoint=args.checkpoint,
+          use_ema=args.ema, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,21 @@
 """The WGAN-GP epoch loop on the port.
 
-Port of ``melogan_tpu/train/gan_loop.py::train`` in the JAX loop's order:
-the λ_fm targets and the per-emotion ``emotion_features`` centroids from the
+Port of ``melogan_tpu/train/gan_loop.py`` in the JAX loop's order: the
+λ_fm targets and the per-emotion ``emotion_features`` centroids from the
 corpus; then per epoch a numpy ``default_rng(cfg.seed)`` permutation cut by
 ``epoch_group_indices`` into group steps (``critic_iters`` critic updates +
 one G update each) and a critic-only tail for the remainder; the same
-per-epoch history keys; at the end ``gan_final.pth`` in the reference
-layout ``{'G', 'E_num'}`` plus ``emotion_features`` (and ``G_ema`` when EMA
-is on), which ``utils.weights.load_gan_final_pth`` and ``Sampler`` read.
+per-epoch scalar tags, written with ``utils.metrics.MetricsWriter`` to
+``<workdir>/<cfg.log_dir>``; every ``cfg.save_freq`` epochs a
+``gan_epochNNNN.ckpt`` in the JAX payload layout (Adam and the EMA stream
+included, plus the port's ``torch.Generator`` state), from which
+``resume=True`` continues step for step; with ``track_best`` a quality gate
+at each of those epochs that keeps the best weights as ``gan_best.ckpt``;
+at the end ``gan_final.pth`` (reference layout) and ``gan_final.ckpt`` (JAX
+layout) with ``emotion_features`` and, when EMA is on, ``G_ema``.
+``load_gan_final`` / ``load_gan_final_full`` read either file for sampling.
 
-Periodic checkpoints, resume, gate-based best tracking, the metrics writer,
-bf16 and the mesh are not ported yet.
+bf16 training (``precision``) and the data-parallel mesh are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +30,11 @@ from melogan_torch.config import EDConfig, GANConfig
 from melogan_torch.data.datasets import SplitData, epoch_group_indices
 from melogan_torch.device import resolve_device
 from melogan_torch.train import gan_step
+from melogan_torch.train.sweep import gate_member
+from melogan_torch.utils import weights
+from melogan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from melogan_torch.utils.metrics import MetricsWriter
+from melogan_torch.utils.weights import load_gan_final, load_gan_final_full  # noqa: F401  (the JAX module's names)
 
 
 def emotion_centroids(numeric: np.ndarray, emotion_idx: np.ndarray) -> np.ndarray:
@@ -53,23 +63,34 @@ def _epoch_scalars(m: Dict[str, float], n_groups: int, n_steps: int) -> Dict[str
 
 
 def save_gan_final(path: str, state: gan_step.GANTrainState, cfg: GANConfig,
-                   emotion_features: np.ndarray) -> None:
-    """Write the reference ``gan_final.pth`` layout (CPU tensors only), plus
-    ``emotion_features`` and, with EMA on, ``G_ema``: the debiased EMA
-    parameters beside the live BatchNorm statistics."""
+                   emotion_features: np.ndarray) -> str:
+    """Write ``gan_final`` atomically, in the reference ``.pth`` layout or
+    the JAX ``.ckpt`` layout by ``path``'s suffix: ``G`` and ``E_num``,
+    ``emotion_features`` and, with EMA on, ``G_ema`` (the debiased EMA
+    parameters beside the live BatchNorm statistics)."""
     def cpu(sd):
         return {k: v.detach().cpu().clone() for k, v in sd.items()}
 
     final = {
         "G": cpu(state.generator.state_dict()),
         "E_num": cpu(state.feature_encoder.state_dict()),
-        "emotion_features": torch.from_numpy(emotion_features),
+        "emotion_features": emotion_features,
     }
     ema = gan_step.ema_weights(state, cfg.ema_decay)
     if ema is not None:
         final["G_ema"] = {**final["G"], **cpu(ema)}
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(final, path)
+    return weights.write_gan_final(path, final)
+
+
+def _best_payload(state, cfg, epoch, gate, emotion_features):
+    """``gan_best.ckpt``: the JAX layout of ``gan_loop.py:372-386``."""
+    full = weights.export_train_payload(state, epoch, emotion_features,
+                                        g_ema=gan_step.ema_weights(state, cfg.ema_decay))
+    best = {k: full[k] for k in ("epoch", "G", "E_num", "emotion_features")}
+    best["gate"] = gate
+    if "G_ema" in full:
+        best["G_ema"] = full["G_ema"]
+    return best
 
 
 def train(
@@ -81,14 +102,35 @@ def train(
     workdir: Optional[str] = None,
     epochs: Optional[int] = None,
     verbose: bool = True,
+    resume: bool = False,
+    mesh=None,
+    precision=None,
+    track_best: bool = False,
+    gate_samples_per_emotion: int = 2,
     device="cuda",
 ) -> Tuple[gan_step.GANTrainState, Dict[str, float]]:
     """Train the GAN on ``train_data``; returns (state, the last epoch's
     history). ``ed_variables`` is the pre-trained frozen ED as a
     reference-layout state dict; without it the ED is random (the reference
     warns and proceeds) and the ED feature-matching targets are off, as in
-    the JAX loop. ``gan_final.pth`` goes to ``<workdir>/<cfg.checkpoint_dir>``
-    (``cfg.checkpoint_dir`` without a workdir)."""
+    the JAX loop. Checkpoints go to ``<workdir>/<cfg.checkpoint_dir>``
+    (``cfg.checkpoint_dir`` without a workdir), metrics to
+    ``<workdir>/<cfg.log_dir>``.
+
+    ``resume=True`` restarts from the newest ``gan_epochNNNN.ckpt`` there:
+    weights, BatchNorm statistics, both Adams, the step count and the EMA
+    stream, and from a file of the port also its random stream, so that a
+    run split at a checkpoint equals the run done in one go. A file of the
+    JAX package restores the same, but its random stream cannot drive the
+    port's, which goes on from its seed. ``track_best``: at every checkpoint
+    epoch (and the last), generate ``gate_samples_per_emotion`` pieces per
+    emotion from the deployable weights (EMA when on), score them against
+    the golden quality bands, and keep the best as ``gan_best.ckpt``.
+    ``mesh`` and ``precision`` are not ported yet and raise unless None."""
+    if mesh is not None:
+        raise NotImplementedError("data-parallel training over a mesh is not ported yet")
+    if precision is not None:
+        raise NotImplementedError("reduced-precision training is not ported yet")
     dev = resolve_device(device)
     models = gan_step.build_models(cfg, ed_cfg)
     state = gan_step.init_state(cfg, models, seed=cfg.seed, ed_variables=ed_variables, device=dev)
@@ -102,6 +144,19 @@ def train(
             fm_ed_target = gan_step.fm_ed_targets_from_data(state.ed, notes, emotion_idx)
     steps = gan_step.make_train_steps(cfg, fm_target=fm_target, fm_ed_target=fm_ed_target)
     emotion_features = emotion_centroids(numeric, emotion_idx)
+
+    ckpt_dir = os.path.join(workdir, cfg.checkpoint_dir) if workdir else cfg.checkpoint_dir
+    log_dir = os.path.join(workdir, cfg.log_dir) if workdir else cfg.log_dir
+    start_epoch = 1
+    if resume:
+        latest = latest_checkpoint(ckpt_dir, "gan_epoch")
+        if latest:
+            epoch, note = weights.load_train_payload(state, load_checkpoint(latest), cfg.ema_decay)
+            start_epoch = epoch + 1
+            if verbose:
+                print(f"[INFO] resumed from {latest} at epoch {start_epoch}")
+                if note:
+                    print(f"[INFO] {note}")
 
     if latents is None or latents.shape[0] != notes.shape[0]:
         if latents is not None and verbose:
@@ -121,13 +176,27 @@ def train(
         i = torch.as_tensor(idx, device=dev)
         return tuple(a[i] for a in data)
 
+    gate_sampler = None
+    best_gate = None  # (passed, -violations) of gan_best.ckpt
+    if track_best and resume:
+        # a resumed run overwrites gan_best only when it beats it
+        best_path = os.path.join(ckpt_dir, "gan_best.ckpt")
+        if os.path.exists(best_path):
+            prev = load_checkpoint(best_path)
+            if "gate" in prev:
+                best_gate = (int(prev["gate"]["passed"]), -int(prev["gate"]["violations"]))
+
     rng = np.random.default_rng(cfg.seed)
     n_epochs = epochs or cfg.epochs
     note = gan_step.ema_horizon_note(cfg, n_epochs, notes.shape[0])
     if note and verbose:
         print(note)
+    # replay the data order: one permutation per epoch already trained
+    for _ in range(start_epoch - 1):
+        epoch_group_indices(notes.shape[0], cfg.batch_size, cfg.critic_iters, rng)
+    writer = MetricsWriter(log_dir)
     history: Dict[str, float] = {}
-    for ep in range(1, n_epochs + 1):
+    for ep in range(start_epoch, n_epochs + 1):
         t0 = time.perf_counter()
         gi, ti = epoch_group_indices(notes.shape[0], cfg.batch_size, cfg.critic_iters, rng)
         if gi is None and ti is None:
@@ -158,14 +227,37 @@ def train(
             n_steps = n_group + (0 if ti is None else ti.shape[0])
             scalars = _epoch_scalars(m, n_groups, n_steps)
         dt = time.perf_counter() - t0
+        scalars = dict(scalars, epoch_seconds=dt)
+        writer.add_scalars(scalars, ep)
         if verbose:
             print(
                 f"[GAN epoch {ep}/{n_epochs}] D {scalars['Loss/Critic']:.4f} | "
                 f"G_adv {scalars['Loss/Generator_Adv']:.4f} | "
                 f"G_emo {scalars['Loss/Generator_Emo']:.4f} | {dt:.2f}s"
             )
-        history = dict(scalars, epoch_seconds=dt, epoch=ep)
+        history = dict(scalars, epoch=ep)
 
-    ckpt_dir = os.path.join(workdir, cfg.checkpoint_dir) if workdir else cfg.checkpoint_dir
-    save_gan_final(os.path.join(ckpt_dir, "gan_final.pth"), state, cfg, emotion_features)
+        if ep % cfg.save_freq == 0:
+            save_checkpoint(os.path.join(ckpt_dir, f"gan_epoch{ep:04d}.ckpt"),
+                            weights.export_train_payload(
+                                state, ep, emotion_features,
+                                g_ema=gan_step.ema_weights(state, cfg.ema_decay)))
+        if track_best and (ep % cfg.save_freq == 0 or ep == n_epochs):
+            gate_dir = os.path.join(workdir or ".", cfg.sample_dir, f"gate_epoch{ep:04d}")
+            passed, total, violations, _, _, gate_sampler = gate_member(
+                cfg, state, cfg.seed + ep, gate_dir, gate_samples_per_emotion, gate_sampler,
+                emotion_features=emotion_features)
+            writer.add_scalars({"Gate/passed": passed, "Gate/violations": violations}, ep)
+            score = (passed, -violations)
+            if best_gate is None or score > best_gate:
+                best_gate = score
+                gate = {"passed": passed, "total": total, "violations": violations}
+                save_checkpoint(os.path.join(ckpt_dir, "gan_best.ckpt"),
+                                _best_payload(state, cfg, ep, gate, emotion_features))
+                if verbose:
+                    print(f"[GAN] new best at epoch {ep}: gate {passed}/{total} ({violations} violations)")
+
+    for name in ("gan_final.pth", "gan_final.ckpt"):
+        save_gan_final(os.path.join(ckpt_dir, name), state, cfg, emotion_features)
+    writer.close()
     return state, history

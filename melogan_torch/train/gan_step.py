@@ -131,6 +131,11 @@ def init_state(
         # autograd runs it, outside the forward's ``cudnn.flags`` context
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # cuDNN's default conv backward algorithms (the critic's weight and
+        # input gradients) add with atomics, so a resumed run would not repeat
+        # the run done in one go bit for bit; on the H100 the deterministic
+        # ones took no longer (chip_smoke.py's determinism phase)
+        torch.backends.cudnn.deterministic = True
     g = torch.Generator().manual_seed(seed)
     gan_init_(models.feature_encoder, g)
     gan_init_(models.generator, g)

@@ -175,14 +175,14 @@ def test_gan_final_pth_round_trip(rng, tmp_path):
     ckpt = {k: weights.to_tensors(v) for k, v in weights.export_gan_final(g_vars, fe_vars).items()}
     path = tmp_path / "gan_final.pth"
     torch.save(ckpt, path)
-    g_sd, fe_sd, features = weights.load_gan_final_pth(str(path))
-    assert features is None  # a reference file carries no emotion features
+    g_sd, fe_sd, extras = weights.load_gan_final_full(str(path))
+    assert extras["emotion_features"] is None  # a reference file carries no emotion features
     tfe = tgan.FeatureEncoder(hidden_dims=(16, 8), out_dim=8)
     weights.load_state_dicts(tg, tfe, g_sd, fe_sd)
     torch.testing.assert_close(tg.decoder.deconv[0].weight, ckpt["G"]["decoder.deconv.0.weight"])
     torch.save({"G": ckpt["G"]}, path)
     with pytest.raises(ValueError, match="E_num"):
-        weights.load_gan_final_pth(str(path))
+        weights.load_gan_final_full(str(path))
 
 
 def test_precision_switch_gates_fusion_per_thread():

@@ -196,15 +196,23 @@ def test_generate_midi_and_many_end_to_end(tmp_path):
 
 def test_port_imports_nothing_of_jax():
     """Every module of melogan_torch imports, in a fresh interpreter, without
-    pulling in jax, flax, optax or melogan_tpu."""
+    pulling in jax, flax, optax, msgpack or melogan_tpu; with msgpack and
+    flax blocked, the checkpoint codec still writes and reads a file."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys, tempfile\n"
+        "for blocked in ('msgpack', 'flax', 'jax', 'optax', 'melogan_tpu'):\n"
+        "    sys.modules[blocked] = None  # an import of it raises ImportError\n"
+        "import numpy as np\n"
         "import melogan_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(melogan_torch.__path__, 'melogan_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'melogan_tpu'))\n"
-        "assert len(mods) >= 15, mods\n"
+        "from melogan_torch.utils.checkpoint import load_checkpoint, save_checkpoint\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'a.ckpt')\n"
+        "save_checkpoint(path, {'w': np.arange(3.0), 'epoch': 2})\n"
+        "assert int(load_checkpoint(path)['epoch']) == 2\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None and m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'melogan_tpu'))\n"
+        "assert len(mods) >= 20, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

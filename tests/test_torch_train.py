@@ -31,6 +31,7 @@ LeakyReLU kinks; then the two sides' rounding can send a unit down
 different branches and its gradient differs by O(1) after a few updates.
 """
 import math
+import shutil
 
 import numpy as np
 import pytest
@@ -43,7 +44,9 @@ from melogan_tpu.config import EDConfig as JaxEDConfig
 from melogan_tpu.config import GANConfig as JaxGANConfig
 from melogan_tpu.data import datasets as jdata
 from melogan_tpu.ops import conv as jax_conv_ops
+from melogan_tpu.train import gan_loop as jloop
 from melogan_tpu.train import gan_step as jstep
+from melogan_tpu.utils import checkpoint as jckpt
 from melogan_tpu.utils import flops as jflops
 from melogan_tpu.utils import torch_interop
 
@@ -52,6 +55,7 @@ from melogan_torch.data import datasets as tdata
 from melogan_torch.sampling import Sampler
 from melogan_torch.train import gan_loop as tloop
 from melogan_torch.train import gan_step as tstep
+from melogan_torch.utils import checkpoint as tckpt
 from melogan_torch.utils import flops as tflops
 from melogan_torch.utils import weights
 
@@ -60,6 +64,17 @@ GRAD_REL = 1e-5
 TINY = dict(max_notes=64, batch_size=4, noise_dim=16, latent_dim=8, gen_hidden=32,
             encoder_hidden=(16, 8), encoder_out_dim=8)
 TINY_ED = dict(max_notes=64, notes_blocks=2, notes_hidden=32, mlp_hidden=(16,))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU runs in these tests are small: more torch threads only
+    contend with the other test workers' threads, which made a 3 s test take
+    minutes under pytest-xdist."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture
@@ -412,13 +427,242 @@ def test_train_loop_writes_a_gan_final_the_sampler_loads(rng, tmp_path, lambda_f
     assert all(math.isfinite(v) for v in hist.values())
     assert state.step == 2
     path = tmp_path / cfg.checkpoint_dir / "gan_final.pth"
-    gen_sd, fe_sd, features = weights.load_gan_final_pth(str(path), ema=bool(ema_decay))
+    gen_sd, fe_sd, extras = weights.load_gan_final_full(str(path), ema=bool(ema_decay))
+    features = extras["emotion_features"]
     want_ef = tloop.emotion_centroids(numeric, data.emotion_idx)
     np.testing.assert_array_equal(features, want_ef)
     sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd,
                       emotion_features=features, device="cpu")
     notes = sampler.sample_notes(["happy", "calm"], seed=1)
     assert notes.shape == (2, 64, 4) and np.isfinite(notes).all()
+    # the JAX-layout gan_final.ckpt beside it serves the same notes
+    ckpt_g, ckpt_fe, extras = tloop.load_gan_final_full(str(path.with_suffix(".ckpt")), ema=bool(ema_decay))
+    np.testing.assert_array_equal(extras["emotion_features"], want_ef)
+    ckpt_sampler = Sampler(cfg, gen_variables=ckpt_g, fe_variables=ckpt_fe,
+                           emotion_features=extras["emotion_features"], device="cpu")
+    np.testing.assert_array_equal(ckpt_sampler.sample_notes(["happy", "calm"], seed=1), notes)
     if not ema_decay:
-        with pytest.raises(KeyError, match="G_ema"):
-            weights.load_gan_final_pth(str(path), ema=True)
+        for p in (path, path.with_suffix(".ckpt")):
+            with pytest.raises(KeyError, match="G_ema"):
+                weights.load_gan_final_full(str(p), ema=True)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints and resume
+# ---------------------------------------------------------------------------
+
+
+def _split(seed, n=4 * 7 + 3):
+    raw, emotions, numeric = _corpus(np.random.default_rng(seed), n)
+    return raw, emotions, numeric
+
+
+def _tree_equal(ours, theirs, where=""):
+    """Same keys; leaves bit for bit with the same dtype and shape."""
+    if isinstance(theirs, dict):
+        assert set(ours) == set(theirs), where
+        for k in theirs:
+            _tree_equal(ours[k], theirs[k], f"{where}/{k}")
+    else:
+        a, b = np.asarray(ours), np.asarray(theirs)
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """JAX ``gan_loop.train`` for 2 epochs with EMA 0.9 and save_freq 2 (1
+    group step and a 2-batch tail an epoch): its workdir and data."""
+    workdir = tmp_path_factory.mktemp("jax_run")
+    raw, emotions, numeric = _split(21)
+    jloop.train(JaxGANConfig(**TINY, save_freq=2, ema_decay=0.9), JaxEDConfig(**TINY_ED),
+                jdata.SplitData(raw, emotions, numeric, []), workdir=str(workdir), epochs=2,
+                verbose=False)
+    return workdir, (raw, emotions, numeric)
+
+
+def _jax_ckpt(workdir, name="gan_epoch0002.ckpt"):
+    return str(workdir / JaxGANConfig().checkpoint_dir / name)
+
+
+def test_jax_checkpoint_loads_into_the_port_and_exports_back_bit_for_bit(jax_run):
+    """Params, batch_stats, Adam's mu, nu and count, step, ema_raw and the
+    debiased G_ema all come back as the file holds them."""
+    workdir, _ = jax_run
+    raw = tckpt.load_checkpoint(_jax_ckpt(workdir))
+    cfg = GANConfig(**TINY, save_freq=2, ema_decay=0.9)
+    state = tstep.init_state(cfg, tstep.build_models(cfg, EDConfig(**TINY_ED)), seed=0, device="cpu")
+    epoch, note = weights.load_train_payload(state, raw, cfg.ema_decay)
+    assert epoch == 2 and state.step == 2 and "no torch random stream" in note
+    back = weights.export_train_payload(state, epoch, raw["emotion_features"],
+                                        g_ema=tstep.ema_weights(state, cfg.ema_decay))
+    assert set(back) - set(raw) == {weights.TORCH_RNG_KEY, weights.TORCH_BN_KEY}
+    assert set(raw) - set(back) == {"rng"}
+    _tree_equal({k: back[k] for k in raw if k != "rng"}, {k: raw[k] for k in raw if k != "rng"})
+    # every torch parameter got its Adam state, ``step`` a CPU scalar as torch makes it
+    for opt, count in ((state.opt_g, 2), (state.opt_d, 14)):
+        for p in opt.param_groups[0]["params"]:
+            st = opt.state[p]
+            assert float(st["step"]) == count and st["step"].device.type == "cpu"
+            assert st["exp_avg"].shape == p.shape
+    # a file of another shape is refused, naming the key
+    bad = dict(raw, D={"params": dict(raw["D"]["params"], TorchLinear_1={
+        "kernel": np.zeros((3, 1), np.float32), "bias": np.zeros(1, np.float32)})})
+    with pytest.raises(ValueError, match="/D/params/TorchLinear_1/kernel"):
+        weights.load_train_payload(state, bad, cfg.ema_decay)
+
+
+def _restore_jax(jstate, raw):
+    """The JAX loop's resume (gan_loop.py:152-171) on a JAX state."""
+    from flax import serialization as ser
+
+    state = jstate.replace(
+        gen_params=ser.from_state_dict(jstate.gen_params, raw["G"]["params"]),
+        gen_stats=ser.from_state_dict(jstate.gen_stats, raw["G"]["batch_stats"]),
+        critic_params=ser.from_state_dict(jstate.critic_params, raw["D"]["params"]),
+        fe_params=ser.from_state_dict(jstate.fe_params, raw["E_num"]["params"]),
+        opt_g=ser.from_state_dict(jstate.opt_g, raw["opt_G"]),
+        opt_d=ser.from_state_dict(jstate.opt_d, raw["opt_D"]),
+        rng=jnp.asarray(raw["rng"], jnp.uint32),
+        step=jnp.asarray(raw["step"], jnp.int32),
+    )
+    if state.ema_params is not None:
+        state = state.replace(ema_params=ser.from_state_dict(state.ema_params, raw["ema_raw"]))
+    return state
+
+
+@pytest.mark.parametrize("ema_decay", [0.0, 0.9])
+def test_port_resumes_a_jax_checkpoint_and_steps_like_jax(rng, jax_run, pallas_on, tmp_path, ema_decay):
+    """One group step from a JAX ``gan_epoch0002.ckpt`` on each side, with
+    JAX's draws injected, at the tolerances of
+    ``test_group_and_tail_step_match_jax``. At step 2 Adam's moments and
+    ``count`` shape the update, so a moment in the wrong layout, a wrong
+    count or a moment left at zero shows. The file's critic is moved away
+    from its init first (weights ×10, biases N(0, 0.05); module docstring)."""
+    workdir, _ = jax_run
+    raw = jckpt.load_checkpoint(_jax_ckpt(workdir))
+    for layer in raw["D"]["params"].values():
+        layer["kernel"] = layer["kernel"] * np.float32(10.0)
+        layer["bias"] = rng.normal(0, 0.05, layer["bias"].shape).astype(np.float32)
+    path = str(tmp_path / "gan_epoch0002.ckpt")
+    jckpt.save_checkpoint(path, raw)
+
+    kw = dict(TINY, save_freq=2, ema_decay=ema_decay)
+    jcfg, tcfg = JaxGANConfig(**kw), GANConfig(**kw)
+    jed_cfg, ted_cfg = JaxEDConfig(**TINY_ED), EDConfig(**TINY_ED)
+    models = jstep.build_models(jcfg, jed_cfg)
+    jax_conv_ops.set_use_pallas("off")  # init's eval forward: no interpreter
+    try:
+        jinit = jstep.init_state(jcfg, models, seed=0)
+    finally:
+        jax_conv_ops.set_use_pallas("on")
+    jstate = _restore_jax(jinit, jckpt.load_checkpoint(path))
+    tstate = tstep.init_state(tcfg, tstep.build_models(tcfg, ted_cfg), seed=0, device="cpu")
+    weights.load_jax_train_state(tstate, jinit)  # the same frozen ED on both sides
+    epoch, _ = weights.load_train_payload(tstate, tckpt.load_checkpoint(path), ema_decay)
+    assert epoch == 2 and tstate.step == int(jstate.step) == 2
+
+    batches = _batches(rng, jcfg, jcfg.critic_iters)
+    draws = _group_draws(jcfg, models, jstate, batches)
+    jnew, jm = jax.jit(jstep.make_train_steps(jcfg, models).group)(
+        jstate, tuple(jnp.asarray(a) for a in batches))
+    tstate, tm = tstep.make_train_steps(tcfg).group(tstate, _torch_batches(batches), draws)
+    assert tstate.step == int(jnew.step) == 3
+    assert_metrics(tm, jm, "group from checkpoint")
+    gen_mu, fe_mu = jnew.opt_g[0].mu
+    _check_group(tstate.generator, tstate.opt_g,
+                 torch_interop.export_generator({"params": gen_mu, "batch_stats": jnew.gen_stats}),
+                 torch_interop.export_generator({"params": jnew.gen_params, "batch_stats": jnew.gen_stats}),
+                 jcfg.lr_g, 1, "G")
+    _check_group(tstate.feature_encoder, tstate.opt_g,
+                 torch_interop.export_feature_encoder({"params": fe_mu}),
+                 torch_interop.export_feature_encoder({"params": jnew.fe_params}), jcfg.lr_g, 1, "FE")
+    _check_group(tstate.critic, tstate.opt_d,
+                 torch_interop.export_critic({"params": jnew.opt_d[0].mu}),
+                 torch_interop.export_critic({"params": jnew.critic_params}),
+                 jcfg.lr_d, jcfg.critic_iters, "critic")
+    assert {float(st["step"]) for st in tstate.opt_g.state.values()} == {float(jnew.opt_g[0].count)} == {3.0}
+    assert {float(st["step"]) for st in tstate.opt_d.state.values()} == {float(jnew.opt_d[0].count)}
+    if ema_decay:
+        theirs = torch_interop.export_generator(
+            {"params": jstep.ema_weights(jnew, ema_decay), "batch_stats": jnew.gen_stats})
+        for name, v in tstep.ema_weights(tstate, ema_decay).items():
+            assert np.abs(v.numpy() - theirs[name]).max() <= 2 * jcfg.lr_g * (1 + 1e-3), name
+    else:
+        assert tstate.ema_params is None
+
+
+def _records(path):
+    import json
+
+    return [json.loads(line) for line in open(path)]
+
+
+def test_train_writes_the_jax_metric_tags_and_checkpoints(jax_run, tmp_path):
+    """The same config and corpus through the port's ``train()``: the same
+    tags at the same steps in the same order as the JAX run (the values
+    differ: the random streams do), and the periodic checkpoints of the
+    JAX cadence."""
+    jax_dir, (raw, emotions, numeric) = jax_run
+    cfg = GANConfig(**TINY, save_freq=2, ema_decay=0.9)
+    tloop.train(cfg, EDConfig(**TINY_ED), tdata.SplitData(raw, emotions, numeric, []),
+                workdir=str(tmp_path), epochs=3, verbose=False, device="cpu")
+    ours = _records(tmp_path / cfg.log_dir / "metrics.jsonl")
+    theirs = _records(jax_dir / cfg.log_dir / "metrics.jsonl")
+    assert [(r["tag"], r["step"]) for r in ours if r["step"] <= 2] == [(r["tag"], r["step"]) for r in theirs]
+    assert {r["step"] for r in ours} == {1, 2, 3}
+    ckpts = sorted(p.name for p in (tmp_path / cfg.checkpoint_dir).iterdir())
+    assert ckpts == ["gan_epoch0002.ckpt", "gan_final.ckpt", "gan_final.pth"]
+
+
+def _assert_states_equal(a, b):
+    for name in ("generator", "feature_encoder", "critic"):
+        for (k, v), (k2, v2) in zip(getattr(a, name).state_dict().items(),
+                                    getattr(b, name).state_dict().items()):
+            assert k == k2 and torch.equal(v, v2), f"{name}.{k}"
+    for opt in ("opt_g", "opt_d"):
+        oa, ob = getattr(a, opt), getattr(b, opt)
+        for pa, pb in zip(oa.param_groups[0]["params"], ob.param_groups[0]["params"]):
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(oa.state[pa][k], ob.state[pb][k]), f"{opt} {k}"
+    assert a.step == b.step
+    assert torch.equal(a.rng.get_state(), b.rng.get_state())
+
+
+@pytest.mark.parametrize("first_ema,ema", [(0.0, 0.0), (0.9, 0.9), (0.0, 0.9)])
+def test_resume_is_bit_identical_to_straight_through(tmp_path, first_ema, ema):
+    """``train(epochs=4)`` against ``train(epochs=2)`` then ``train(epochs=4,
+    resume=True)``: every parameter, buffer, Adam moment and step, the EMA
+    stream, the random stream and the last epoch's history are equal. The
+    third case resumes a checkpoint written without EMA with EMA on: the
+    stream is seeded as (1 − d^t)·p, and the trajectory is the EMA-less
+    run's (EMA does not feed back into training)."""
+    raw, emotions, numeric = _split(5)
+    data = tdata.SplitData(raw, emotions, numeric, [])
+    ed_cfg = EDConfig(**TINY_ED)
+
+    def cfg(d):
+        return GANConfig(**TINY, save_freq=2, ema_decay=d, lambda_fm=1.0 if ema else 0.0)
+
+    straight, hs = tloop.train(cfg(first_ema), ed_cfg, data, workdir=str(tmp_path / "a"), epochs=4,
+                               verbose=False, device="cpu")
+    split = str(tmp_path / "b")
+    tloop.train(cfg(first_ema), ed_cfg, data, workdir=split, epochs=2, verbose=False, device="cpu")
+    if first_ema != ema:
+        # resumed at its end: no epoch runs, and the debiased EMA is the live weights
+        shutil.copytree(split, str(tmp_path / "mid"))
+        mid, _ = tloop.train(cfg(ema), ed_cfg, data, workdir=str(tmp_path / "mid"), epochs=2,
+                             verbose=False, device="cpu", resume=True)
+        t = mid.step
+        for n, p in mid.generator.named_parameters():
+            assert torch.equal(mid.ema_params[n], p.detach() * torch.tensor(np.float32(1 - ema ** t)))
+            torch.testing.assert_close(tstep.ema_weights(mid, ema)[n], p.detach(), rtol=1e-6, atol=1e-7)
+    resumed, hr = tloop.train(cfg(ema), ed_cfg, data, workdir=split, epochs=4, verbose=False,
+                              device="cpu", resume=True)
+    _assert_states_equal(straight, resumed)
+    if first_ema == ema and ema:
+        for n in straight.ema_params:
+            assert torch.equal(straight.ema_params[n], resumed.ema_params[n]), n
+    assert (resumed.ema_params is None) == (not ema)
+    assert {k: v for k, v in hs.items() if k != "epoch_seconds"} == \
+        {k: v for k, v in hr.items() if k != "epoch_seconds"}
