@@ -52,8 +52,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 10. times the group step (median wall of 10 steps after a first) and holds
     one group step on the card against the port's CPU path from the same
     state and random draws;
-11. prints the ``kernels`` JSON line (launches summed over the four driven
-    paths), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+11. Stage 1 from disk, each path with the counts set to 0 first:
+    ``data`` (the seeded synthetic corpus of 64 songs an emotion written as
+    MIDI, preprocessed to ``.npz``, split, and train and val loaded, each
+    step's seconds), ``vae_train`` (``vae_loop.train`` with
+    ``configs/ae.yaml`` for 3 epochs; the reconstruction dumps must parse),
+    ``vae_resume`` (from a copy of a 1-epoch run's ``ae_best.ckpt``, made
+    before the counts are set to 0, to epoch 3, held against the straight
+    run as ``resume`` is), ``encode`` (``encode_mu`` of train and
+    val on the card against the CPU path; ``encoder_feats.npy`` written) and
+    ``gan_conditioning`` (``gan_loop.train`` with
+    ``configs/gan_conditioning.yaml`` on those latents for 1 epoch, then
+    ``create_server`` with that YAML path answering ``POST /generate``);
+    before them, ``kernels_vae`` holds both conv kernels at the VAE's
+    layers (batch 32 and 256) and both backward routes (batch 32) against
+    their plain versions, timed beside the library calls; between
+    ``vae_train`` and ``vae_resume``, outside any counted path,
+    ``vae_step`` times the median wall of 10 VAE training steps;
+12. prints the ``kernels`` JSON line (launches summed over every driven
+    path), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing a result.
@@ -100,6 +117,19 @@ CONVT_BATCHES = (1, TRAIN_BATCH, 4096)
 # gradient runs convt1d (the ED's layers), convT's runs conv1d (the decoder's)
 BACKWARD_LAYERS = [((l, cin, cout, k, s, p, 0), False, n) for l, cin, cout, k, s, p, n in ED_LAYERS] + [
     ((l, cin, cout, 5, 2, 2, 1), True, f"dec{i + 1}") for i, (l, cin, cout) in enumerate(CONVT_LAYERS)]
+# the VAE at full width (configs/ae.yaml: max_notes 512): (L, Cin, Cout, K, s, p, name) of the
+# encoder's k5 s2 p2 convs, (L, Cin, Cout) of the decoder's k5 s2 p2 op1 transposed convs
+VAE_ENCODER = [(512, 4, 32, 5, 2, 2, "enc1"), (256, 32, 64, 5, 2, 2, "enc2"), (128, 64, 128, 5, 2, 2, "enc3")]
+VAE_DECODER = [(64, 128, 64), (128, 64, 32), (256, 32, 4)]
+VAE_BATCHES = (32, 256)  # a training batch, and encode_mu's chunk (ENCODE_BATCH)
+VAE_BACKWARD = [((l, cin, cout, k, s, p, 0), False, n) for l, cin, cout, k, s, p, n in VAE_ENCODER] + [
+    ((l, cin, cout, 5, 2, 2, 1), True, f"dec{i + 1}") for i, (l, cin, cout) in enumerate(VAE_DECODER)]
+# 64 songs an emotion: the train split (45 an emotion, 180 rows) gives 5 batches of 32, one
+# WGAN-GP group step (critic_iters 5), so the conditioning GAN reaches the ED's conv1d; with
+# 48 an emotion (136 rows, 4 batches) its epoch would be a critic-only tail
+CORPUS_PER_EMOTION = 64
+VAE_EPOCHS = 3
+VAE_STEPS = 10  # timed VAE training steps after a first
 CORPUS_ROWS = 384  # batch 32: 12 batches, 2 groups of 5 and a 2-batch tail per epoch
 GROUP_STEPS = 10  # timed group steps after a first
 
@@ -191,9 +221,9 @@ def check_decoder(torch, F, ops, b, m, gen, results):
     return rec
 
 
-def check_convt(torch, F, ops, b, gen, results):
+def check_convt(torch, F, ops, b, gen, results, layers=CONVT_LAYERS, phase=None):
     recs = []
-    for l, cin, cout in CONVT_LAYERS:
+    for i, (l, cin, cout) in enumerate(layers):
         x = torch.randn((b, l, cin), device="cuda", generator=gen)
         w = torch.randn((5, cin, cout), device="cuda", generator=gen) / (5 * cin) ** 0.5
         bias = 0.1 * torch.randn((cout,), device="cuda", generator=gen)
@@ -206,23 +236,25 @@ def check_convt(torch, F, ops, b, gen, results):
         flops = ops["convt"].convt_flops(b, l, cin, cout, 5, 2, 2, 1)
         nbytes = 4 * (x.numel() + w.numel() + bias.numel() + out.numel())
         rec = {
-            "kernel": "convt1d", "batch": b, "shape": [b, l, cin, cout],
+            "kernel": "convt1d", "layer": f"dec{i + 1}", "batch": b, "shape": [b, l, cin, cout],
             "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL,
             "kernel_ms": time_ms(torch, lambda: ops["convt"].convt1d_cuda(x, w, bias, 2, 2, 1), iters),
             "plain_ms": time_ms(torch, lambda: ops["convt"].convt1d_plain(x, w, bias, 2, 2, 1), iters),
             "library_ms": time_ms(torch, lambda: F.conv_transpose1d(xn, wt, bias, 2, 2, 1), iters),
             **bound(flops, nbytes, PEAK_3XTF32_FLOPS), "flops": flops, "bytes": nbytes,
         }
+        if phase:
+            rec = {"phase": phase, **rec}
         emit(rec, results)
         recs.append(rec)
     return recs
 
 
-def check_conv1d(torch, F, ops, b, gen, results):
+def check_conv1d(torch, F, ops, b, gen, results, layers=CONV1D_LAYERS, phase=None):
     """The conv1d kernel at the ED's four layers (and the VAE encoder's
     stride-2 layer) against its plain version, timed beside ``F.conv1d``."""
     recs = []
-    for l, cin, cout, k, s, p, what in CONV1D_LAYERS:
+    for l, cin, cout, k, s, p, what in layers:
         x = torch.randn((b, l, cin), device="cuda", generator=gen)
         w = torch.randn((k, cin, cout), device="cuda", generator=gen) / (k * cin) ** 0.5
         bias = 0.1 * torch.randn((cout,), device="cuda", generator=gen)
@@ -243,12 +275,14 @@ def check_conv1d(torch, F, ops, b, gen, results):
             "library_ms": time_ms(torch, lambda: F.conv1d(xn, wt, bias, s, p), iters),
             **bound(flops, nbytes, PEAK_3XTF32_FLOPS), "flops": flops, "bytes": nbytes,
         }
+        if phase:
+            rec = {"phase": phase, **rec}
         emit(rec, results)
         recs.append(rec)
     return recs
 
 
-def check_backward_routes(torch, F, ops, b, gen, results):
+def check_backward_routes(torch, F, ops, b, gen, results, layers=BACKWARD_LAYERS, phase="backward_route"):
     """Each conv Function's dx, dw and dbias on the card against autograd
     through the plain versions, and the input-gradient route alone (the
     other conv's kernel) timed beside one library call computing the same
@@ -256,7 +290,7 @@ def check_backward_routes(torch, F, ops, b, gen, results):
     conv = ops["conv"]
     c1, ct = ops["conv1d"], ops["convt"]
     recs = []
-    for (l, cin, cout, k, s, p, op), transposed, what in BACKWARD_LAYERS:
+    for (l, cin, cout, k, s, p, op), transposed, what in layers:
         x = torch.randn((b, l, cin), device="cuda", generator=gen)
         w = torch.randn((k, cin, cout), device="cuda", generator=gen) / (k * cin) ** 0.5
         bias = 0.1 * torch.randn((cout,), device="cuda", generator=gen)
@@ -294,7 +328,7 @@ def check_backward_routes(torch, F, ops, b, gen, results):
         iters = 50
         nbytes = 4 * (g.numel() + w.numel() + x.numel())
         rec = {
-            "phase": "backward_route", "layer": what, "batch": b,
+            "phase": phase, "layer": what, "batch": b,
             "dx_runs": "conv1d kernel" if transposed else "convt1d kernel",
             "max_abs_err_dx_dw_db": errs, "tol_rel": TOL_REL,
             "dx_kernel_ms": time_ms(torch, route, iters),
@@ -817,6 +851,302 @@ def check_group_step_against_cpu(torch, np, results):
           "worst": worst, "gpu_s": t1 - t0, "cpu_s": t2 - t1}, results)
 
 
+def check_vae_kernels(torch, F, ops, gen, results):
+    """``kernels_vae``: ``conv1d`` at the VAE encoder's three layers and
+    ``convt1d`` at its decoder's three, at batch 32 (a training batch) and
+    256 (``encode_mu``'s chunk), then both backward routes at 32: each
+    against its plain version, timed beside its plain version and one
+    library call (TF32 off), with its bound at 3xTF32. The Cin = 4 layer
+    (enc1) is one 4-channel chunk in the core, its weakest shape."""
+    recs = {"conv1d": [], "convt1d": []}
+    for b in VAE_BATCHES:
+        recs["conv1d"] += check_conv1d(torch, F, ops, b, gen, results, VAE_ENCODER, "kernels_vae")
+        recs["convt1d"] += check_convt(torch, F, ops, b, gen, results, VAE_DECODER, "kernels_vae")
+    back = check_backward_routes(torch, F, ops, TRAIN_BATCH, gen, results, VAE_BACKWARD,
+                                 "kernels_vae_backward")
+    summary = {"phase": "kernels_vae_summary"}
+    for name, rs in recs.items():
+        for b in VAE_BATCHES:
+            summary[f"{name}_b{b}"] = {k: sum(r[k] for r in rs if r["batch"] == b)
+                                       for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    summary["cin4"] = {r["batch"]: {k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                                      "bound_by")}
+                       for r in recs["conv1d"] if r["layer"] == "enc1"}
+    summary["backward_b32"] = {k: sum(r[k] for r in back) for k in ("dx_kernel_ms", "dx_plain_ms",
+                                                                    "dx_library_ms", "bound_ms")}
+    emit(summary, results)
+    return recs
+
+
+def drive_data(np, results):
+    """``data``: the seeded synthetic corpus on disk (``generate_corpus``,
+    MIDI files and a manifest), ``preprocess_corpus`` (``.npz`` samples and
+    the scaler), ``create_splits`` and ``load_split`` of train and val, each
+    step's seconds on the host clock."""
+    import shutil
+
+    from melogan_torch.data.datasets import load_split
+    from melogan_torch.data.preprocess import preprocess_corpus
+    from melogan_torch.data.splits import create_splits, read_manifest
+    from melogan_torch.data.synthetic import generate_corpus
+
+    root = os.path.join(WORK_DIR, "data")
+    shutil.rmtree(root, ignore_errors=True)
+    processed, splits_dir = os.path.join(root, "processed"), os.path.join(root, "splits")
+    secs = {}
+    t0 = time.perf_counter()
+    entries = generate_corpus(root, n_per_emotion=CORPUS_PER_EMOTION, seed=0)
+    t1 = time.perf_counter()
+    preprocess_corpus(entries, processed, verbose=False).save(os.path.join(root, "scaler.npz"))
+    t2 = time.perf_counter()
+    create_splits(read_manifest(os.path.join(root, "data_manifest.csv")), splits_dir)
+    t3 = time.perf_counter()
+    data = {name: load_split(os.path.join(splits_dir, f"{name}_split.csv"), processed, verbose=False)
+            for name in ("train", "val")}
+    t4 = time.perf_counter()
+    secs = {"generate_corpus": t1 - t0, "preprocess_corpus": t2 - t1, "create_splits": t3 - t2,
+            "load_split": t4 - t3}
+    rows = {name: d.n for name, d in data.items()}
+    for name, d in data.items():
+        if d.notes_raw.shape[1:] != (512, 4) or not np.isfinite(d.notes_ae()).all():
+            raise SystemExit(f"data: the {name} split is {d.notes_raw.shape} or not finite")
+    if rows["train"] < 5 * TRAIN_BATCH:
+        raise SystemExit(f"data: {rows['train']} train rows give no WGAN-GP group step")
+    emit({"phase": "data", "songs": len(entries), "rows": rows, "seconds": secs}, results)
+    return data
+
+
+def _logged(log_dir):
+    """{epoch: {tag: value}} of a run's metrics.jsonl."""
+    out = {}
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            out.setdefault(rec["step"], {})[rec["tag"]] = rec["value"]
+    return out
+
+
+def drive_vae_train(torch, np, data, results):
+    """``vae_train``: ``vae_loop.train`` with ``configs/ae.yaml`` (max_notes
+    512, latent 8, hidden 512, batch 32) for 3 epochs on the card, in a
+    fresh workdir; the reconstruction dumps must parse back."""
+    import dataclasses
+    import shutil
+
+    from melogan_torch.config import AEConfig
+    from melogan_torch.midi.midifile import read_midi
+    from melogan_torch.train import vae_loop
+
+    cfg = dataclasses.replace(AEConfig.from_yaml(os.path.join(ROOT, "configs", "ae.yaml")), epochs=VAE_EPOCHS)
+    workdir = os.path.join(WORK_DIR, "vae")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    best, metrics = vae_loop.train(cfg, data["train"], data["val"], workdir=workdir, verbose=False,
+                                   device="cuda")
+    wall = time.perf_counter() - t0
+    logged = _logged(os.path.join(workdir, cfg.log_dir))
+    if sorted(logged) != list(range(1, VAE_EPOCHS + 1)) or not all(
+            np.isfinite(v) for ep in logged.values() for v in ep.values()):
+        raise SystemExit(f"vae_train: logged epochs {sorted(logged)} or a value not finite")
+    # every dump written must parse back; an input song always encodes, while
+    # a reconstruction with a note before time 0 cannot be written as MIDI
+    # (the writer raises and the loop warns, as the JAX package's Python
+    # writer does), so the "_out" files are counted, not required
+    recon_dir = os.path.join(workdir, cfg.recon_dir)
+    dumps = sorted(os.listdir(recon_dir))
+    n_in = sum(name.endswith("_in.mid") for name in dumps)
+    if n_in != VAE_EPOCHS * cfg.recon_save_count:
+        raise SystemExit(f"vae_train: {n_in} reconstruction inputs written")
+    notes_read = sum(len(inst.notes) for name in dumps
+                     for inst in read_midi(os.path.join(recon_dir, name)).instruments)
+    last = logged[VAE_EPOCHS]
+    emit({"phase": "vae_train", "epochs": VAE_EPOCHS, "wall_s": wall,
+          "epoch_seconds": [logged[ep]["epoch_seconds"] for ep in sorted(logged)],
+          "final": {k: v for k, v in last.items() if k.startswith("loss/")}, "metrics": metrics,
+          "recon_in_files": n_in, "recon_out_files": len(dumps) - n_in, "recon_notes_read": notes_read},
+         results)
+    return {"cfg": cfg, "workdir": workdir, "best": best, "metrics": metrics}
+
+
+def time_vae_step(torch, np, data, vae, results):
+    """``vae_step``, outside any counted path: the step wall, the median of
+    10 ``train_step`` calls after a first, each ending in a synchronize,
+    against the step's bound (``utils/flops.py::vae_step_flops`` over the
+    f32 peak), and a ``torch.profiler`` trace of 3 steps
+    (``profile_train.kernel_table``: device time by kernel, kernels and
+    device busy share per step)."""
+    from melogan_torch.profile_train import kernel_table
+    from melogan_torch.train import vae_loop
+    from melogan_torch.utils.flops import vae_step_flops
+
+    cfg = vae["cfg"]
+    state = vae_loop.init_state(cfg, seed=1, device="cuda")
+    x = torch.as_tensor(data["train"].notes_ae(cfg)[: cfg.batch_size], device="cuda")
+    walls = []
+    for _ in range(VAE_STEPS + 1):
+        t1 = time.perf_counter()
+        vae_loop.train_step(state, x, cfg.beta, cfg.free_bits)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    profile = kernel_table(lambda: vae_loop.train_step(state, x, cfg.beta, cfg.free_bits), 3, top=8)
+    flops = vae_step_flops(cfg)
+    rec = {"phase": "vae_step", "batch": cfg.batch_size, "step_wall_ms_first": walls[0],
+           "step_wall_ms": walls[1:], "step_median_ms": float(np.median(walls[1:])), "step_flops": flops,
+           "step_bound_ms": flops / PEAK_F32_FLOPS * 1e3, "step_profile": profile}
+    emit(rec, results)
+    return rec
+
+
+def seed_vae_resume(data, vae):
+    """Before ``vae_resume``'s counted run: a 1-epoch run writes
+    ``ae_best.ckpt`` (epoch 1), copied into the resume's fresh workdir."""
+    import dataclasses
+    import shutil
+
+    from melogan_torch.train import vae_loop
+
+    cfg = vae["cfg"]
+    first = os.path.join(WORK_DIR, "vae_first")
+    workdir = os.path.join(WORK_DIR, "vae_resume")
+    for d in (first, workdir):
+        shutil.rmtree(d, ignore_errors=True)
+    vae_loop.train(dataclasses.replace(cfg, epochs=1), data["train"], data["val"], workdir=first,
+                   verbose=False, recon_dumps=False, device="cuda")
+    os.makedirs(os.path.join(workdir, cfg.checkpoint_dir))
+    shutil.copy(os.path.join(first, cfg.checkpoint_dir, "ae_best.ckpt"),
+                os.path.join(workdir, cfg.checkpoint_dir))
+    return workdir
+
+
+def drive_vae_resume(torch, np, data, vae, workdir, results):
+    """``vae_resume``: from the copy of an epoch-1 ``ae_best.ckpt`` in
+    ``workdir`` (``seed_vae_resume``), ``train(resume=True)`` runs to epoch
+    3 on the card, held against the 3-epoch run of ``vae_train``: whether
+    the two are bit for bit equal (the last weights, ``ae_best.ckpt`` and
+    the logged losses), and it fails unless every parameter of the last
+    state is within 2·lr per update and the best epoch, learning rate,
+    plateau and stopper states agree exactly."""
+    from melogan_torch.train import vae_loop
+    from melogan_torch.utils.checkpoint import load_checkpoint
+    from melogan_torch.utils.weights import export_vae
+
+    cfg, straight = vae["cfg"], vae["workdir"]
+    t0 = time.perf_counter()
+    _, metrics = vae_loop.train(cfg, data["train"], data["val"], workdir=workdir, resume=True,
+                                verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+
+    def files(w, name):
+        path = os.path.join(w, cfg.checkpoint_dir, name)
+        with open(path, "rb") as f:
+            return f.read(), load_checkpoint(path)
+
+    (final_a, tree_a), (final_b, tree_b) = files(straight, "ae_final.ckpt"), files(workdir, "ae_final.ckpt")
+    (best_a, raw_a), (best_b, raw_b) = files(straight, "ae_best.ckpt"), files(workdir, "ae_best.ckpt")
+    for key in ("epoch", "lr", "plateau", "stopper", "best_val"):
+        if json.dumps(raw_a[key], default=float) != json.dumps(raw_b[key], default=float):
+            raise SystemExit(f"vae_resume: ae_best {key} {raw_a[key]} vs straight {raw_b[key]}")
+    updates = (VAE_EPOCHS - 1) * (data["train"].n // cfg.batch_size)
+    limit = 2 * cfg.lr * updates * (1 + 1e-3)
+    sd_a, sd_b = export_vae(tree_a), export_vae(tree_b)
+    worst = max(float(np.abs(sd_a[k].astype(np.float64) - sd_b[k]).max()) for k in sd_a if "running" not in k)
+    if not worst <= limit:
+        raise SystemExit(f"vae_resume: a parameter differs by {worst:.3e} (limit {limit:.3e})")
+    la = {(ep, k): v for ep, d in _logged(os.path.join(straight, cfg.log_dir)).items() if ep > 1
+          for k, v in d.items() if k != "epoch_seconds"}
+    lb = {(ep, k): v for ep, d in _logged(os.path.join(workdir, cfg.log_dir)).items() if ep > 1
+          for k, v in d.items() if k != "epoch_seconds"}
+    same_losses = la == lb
+    rec = {"phase": "vae_resume", "wall_s": wall, "resumed_from_epoch": 1, "updates": updates,
+           "bit_identical": final_a == final_b and best_a == best_b and same_losses,
+           "final_bytes_equal": final_a == final_b, "best_bytes_equal": best_a == best_b,
+           "same_losses": same_losses, "max_abs_param_diff": worst, "param_limit": limit,
+           "best_epoch": int(raw_b["epoch"]), "metrics": metrics}
+    emit(rec, results)
+    return rec
+
+
+def drive_encode(torch, np, data, vae, results):
+    """``encode``: ``encode_mu`` of the train and val splits on the card
+    with the best weights of ``vae_train``, held against the port's CPU path
+    on the same weights (1e-4 of scale), written as the
+    ``encoder_feats.npy`` files ``configs/gan_conditioning.yaml`` names."""
+    from melogan_torch.config import GANConfig
+    from melogan_torch.train import vae_loop
+
+    cfg, model = vae["cfg"], vae["best"].model
+    cpu = vae_loop.init_state(cfg, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gan_cfg = GANConfig.from_yaml(os.path.join(ROOT, "configs", "gan_conditioning.yaml"))
+    paths = {"train": gan_cfg.encoder_feats_train, "val": gan_cfg.encoder_feats_val}
+    latents, rec = {}, {"phase": "encode"}
+    for name, d in (("train", data["train"]), ("val", data["val"])):
+        x = d.notes_ae(cfg)
+        t0 = time.perf_counter()
+        mu = vae_loop.encode_mu(model, x)
+        t1 = time.perf_counter()
+        mu_cpu = vae_loop.encode_mu(cpu.model, x)
+        t2 = time.perf_counter()
+        if mu.shape != (d.n, cfg.latent_dim):
+            raise SystemExit(f"encode: {name} latents {mu.shape}")
+        err, rel = compare(torch.from_numpy(mu), torch.from_numpy(mu_cpu), f"encode_mu {name}, card vs CPU")
+        path = os.path.join(vae["workdir"], paths[name])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, mu)
+        latents[name] = mu
+        rec[name] = {"rows": d.n, "gpu_s": t1 - t0, "cpu_s": t2 - t1, "max_abs_err": err,
+                     "max_rel_err": rel, "mu_std_per_dim": mu.std(axis=0).tolist(),
+                     "file": os.path.relpath(path, ROOT)}
+    emit(rec, results)
+    return latents
+
+
+def drive_gan_conditioning(torch, np, data, latents, results):
+    """``gan_conditioning``: ``gan_loop.train`` with
+    ``configs/gan_conditioning.yaml`` and ``configs/ed.yaml`` on the train
+    split with the exported µ as the AE latents, 1 epoch on the card (one
+    group step and no tail: 5 batches of 32); then ``create_server`` with
+    that YAML path, which serves the run's ``gan_final.ckpt``, answering one
+    ``POST /generate`` and ``GET /healthz``."""
+    import shutil
+
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.serving.app import create_server
+    from melogan_torch.train.gan_loop import train
+
+    cfg_path = os.path.join(ROOT, "configs", "gan_conditioning.yaml")
+    cfg = GANConfig.from_yaml(cfg_path)
+    ed_cfg = EDConfig.from_yaml(os.path.join(ROOT, "configs", "ed.yaml"))
+    workdir = os.path.join(WORK_DIR, "gan_conditioning")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    state, hist = train(cfg, ed_cfg, data["train"], latents=latents["train"], workdir=workdir, epochs=1,
+                        verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+    if state.step < 1 or not all(np.isfinite(v) for v in hist.values()):
+        raise SystemExit(f"gan_conditioning: step {state.step}, history {hist}")
+    httpd, app_state = create_server("127.0.0.1", 0, workdir=workdir, config=cfg_path, device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        status, body = http(base, "/generate", json.dumps({"emotion": "calm"}).encode())
+        if status != 200 or body[:4] != b"MThd":
+            raise SystemExit(f"/generate with {cfg_path}: status {status}")
+        status, body = http(base, "/healthz")
+        health = json.loads(body)
+        if (status != 200 or health["generator"] != "checkpoint"
+                or app_state.cfg.integration_mode != "conditioning"):
+            raise SystemExit(f"/healthz with {cfg_path}: {status} {health}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    emit({"phase": "gan_conditioning", "epochs": 1, "group_steps": state.step, "wall_s": wall,
+          "history": hist, "served": os.path.relpath(app_state.ckpt_path, ROOT), "healthz": health},
+         results)
+
+
 def main() -> int:
     import torch
 
@@ -870,6 +1200,7 @@ def main() -> int:
     for b in CONV1D_BATCHES:
         c1d[b] = check_conv1d(torch, F, ops, b, gen, results)
     check_backward_routes(torch, F, ops, TRAIN_BATCH, gen, results)
+    vae_kernels = check_vae_kernels(torch, F, ops, gen, results)
 
     def drive(path, fn, need):
         """Run one main path with every launch count at 0; its counts."""
@@ -896,7 +1227,22 @@ def main() -> int:
     probe_determinism(torch, np, results)
     step = time_group_step(torch, np, results)
     check_group_step_against_cpu(torch, np, results)
-    launches = {k: sampling[k] + training[k] + resuming[k] + serving[k] for k in wrappers}
+    # Stage 1 from disk: corpus → VAE → µ → the conditioning-mode GAN
+    data, loading = drive("data", lambda: drive_data(np, results), ())
+    vae, vae_training = drive("vae_train", lambda: drive_vae_train(torch, np, data, results),
+                              ("conv1d", "convt1d"))
+    vae_step = time_vae_step(torch, np, data, vae, results)
+    resume_dir = seed_vae_resume(data, vae)
+    _, vae_resuming = drive("vae_resume",
+                            lambda: drive_vae_resume(torch, np, data, vae, resume_dir, results),
+                            ("conv1d", "convt1d"))
+    latents, encoding = drive("encode", lambda: drive_encode(torch, np, data, vae, results), ("conv1d",))
+    _, conditioning = drive("gan_conditioning",
+                            lambda: drive_gan_conditioning(torch, np, data, latents, results),
+                            ("conv1d", "convt1d", "decoder_tail"))
+    paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
+             conditioning)
+    launches = {k: sum(p[k] for p in paths) for k in wrappers}
 
     big_d, big_c = dec[MAIN_BATCH, 64], cvt[CONVT_BATCHES[-1]]  # batch 4096
     ed32 = [r for r in c1d[TRAIN_BATCH] if r["layer"].startswith("ed")]
@@ -936,7 +1282,12 @@ def main() -> int:
                max_abs_err=max(r["max_abs_err"] for b in CONV1D_BATCHES for r in c1d[b])),
     ]
     emit({"phase": "summary", "group_steps_per_s": step["group_steps_per_s"],
-          "group_step_median_ms": step["median_ms"], "group_step_bound_ms": step["bound_ms"]},
+          "group_step_median_ms": step["median_ms"], "group_step_bound_ms": step["bound_ms"],
+          "vae_step_median_ms": vae_step["step_median_ms"], "vae_step_bound_ms": vae_step["step_bound_ms"],
+          "vae_conv1d_b32_ms": sum(r["kernel_ms"] for r in vae_kernels["conv1d"] if r["batch"] == 32),
+          "vae_convt1d_b32_ms": sum(r["kernel_ms"] for r in vae_kernels["convt1d"] if r["batch"] == 32),
+          "launches_by_path": dict(zip(("sampling", "training", "resume", "serve_ckpt", "data", "vae_train",
+                                        "vae_resume", "encode", "gan_conditioning"), paths))},
          results)
     line = {"kernels": kernels}
     results.append(line)

@@ -1,1 +1,4 @@
-"""Corpus arrays and batch indices for training (own copies of the JAX package's numpy code)."""
+"""Data layer (own copies of the JAX package's numpy code): the ``.npz``
+sample schema and split resolution (``npz.py``), the feature scaler,
+stratified splits, MIDI preprocessing, the synthetic corpus, corpus
+expansion, and the in-memory datasets and batch indices."""

@@ -1,4 +1,5 @@
-"""Piano-roll → MIDI codec: the serving part of ``melogan_tpu/midi/codec.py``.
+"""Piano-roll → MIDI codec: the port's copy of ``melogan_tpu/midi/codec.py``
+(the serving renderer, and the VAE's raw-unit writer ``save_recon_midi``).
 
 Exact output semantics of the reference renderer (src/gan/utils.py:95-161):
 
@@ -167,3 +168,67 @@ def save_piano_roll_to_midi(
         scale_name = f"{NOTE_NAMES[root_key % 12]} {resolved_scale}"
         print(f"[INFO] Saved MIDI ({instrument_name} | {scale_name}) to {output_path}")
     return song
+
+
+# ---------------------------------------------------------------------------
+# AE-side writer (reference src/ae/midi_utils.py parity): columns are
+# (pitch, start_rel, duration, velocity) in *raw* units, not normalized.
+# ---------------------------------------------------------------------------
+
+
+def notes_array_to_song(
+    notes_arr: np.ndarray, tempo: float = 120.0, instrument_program: int = 0
+) -> MidiSong:
+    """Convert a raw-unit (N, 4) notes array (pitch, start, duration, velocity)
+    to a song, skipping rows with pitch<=0 or duration<=0."""
+    notes = np.asarray(notes_arr, dtype=np.float64).reshape(-1, 4)
+    p, s, d, v = notes[:, 0], notes[:, 1], notes[:, 2], notes[:, 3]
+    keep = (p > 0) & (d > 0)
+
+    pitch = np.clip(np.round(p[keep]), 0, 127).astype(np.int64)
+    vel = np.clip(np.round(v[keep]), 1, 127).astype(np.int64)
+    start = s[keep]
+    end = s[keep] + d[keep]
+
+    song = MidiSong(initial_tempo=tempo)
+    inst = MidiInstrument(program=instrument_program)
+    inst.notes = [
+        MidiNote(velocity=int(vv), pitch=int(pp), start=float(st), end=float(en))
+        for pp, vv, st, en in zip(pitch, vel, start, end)
+    ]
+    song.instruments.append(inst)
+    return song
+
+
+def raw_roll_to_song(roll: np.ndarray, bpm: float = 120.0) -> MidiSong:
+    """tools/roll_to_midi.py semantics: rows are RAW
+    (pitch, velocity, duration_sec, start_sec); pitch clipped 0-127, velocity
+    floored at 1, duration floored at 0.05 s, start floored at 0."""
+    arr = np.asarray(roll, np.float64).reshape(-1, 4)
+    pitch = np.clip(arr[:, 0], 0, 127).astype(np.int64)
+    vel = np.clip(arr[:, 1], 1, 127).astype(np.int64)
+    dur = np.maximum(arr[:, 2], 0.05)
+    start = np.maximum(arr[:, 3], 0.0)
+    song = MidiSong(initial_tempo=bpm)
+    inst = MidiInstrument(program=0)
+    inst.notes = [
+        MidiNote(velocity=int(v), pitch=int(p), start=float(s), end=float(s + d))
+        for p, v, d, s in zip(pitch, vel, dur, start)
+    ]
+    song.instruments.append(inst)
+    return song
+
+
+def save_recon_midi(
+    notes_in: np.ndarray,
+    notes_out: np.ndarray,
+    outdir: str,
+    prefix: str,
+    tempo: float = 120.0,
+) -> None:
+    """Write `<prefix>_in.mid` / `<prefix>_out.mid` reconstruction pairs."""
+    import os
+
+    os.makedirs(outdir, exist_ok=True)
+    notes_array_to_song(notes_in, tempo=tempo).write(os.path.join(outdir, f"{prefix}_in.mid"))
+    notes_array_to_song(notes_out, tempo=tempo).write(os.path.join(outdir, f"{prefix}_out.mid"))

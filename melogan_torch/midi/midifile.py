@@ -138,8 +138,11 @@ class MidiSong:
         return smf.encode_file(tracks, division=self.resolution, fmt=1)
 
     def write(self, path: str) -> None:
+        # encode first: a song that cannot be encoded (a note before time 0)
+        # raises without leaving an empty file behind
+        data = self.to_bytes()
         with open(path, "wb") as f:
-            f.write(self.to_bytes())
+            f.write(data)
 
     def note_array(self) -> np.ndarray:
         """All notes across instruments as (N, 4) float64: pitch, velocity, start, end."""

@@ -2,7 +2,8 @@
 
 Ports of ``melogan_tpu/models/layers.py`` where the port needs its own code:
 the GAN init, the torch-default init drawn from a ``torch.Generator``,
-``Conv1d`` over channels-last inputs, ``Dropout`` with explicit randomness,
+``Conv1d`` and ``ConvTranspose1d`` over channels-last inputs, ``Dropout``
+with explicit randomness,
 ``trim_or_pad_length``, ``adaptive_avg_pool_1`` and the precision switch.
 BatchNorm, LayerNorm, exact-erf GELU and LeakyReLU(0.2) are native
 ``nn.BatchNorm1d``, ``nn.LayerNorm``, ``nn.GELU()`` and ``nn.LeakyReLU``:
@@ -19,7 +20,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from melogan_torch.ops.conv import conv1d
+from melogan_torch.ops.conv import conv1d, conv_transpose1d
 
 PRECISIONS = ("f32", "fast")
 
@@ -55,12 +56,13 @@ def gan_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def torch_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """torch's own Linear/Conv1d init, U(±1/√fan_in) for weights and biases
-    (kaiming_uniform with a=√5), drawn from ``generator`` rather than the
-    global RNG. The ED's layers start this way (``torch_kaiming_uniform`` of
-    the JAX package)."""
+    """torch's own Linear/Conv1d/ConvTranspose1d init, U(±1/√fan_in) for
+    weights and biases (kaiming_uniform with a=√5; fan_in is Cout·K for a
+    transposed conv's (Cin, Cout, K) weight), drawn from ``generator``
+    rather than the global RNG. The ED's and the VAE's layers start this
+    way (``torch_kaiming_uniform`` of the JAX package)."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
             with torch.no_grad():
@@ -116,6 +118,18 @@ class Conv1d(nn.Conv1d):
                 y = F.conv1d(x.transpose(1, 2), self.weight, self.bias, s, p)
             return y.transpose(1, 2)
         return conv1d(x, self.weight.permute(2, 1, 0), s, p, bias=self.bias)
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """Transposed 1-D convolution over (B, L, C) with torch ConvTranspose1d
+    geometry and the torch ``(Cin, Cout, K)`` weight, so reference state
+    dicts load strictly. It always computes through
+    ``ops.conv.conv_transpose1d``: the hand-written kernel on the card, its
+    plain version on the CPU, both differentiable once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose1d(x, self.weight.permute(2, 0, 1), self.stride[0], self.padding[0],
+                                self.output_padding[0], bias=self.bias)
 
 
 class Dropout(nn.Module):

@@ -13,12 +13,14 @@ Generation math matches the reference serving path: per-emotion feature base
 from ``<workdir>/<cfg.checkpoint_dir>/gan_final.ckpt`` unless a checkpoint
 (``.ckpt`` or ``.pth``) is named, with random weights and a warning when the
 file is absent, and ``use_ema`` serves the file's EMA generator. The config
-is a ``GANConfig``; YAML config files, text and camera emotion,
+is a YAML path (``configs/gan.yaml`` by default; ``GANConfig()`` when the
+file does not exist) or a ``GANConfig``. Text and camera emotion,
 ``/video_feed``, ``/metrics``, ``/reload`` and the sample pool come with
 later slices.
 
 Run: ``python -m melogan_torch.serving.app [--port 5000] [--workdir .]
-[--checkpoint gan_final.ckpt] [--ema] [--device cuda]``.
+[--config configs/gan.yaml] [--checkpoint gan_final.ckpt] [--ema]
+[--device cuda]``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import json
 import os
 import threading
 from socketserver import ThreadingMixIn
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 from wsgiref.simple_server import WSGIServer, make_server
 
 from melogan_torch.config import GANConfig
@@ -178,21 +180,25 @@ class ThreadingWSGIServer(ThreadingMixIn, WSGIServer):
     daemon_threads = True
 
 
+DEFAULT_CONFIG = "configs/gan.yaml"
+
+
 def _resolve_config(config) -> GANConfig:
-    if config is None:
-        return GANConfig()
+    """A ``GANConfig`` as it is; a YAML path through ``GANConfig.from_yaml``
+    when the file exists, else ``GANConfig()`` (the JAX ``serve``'s rule);
+    None as ``GANConfig()``."""
     if isinstance(config, GANConfig):
         return config
-    raise NotImplementedError(
-        f"config {config!r}: YAML config files are not ported yet (ROADMAP A.2, "
-        f"from_yaml); pass a GANConfig")
+    if config is not None and os.path.exists(config):
+        return GANConfig.from_yaml(config)
+    return GANConfig()
 
 
 def create_server(
     host: str = "0.0.0.0",
     port: int = 5000,
     workdir: str = ".",
-    config: Optional[GANConfig] = None,
+    config: Union[str, GANConfig, None] = DEFAULT_CONFIG,
     checkpoint: Optional[str] = None,
     use_ema: bool = False,
     device="cuda",
@@ -201,7 +207,8 @@ def create_server(
     caller runs ``serve_forever`` and, at the end, ``shutdown`` and
     ``server_close``.
 
-    ``config``: a ``GANConfig``, or None for ``GANConfig()``. ``checkpoint``:
+    ``config``: a YAML path (a missing file, or None, gives ``GANConfig()``)
+    or a ``GANConfig``. ``checkpoint``:
     a ``gan_final`` (``.ckpt`` or ``.pth``); by default
     ``<workdir>/<cfg.checkpoint_dir>/gan_final.ckpt``. When the file is
     absent the weights are seeded random ones and a warning is printed.
@@ -231,7 +238,7 @@ def create_server(
 
 
 def serve(host: str = "0.0.0.0", port: int = 5000, workdir: str = ".",
-          config: Optional[GANConfig] = None, checkpoint: Optional[str] = None,
+          config: Union[str, GANConfig, None] = DEFAULT_CONFIG, checkpoint: Optional[str] = None,
           use_ema: bool = False, device="cuda") -> None:
     """Serve ``/generate`` and ``/healthz`` until interrupted."""
     httpd, state = create_server(host, port, workdir=workdir, config=config,
@@ -253,11 +260,13 @@ def main(argv=None) -> None:
     ap.add_argument("--port", type=int, default=5000)
     ap.add_argument("--workdir", default=".",
                     help="the default checkpoint is <workdir>/experiments/gan/checkpoints/gan_final.ckpt")
+    ap.add_argument("--config", default=DEFAULT_CONFIG,
+                    help="a GAN YAML config (GANConfig() when the file does not exist)")
     ap.add_argument("--checkpoint", default=None, help="a gan_final .ckpt or .pth")
     ap.add_argument("--ema", action="store_true", help="serve the checkpoint's EMA generator (G_ema)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    serve(args.host, args.port, workdir=args.workdir, checkpoint=args.checkpoint,
+    serve(args.host, args.port, workdir=args.workdir, config=args.config, checkpoint=args.checkpoint,
           use_ema=args.ema, device=args.device)
 
 

@@ -1,15 +1,17 @@
-"""Analytic FLOP counts of the models and of one WGAN-GP group step.
+"""Analytic FLOP counts of the models, of one WGAN-GP group step and of one
+VAE training step.
 
 The port's own copy of ``melogan_tpu/utils/flops.py`` (matmul and conv
 FLOPs only, 1 MAC = 2 FLOPs), with one change: the frozen emotion
 discriminator counts forward plus input gradient (2× its forward) inside
 the generator update, since its weights take no gradient; the JAX count
 takes it at 3×. The counts give the group step's bound on the card:
-operations over the f32 peak.
+operations over the f32 peak. ``vae_flops`` and ``vae_step_flops`` have no
+JAX counterpart.
 """
 from __future__ import annotations
 
-from melogan_torch.config import GANConfig
+from melogan_torch.config import AEConfig, GANConfig
 
 
 def _linear(d_in: int, d_out: int) -> int:
@@ -88,3 +90,30 @@ def group_step_flops(cfg: GANConfig, ed_cfg) -> int:
     critic_step = b * (f_g + f_f + 12 * f_c)
     gen_step = b * (3 * (f_g + f_f + f_c) + 2 * f_e)
     return max(1, cfg.critic_iters) * critic_step + gen_step
+
+
+def vae_flops(cfg: AEConfig) -> int:
+    """Forward FLOPs of one sample through the VAE: three k5 s2 convs, the
+    Linear head, fc_mu and fc_log_var, the decoder's pre-net and three k5
+    transposed convs."""
+    total, length, c = 0, cfg.max_notes, 4
+    for ch in (32, 64, 128):
+        length = (length - 1) // 2 + 1
+        total += _conv1d(length, c, ch, 5)
+        c = ch
+    total += _linear(c * length, cfg.hidden_dim) + 2 * _linear(cfg.hidden_dim, cfg.latent_dim)
+    reduced = max(1, cfg.max_notes // 8)
+    total += _linear(cfg.latent_dim, cfg.hidden_dim) + _linear(cfg.hidden_dim, 128 * reduced)
+    length, c = reduced, 128
+    for ch in (64, 32, 4):
+        total += _convt1d(length, c, ch, 5)
+        length, c = 2 * length, ch
+    return total
+
+
+def vae_step_flops(cfg: AEConfig) -> int:
+    """One VAE training step over a batch of ``cfg.batch_size``: the
+    forward, every weight gradient and every input gradient but the first
+    conv's (its input is data), each as many FLOPs as its forward."""
+    first = _conv1d((cfg.max_notes - 1) // 2 + 1, 4, 32, 5)
+    return cfg.batch_size * (3 * vae_flops(cfg) - first)

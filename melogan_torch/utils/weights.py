@@ -20,9 +20,11 @@ cross over.
 ``export_train_payload`` / ``load_train_payload`` carry the port's live
 training state to and from the payload of the JAX loop's periodic
 ``gan_epochNNNN.ckpt`` (``melogan_tpu/train/gan_loop.py:335-353``), Adam
-included. ``read_gan_final`` / ``write_gan_final`` read and write a
-``gan_final`` in either format, by suffix: ``.pth`` (the reference layout)
-or ``.ckpt`` (the JAX layout). Convert one into the other with
+included; ``export_vae_payload`` / ``load_vae_payload`` do the same for the
+VAE loop's ``ae_best.ckpt`` (``melogan_tpu/train/vae_loop.py:556-578``).
+``read_gan_final`` / ``write_gan_final`` read and write a ``gan_final`` in
+either format, by suffix: ``.pth`` (the reference layout) or ``.ckpt`` (the
+JAX layout). Convert one into the other with
 ``python -m melogan_torch.utils.weights convert SRC DST``.
 """
 from __future__ import annotations
@@ -87,6 +89,37 @@ def export_generator(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
     _exp_linear(p["noise_to_latent"]["TorchLinear_0"], "noise_to_latent.net.0", sd)
     _exp_linear(p["noise_to_latent"]["TorchLinear_1"], "noise_to_latent.net.2", sd)
+    _exp_linear(p["decoder"]["TorchLinear_0"], "decoder.pre.0", sd)
+    _exp_linear(p["decoder"]["TorchLinear_1"], "decoder.pre.2", sd)
+    for i, t in enumerate((0, 3, 6)):
+        _exp_convt1d(p["decoder"][f"ConvTranspose1d_{i}"], f"decoder.deconv.{t}", sd)
+    for i, t in enumerate((1, 4)):
+        _exp_bn(
+            p["decoder"][f"TorchBatchNorm_{i}"],
+            None if st is None else st["decoder"][f"TorchBatchNorm_{i}"],
+            f"decoder.deconv.{t}",
+            sd,
+        )
+    return sd
+
+
+def export_vae(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """{'params'[, 'batch_stats']} → torch state_dict keyed per
+    src/ae/model.py (its parameters alone without ``batch_stats``)."""
+    p, st = variables["params"], variables.get("batch_stats")
+    sd: Dict[str, np.ndarray] = {}
+    for i, t in enumerate((0, 3, 6)):
+        _exp_conv1d(p["encoder"][f"Conv1d_{i}"], f"encoder.conv.{t}", sd)
+    for i, t in enumerate((1, 4, 7)):
+        _exp_bn(
+            p["encoder"][f"TorchBatchNorm_{i}"],
+            None if st is None else st["encoder"][f"TorchBatchNorm_{i}"],
+            f"encoder.conv.{t}",
+            sd,
+        )
+    _exp_linear(p["encoder"]["TorchLinear_0"], "encoder._linear.1", sd)
+    _exp_linear(p["fc_mu"], "fc_mu", sd)
+    _exp_linear(p["fc_log_var"], "fc_log_var", sd)
     _exp_linear(p["decoder"]["TorchLinear_0"], "decoder.pre.0", sd)
     _exp_linear(p["decoder"]["TorchLinear_1"], "decoder.pre.2", sd)
     for i, t in enumerate((0, 3, 6)):
@@ -489,6 +522,88 @@ def load_train_payload(state, raw: Mapping[str, Any], ema_decay: float) -> Tuple
         with torch.no_grad():
             for name, e in state.ema_params.items():
                 e.copy_(src[name])
+    note = None
+    if TORCH_RNG_KEY in raw:
+        rng_state = torch.from_numpy(np.array(raw[TORCH_RNG_KEY], np.uint8))
+        if rng_state.numel() == state.rng.get_state().numel():
+            state.rng.set_state(rng_state)
+        else:
+            note = (f"the checkpoint's random stream is of another device's generator; "
+                    f"the {state.rng.device} generator keeps its seeded stream")
+    else:
+        note = "the checkpoint carries no torch random stream; the seeded stream goes on"
+    return int(np.asarray(raw["epoch"])), note
+
+
+# ---------------------------------------------------------------------------
+# The VAE loop's ae_best.ckpt
+# ---------------------------------------------------------------------------
+
+
+def export_vae_payload(snapshot: Mapping[str, Any]) -> Dict[str, Any]:
+    """A snapshot of the port's VAE training state (``train.vae_loop.
+    snapshot``) as the JAX loop's ``ae_best.ckpt``: ``epoch``, ``params``,
+    ``batch_stats``, ``opt_state``, ``best_val``, ``lr``, ``plateau`` and
+    ``stopper``. ``opt_state`` is the tree that JAX's
+    ``chain(clip_by_global_norm, inject_hyperparams(adamw))`` state
+    serializes to: ``{"0": {}, "1": {count, hyperparams, hyperparams_states,
+    inner_state: {"0": {count, mu, nu}, "1": {}, "2": {}}}}``, the moments
+    in the parameters' HIO layout. The ``torch.Generator``'s state and each
+    BatchNorm's ``num_batches_tracked`` go under keys of the port's own,
+    which JAX ignores; there is no ``rng``, so a JAX run resumed from this
+    file keeps its own stream."""
+    sd = {k: _np(v) for k, v in snapshot["model"].items()}
+    opt = snapshot["opt"]
+    count = np.asarray(opt["count"], np.int32)
+    adam = {"count": count,
+            "mu": convert_vae({k: _np(v) for k, v in opt["mu"].items()})["params"],
+            "nu": convert_vae({k: _np(v) for k, v in opt["nu"].items()})["params"]}
+    inject = {"count": count,
+              "hyperparams": {k: np.asarray(v, np.float32) for k, v in opt["hyperparams"].items()},
+              "hyperparams_states": {},
+              "inner_state": {"0": adam, "1": {}, "2": {}}}
+    return {
+        "epoch": int(snapshot["epoch"]),
+        **convert_vae(sd),
+        "opt_state": {"0": {}, "1": inject},
+        "best_val": float(snapshot["stopper"]["best"]),
+        "lr": float(opt["hyperparams"]["learning_rate"]),
+        "plateau": {"best": float(snapshot["plateau"]["best"]),
+                    "num_bad_epochs": int(snapshot["plateau"]["num_bad_epochs"])},
+        "stopper": {"best": float(snapshot["stopper"]["best"]),
+                    "num_bad_epochs": int(snapshot["stopper"]["num_bad_epochs"])},
+        TORCH_RNG_KEY: snapshot["rng"].numpy(),
+        TORCH_BN_KEY: {k: v for k, v in sd.items() if k.endswith("num_batches_tracked")},
+    }
+
+
+def load_vae_payload(state, raw: Mapping[str, Any]) -> Tuple[int, Optional[str]]:
+    """Restore an ``ae_best.ckpt`` (the port's or the JAX loop's) into the
+    port's ``train.vae_loop.VAETrainState`` in place: weights, BatchNorm
+    statistics, the optimizer's step count, moments and hyperparameters
+    (the learning rate among them), and from a port file also the
+    ``torch.Generator`` and ``num_batches_tracked``. Keys and shapes are
+    checked first (a ValueError names the key). Returns (the file's epoch,
+    a note when its random stream could not be taken over, else None).
+    The scheduler state (``plateau``, ``stopper``, ``lr``) is the loop's to
+    read."""
+    from melogan_torch.train.vae_loop import snapshot
+
+    want = export_vae_payload(snapshot(state, 0))
+    check_tree({k: want[k] for k in ("params", "batch_stats", "opt_state")}, raw)
+    if "epoch" not in raw:
+        raise ValueError("checkpoint lacks key /epoch")
+    sd = export_vae({"params": raw["params"], "batch_stats": raw["batch_stats"]})
+    sd.update({k: np.asarray(v) for k, v in raw.get(TORCH_BN_KEY, {}).items()})
+    _load_module(state.model, sd)
+    inject = raw["opt_state"]["1"]
+    adam = inject["inner_state"]["0"]
+    state.opt.load_state_dict({
+        "count": int(np.asarray(adam["count"])),
+        "mu": to_tensors(export_vae({"params": adam["mu"]})),
+        "nu": to_tensors(export_vae({"params": adam["nu"]})),
+        "hyperparams": {k: float(np.asarray(v)) for k, v in inject["hyperparams"].items()},
+    })
     note = None
     if TORCH_RNG_KEY in raw:
         rng_state = torch.from_numpy(np.array(raw[TORCH_RNG_KEY], np.uint8))

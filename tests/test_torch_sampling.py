@@ -196,11 +196,12 @@ def test_generate_midi_and_many_end_to_end(tmp_path):
 
 def test_port_imports_nothing_of_jax():
     """Every module of melogan_torch imports, in a fresh interpreter, without
-    pulling in jax, flax, optax, msgpack or melogan_tpu; with msgpack and
-    flax blocked, the checkpoint codec still writes and reads a file."""
+    pulling in jax, flax, optax, msgpack, yaml or melogan_tpu; with msgpack,
+    flax and yaml blocked, the checkpoint codec still writes and reads a
+    file and the typed configs read the shipped YAML files."""
     code = (
         "import importlib, os, pkgutil, sys, tempfile\n"
-        "for blocked in ('msgpack', 'flax', 'jax', 'optax', 'melogan_tpu'):\n"
+        "for blocked in ('msgpack', 'flax', 'jax', 'optax', 'yaml', 'melogan_tpu'):\n"
         "    sys.modules[blocked] = None  # an import of it raises ImportError\n"
         "import numpy as np\n"
         "import melogan_torch\n"
@@ -210,9 +211,17 @@ def test_port_imports_nothing_of_jax():
         "path = os.path.join(tempfile.mkdtemp(), 'a.ckpt')\n"
         "save_checkpoint(path, {'w': np.arange(3.0), 'epoch': 2})\n"
         "assert int(load_checkpoint(path)['epoch']) == 2\n"
+        "from melogan_torch.config import AEConfig, EDConfig, GANConfig\n"
+        "assert AEConfig.from_yaml('configs/ae_freebits.yaml').free_bits == 0.25\n"
+        "assert EDConfig.from_yaml('configs/ed.yaml').labels == ('happy', 'sad', 'angry', 'calm')\n"
+        "assert GANConfig.from_yaml('configs/gan_conditioning.yaml').latent_dim == 8\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None and m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'melogan_tpu'))\n"
-        "assert len(mods) >= 20, mods\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'yaml', 'melogan_tpu'))\n"
+        "need = {'melogan_torch.models.vae', 'melogan_torch.train.vae_loop', 'melogan_torch.train.harness',\n"
+        "        'melogan_torch.utils.yaml_subset', 'melogan_torch.data.npz', 'melogan_torch.data.scaler',\n"
+        "        'melogan_torch.data.splits', 'melogan_torch.data.synthetic', 'melogan_torch.data.augment'}\n"
+        "assert need <= set(mods), need - set(mods)\n"
+        "assert len(mods) >= 30, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -1,5 +1,7 @@
 """The port's WSGI app with a CPU sampler: /generate, /healthz and errors,
-and ``create_server`` on a ``.ckpt`` with a config and EMA."""
+and ``create_server`` on a ``.ckpt`` with a config and EMA, and with the
+shipped YAML configs."""
+import dataclasses
 import io
 import json
 import threading
@@ -205,12 +207,31 @@ def test_create_server_serves_a_ckpt_with_config_and_ema(trained_1024):
 
 
 def test_create_server_default_checkpoint_and_config_path(trained_1024, tmp_path):
-    """The default checkpoint is <workdir>/<cfg.checkpoint_dir>/gan_final.ckpt;
-    a YAML path for ``config`` is not ported yet."""
+    """The default checkpoint is <workdir>/<cfg.checkpoint_dir>/gan_final.ckpt.
+    ``config`` is a GANConfig or, as in the JAX server, a YAML path read with
+    ``GANConfig.from_yaml``, and ``GANConfig()`` when the file does not
+    exist: the shipped configs/gan.yaml and configs/gan_conditioning.yaml
+    (the AE latent concatenated, zeros when serving) each answer
+    ``POST /generate``."""
     cfg, workdir, _ = trained_1024
     httpd, app_state = create_server("127.0.0.1", 0, workdir=str(workdir), config=cfg, device="cpu")
     httpd.server_close()
     assert app_state.loaded and not app_state.use_ema
     assert app_state.ckpt_path == str(workdir / cfg.checkpoint_dir / "gan_final.ckpt")
-    with pytest.raises(NotImplementedError, match="YAML"):
-        create_server("127.0.0.1", 0, workdir=str(tmp_path), config="configs/gan.yaml", device="cpu")
+    for path in ("configs/gan.yaml", "configs/gan_conditioning.yaml"):
+        httpd, app_state = create_server("127.0.0.1", 0, workdir=str(tmp_path), config=path, device="cpu")
+        t, base = _serve(httpd)
+        try:
+            status, body = _post(base, "angry")
+            assert status == 200 and body[:4] == b"MThd"
+            assert _healthz(base)["generator"] == "random-weights"
+        finally:
+            _stop(httpd, t)
+        assert dataclasses.asdict(app_state.cfg) == dataclasses.asdict(GANConfig.from_yaml(path))
+        assert app_state.sampler.generator.mode == app_state.cfg.integration_mode
+        assert app_state.ckpt_path == str(tmp_path / app_state.cfg.checkpoint_dir / "gan_final.ckpt")
+    assert app_state.cfg.integration_mode == "conditioning" and app_state.cfg.latent_dim == 8
+    httpd, app_state = create_server("127.0.0.1", 0, workdir=str(tmp_path),
+                                     config=str(tmp_path / "missing.yaml"), device="cpu")
+    httpd.server_close()
+    assert app_state.cfg == GANConfig()
