@@ -69,7 +69,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     their plain versions, timed beside the library calls; between
     ``vae_train`` and ``vae_resume``, outside any counted path,
     ``vae_step`` times the median wall of 10 VAE training steps;
-12. prints the ``kernels`` JSON line (launches summed over every driven
+12. Stage 2 and serving, each path with the counts set to 0 first:
+    ``ed_train`` (``ed_loop.train`` with ``configs/ed.yaml``, batch 64, for
+    4 epochs with ``save_freq`` 2 on the data phase's splits; its
+    ``conv1d`` and ``convt1d`` counts must equal ``ed_counts``' prediction),
+    ``ed_resume`` (from a copy of a 2-epoch run's ``ed_epoch0002.ckpt``,
+    made before the counts are set to 0, to epoch 4; it must be bit for bit
+    the straight run), ``judge`` (``train_judge`` on val with test as its
+    validation, ``judge_notes`` on the real test rows, ``evaluate`` on the
+    card against the CPU), ``gan_with_ed`` (``configs/gan.yaml`` with
+    λ_fm = 10 for 1 epoch against the ED that ``ed_train`` wrote, then
+    ``judge_generated`` of its ``gan_final.ckpt``) and ``serve_reload``
+    (``create_server`` with the sample pool and ``watch_ckpt``: ``POST
+    /generate`` from the pool, ``POST /reload`` of ``gan_with_ed``'s
+    checkpoint serving its weights bit for bit, ``/metrics``, and the
+    watcher swapping in a replaced file); before them, ``kernels_ed``
+    holds ``conv1d`` at the ED's four layers and the three input-gradient
+    launches of a step (``convt1d``) at batch 64 against their plain
+    versions, timed beside the library calls; between ``ed_train`` and
+    ``ed_resume``, outside any counted path, ``ed_step`` times the median
+    wall of 10 ED training steps and traces 3;
+13. prints the ``kernels`` JSON line (launches summed over every driven
     path), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without CUDA, or without the rest of
@@ -130,6 +150,15 @@ VAE_BACKWARD = [((l, cin, cout, k, s, p, 0), False, n) for l, cin, cout, k, s, p
 CORPUS_PER_EMOTION = 64
 VAE_EPOCHS = 3
 VAE_STEPS = 10  # timed VAE training steps after a first
+# the ED trainer (configs/ed.yaml: batch 64) on the data phase's splits: 180 train rows give 2
+# steps an epoch, 40 val rows one validation batch
+ED_BATCH = 64
+ED_EPOCHS = 4
+ED_SAVE_FREQ = 2
+ED_STEPS = 10  # timed ED training steps after a first
+JUDGE_EPOCHS = 4
+# input gradients of ED blocks 2-4 (block 1's input is data and takes none)
+ED_BACKWARD = [((l, cin, cout, k, s, p, 0), False, n) for l, cin, cout, k, s, p, n in ED_LAYERS[1:]]
 CORPUS_ROWS = 384  # batch 32: 12 batches, 2 groups of 5 and a 2-batch tail per epoch
 GROUP_STEPS = 10  # timed group steps after a first
 
@@ -392,7 +421,7 @@ def drive_main_path(torch, results):
 
     # a workdir without checkpoints: seeded random weights, whatever the checkout holds
     httpd, _state = create_server("127.0.0.1", 0, workdir=os.path.join(WORK_DIR, "no_checkpoint"),
-                                  device="cuda")
+                                  device="cuda", sample_pool=False)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
@@ -704,7 +733,7 @@ def drive_serve_ckpt(torch, trained, results):
 
     path = os.path.join(trained["fm_workdir"], trained["cfg"].checkpoint_dir, "gan_final.ckpt")
     httpd, state = create_server("127.0.0.1", 0, config=GANConfig(ema_decay=0.9), checkpoint=path,
-                                 use_ema=True, device="cuda")
+                                 use_ema=True, device="cuda", sample_pool=False)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
@@ -881,8 +910,8 @@ def check_vae_kernels(torch, F, ops, gen, results):
 def drive_data(np, results):
     """``data``: the seeded synthetic corpus on disk (``generate_corpus``,
     MIDI files and a manifest), ``preprocess_corpus`` (``.npz`` samples and
-    the scaler), ``create_splits`` and ``load_split`` of train and val, each
-    step's seconds on the host clock."""
+    the scaler), ``create_splits`` and ``load_split`` of train, val and
+    test, each step's seconds on the host clock."""
     import shutil
 
     from melogan_torch.data.datasets import load_split
@@ -902,7 +931,7 @@ def drive_data(np, results):
     create_splits(read_manifest(os.path.join(root, "data_manifest.csv")), splits_dir)
     t3 = time.perf_counter()
     data = {name: load_split(os.path.join(splits_dir, f"{name}_split.csv"), processed, verbose=False)
-            for name in ("train", "val")}
+            for name in ("train", "val", "test")}
     t4 = time.perf_counter()
     secs = {"generate_corpus": t1 - t0, "preprocess_corpus": t2 - t1, "create_splits": t3 - t2,
             "load_split": t4 - t3}
@@ -1125,7 +1154,8 @@ def drive_gan_conditioning(torch, np, data, latents, results):
     wall = time.perf_counter() - t0
     if state.step < 1 or not all(np.isfinite(v) for v in hist.values()):
         raise SystemExit(f"gan_conditioning: step {state.step}, history {hist}")
-    httpd, app_state = create_server("127.0.0.1", 0, workdir=workdir, config=cfg_path, device="cuda")
+    httpd, app_state = create_server("127.0.0.1", 0, workdir=workdir, config=cfg_path, device="cuda",
+                                     sample_pool=False)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
@@ -1145,6 +1175,355 @@ def drive_gan_conditioning(torch, np, data, latents, results):
     emit({"phase": "gan_conditioning", "epochs": 1, "group_steps": state.step, "wall_s": wall,
           "history": hist, "served": os.path.relpath(app_state.ckpt_path, ROOT), "healthz": health},
          results)
+
+
+def check_ed_kernels(torch, F, ops, gen, results):
+    """``kernels_ed``: ``conv1d`` at the ED's four layers at the ED
+    trainer's batch (64), and the three input-gradient launches of a step
+    (blocks 2-4, on ``convt1d``), each against its plain version, timed
+    beside ``F.conv1d`` / ``conv1d_input`` with TF32 off, bounds at
+    3xTF32."""
+    fwd = check_conv1d(torch, F, ops, ED_BATCH, gen, results, ED_LAYERS, "kernels_ed")
+    back = check_backward_routes(torch, F, ops, ED_BATCH, gen, results, ED_BACKWARD, "kernels_ed_backward")
+    summary = {"phase": "kernels_ed_summary", "batch": ED_BATCH,
+               "conv1d_4_layers": {k: sum(r[k] for r in fwd) for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                                        "bound_ms", "flops")},
+               "convt1d_dx_3_layers": {k: sum(r[k] for r in back) for k in ("dx_kernel_ms", "dx_plain_ms",
+                                                                            "dx_library_ms", "bound_ms",
+                                                                            "flops")}}
+    emit(summary, results)
+    return fwd, back
+
+
+def _ed_cfg():
+    import dataclasses
+
+    from melogan_torch.config import EDConfig
+
+    cfg = EDConfig.from_yaml(os.path.join(ROOT, "configs", "ed.yaml"))
+    if cfg.batch_size != ED_BATCH:
+        raise SystemExit(f"configs/ed.yaml: batch {cfg.batch_size}, expected {ED_BATCH}")
+    return dataclasses.replace(cfg, num_epochs=ED_EPOCHS, save_freq=ED_SAVE_FREQ)
+
+
+def ed_counts(data):
+    """The launches ``ed_train`` must show: per epoch 4 ``conv1d`` and 3
+    ``convt1d`` a step, 4 ``conv1d`` a validation batch."""
+    steps = data["train"].n // ED_BATCH
+    val_batches = max(1, data["val"].n // min(ED_BATCH, data["val"].n))
+    return {"conv1d": ED_EPOCHS * 4 * (steps + val_batches), "convt1d": ED_EPOCHS * 3 * steps,
+            "steps_per_epoch": steps, "val_batches": val_batches}
+
+
+def drive_ed_train(torch, np, data, results):
+    """``ed_train``: ``ed_loop.train`` with ``configs/ed.yaml`` (full width,
+    batch 64) for 4 epochs with ``save_freq`` 2 on the card, in a fresh
+    workdir: the epochs logged, ``ed_epoch0002.ckpt``, ``ed_epoch0004.ckpt``
+    and ``ed_best.ckpt`` written."""
+    import shutil
+
+    from melogan_torch.train import ed_loop
+
+    cfg = _ed_cfg()
+    workdir = os.path.join(WORK_DIR, "ed")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    best, metrics = ed_loop.train(cfg, data["train"], data["val"], workdir=workdir, verbose=False,
+                                  device="cuda")
+    wall = time.perf_counter() - t0
+    logged = _logged(os.path.join(workdir, cfg.log_dir))
+    files = sorted(os.listdir(os.path.join(workdir, cfg.checkpoint_dir)))
+    if sorted(logged) != list(range(1, ED_EPOCHS + 1)) or not all(
+            np.isfinite(v) for ep in logged.values() for v in ep.values()):
+        raise SystemExit(f"ed_train: logged epochs {sorted(logged)} or a value not finite")
+    if files != ["ed_best.ckpt", "ed_epoch0002.ckpt", "ed_epoch0004.ckpt"]:
+        raise SystemExit(f"ed_train: checkpoints {files}")
+    emit({"phase": "ed_train", "epochs": ED_EPOCHS, "wall_s": wall,
+          "epoch_seconds": [logged[ep]["epoch_seconds"] for ep in sorted(logged)],
+          "val_loss": [logged[ep]["loss/val"] for ep in sorted(logged)],
+          "val_acc": [logged[ep]["acc/val"] for ep in sorted(logged)], "best": metrics, "files": files},
+         results)
+    return {"cfg": cfg, "workdir": workdir, "best": best, "metrics": metrics}
+
+
+def time_ed_step(torch, np, data, results):
+    """``ed_step``, outside any counted path: the step wall, the median of
+    10 ``train_step`` calls after a first, each ending in a synchronize,
+    against the step's bound (``utils/flops.py::ed_step_flops`` over the f32
+    peak), and a ``torch.profiler`` trace of 3 steps (device ms, kernels
+    and ``cudaLaunchKernel`` calls a step)."""
+    from melogan_torch.ops import conv1d, convt
+    from melogan_torch.profile_train import kernel_table
+    from melogan_torch.train import ed_loop
+    from melogan_torch.utils.flops import ed_step_flops
+
+    cfg = _ed_cfg()
+    state = ed_loop.init_state(cfg, seed=1, device="cuda")
+    x = torch.as_tensor(data["train"].notes_gan()[:ED_BATCH], device="cuda")
+    y = torch.as_tensor(data["train"].emotion_idx[:ED_BATCH].astype(np.int64), device="cuda")
+    walls = []
+    for i in range(ED_STEPS + 1):
+        if i == 1:
+            c1, ct = conv1d.conv1d_cuda.launches, convt.convt1d_cuda.launches
+        t1 = time.perf_counter()
+        ed_loop.train_step(state, x, y)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    per_step = {"conv1d": (conv1d.conv1d_cuda.launches - c1) / ED_STEPS,
+                "convt1d": (convt.convt1d_cuda.launches - ct) / ED_STEPS}
+    profile = kernel_table(lambda: ed_loop.train_step(state, x, y), 3, top=10)
+    launch_calls = sum(r["calls"] for r in profile["host_top"] if r["name"].startswith("cudaLaunchKernel"))
+    flops = ed_step_flops(cfg, ED_BATCH)
+    rec = {"phase": "ed_step", "batch": ED_BATCH, "step_wall_ms_first": walls[0], "step_wall_ms": walls[1:],
+           "step_median_ms": float(np.median(walls[1:])), "step_flops": flops,
+           "step_bound_ms": flops / PEAK_F32_FLOPS * 1e3, "launches_per_step": per_step,
+           "cuda_launch_kernel_calls_per_step": launch_calls / 3, "step_profile": profile}
+    emit(rec, results)
+    return rec
+
+
+def seed_ed_resume(data, ed):
+    """Before ``ed_resume``'s counted run: a 2-epoch run writes
+    ``ed_epoch0002.ckpt``, copied into the resume's fresh workdir."""
+    import dataclasses
+    import shutil
+
+    from melogan_torch.train import ed_loop
+
+    cfg = ed["cfg"]
+    first = os.path.join(WORK_DIR, "ed_first")
+    workdir = os.path.join(WORK_DIR, "ed_resume")
+    for d in (first, workdir):
+        shutil.rmtree(d, ignore_errors=True)
+    ed_loop.train(dataclasses.replace(cfg, num_epochs=ED_SAVE_FREQ), data["train"], data["val"],
+                  workdir=first, verbose=False, device="cuda")
+    os.makedirs(os.path.join(workdir, cfg.checkpoint_dir))
+    shutil.copy(os.path.join(first, cfg.checkpoint_dir, f"ed_epoch{ED_SAVE_FREQ:04d}.ckpt"),
+                os.path.join(workdir, cfg.checkpoint_dir))
+    return workdir
+
+
+def drive_ed_resume(torch, np, data, ed, workdir, results):
+    """``ed_resume``: from the copy of ``ed_epoch0002.ckpt`` in ``workdir``
+    (``seed_ed_resume``), ``train(resume=True)`` runs to epoch 4 on the
+    card; it must be bit for bit the 4-epoch run of ``ed_train``:
+    ``ed_epoch0004.ckpt`` byte for byte and the logged losses, accuracies
+    and learning rates of epochs 3 and 4 equal."""
+    from melogan_torch.train import ed_loop
+
+    cfg, straight = ed["cfg"], ed["workdir"]
+    t0 = time.perf_counter()
+    _, metrics = ed_loop.train(cfg, data["train"], data["val"], workdir=workdir, resume=True,
+                               verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+    name = f"ed_epoch{ED_EPOCHS:04d}.ckpt"
+    a, b = (open(os.path.join(w, cfg.checkpoint_dir, name), "rb").read() for w in (straight, workdir))
+
+    def logged(w):
+        return {(ep, k): v for ep, d in _logged(os.path.join(w, cfg.log_dir)).items() if ep > ED_SAVE_FREQ
+                for k, v in d.items() if k != "epoch_seconds"}
+
+    same_logs = logged(straight) == logged(workdir)
+    rec = {"phase": "ed_resume", "wall_s": wall, "resumed_from_epoch": ED_SAVE_FREQ,
+           "bit_identical": a == b and same_logs, "last_ckpt_bytes_equal": a == b,
+           "same_logs": same_logs, "metrics": metrics}
+    emit(rec, results)
+    if not rec["bit_identical"]:
+        raise SystemExit(f"ed_resume: not bit-identical to the straight run ({rec})")
+    return rec
+
+
+def drive_judge(torch, np, data, ed, results):
+    """``judge``: ``train_judge`` on the val split with the test split as
+    its validation (``JUDGE_EPOCHS``), ``judge_notes`` on the real test
+    rows (the calibration report), and ``evaluate`` of the test split on
+    the card against the port's CPU path on the same weights (loss 1e-4 of
+    scale, the confusion matrix equal)."""
+    import copy
+    import shutil
+
+    from melogan_torch.diagnostics import judge
+    from melogan_torch.train import ed_loop
+
+    workdir = os.path.join(WORK_DIR, "judge")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    jcfg, state = judge.train_judge(ed["cfg"], data["val"], data["test"], workdir=workdir,
+                                    epochs=JUDGE_EPOCHS, device="cuda")
+    wall = time.perf_counter() - t0
+    real = judge.judge_notes(jcfg, state, data["test"].notes_gan(), data["test"].emotion_idx)
+    on_card = ed_loop.evaluate(jcfg, state, data["test"])
+    cpu = ed_loop.init_state(jcfg, model=copy.deepcopy(state.model).cpu(), device="cpu")
+    on_cpu = ed_loop.evaluate(jcfg, cpu, data["test"])
+    if (abs(on_card["loss"] - on_cpu["loss"]) > 1e-4 * abs(on_cpu["loss"])
+            or on_card["confusion"] != on_cpu["confusion"] or real["n"] != data["test"].n):
+        raise SystemExit(f"judge: evaluate on the card {on_card} vs the CPU {on_cpu}")
+    emit({"phase": "judge", "epochs": JUDGE_EPOCHS, "train_s": wall, "judge_real": real,
+          "evaluate_card": on_card, "evaluate_cpu_loss": on_cpu["loss"]}, results)
+    return {"cfg": jcfg, "state": state, "real": real}
+
+
+def drive_gan_with_ed(torch, np, data, ed, judged, results):
+    """``gan_with_ed``: ``gan_loop.train`` with ``configs/gan.yaml`` (the
+    warm start) and λ_fm = 10 (the round-5 fm9 setting, RESULTS.md), the
+    frozen ED being the ``ed_best.ckpt`` that ``ed_train`` wrote, 1 epoch on
+    the train split (one group step); then ``judge_generated`` of 8 fresh
+    samples an emotion from its ``gan_final.ckpt``."""
+    import dataclasses
+    import shutil
+
+    from melogan_torch.config import GANConfig
+    from melogan_torch.diagnostics import judge
+    from melogan_torch.sampling import Sampler
+    from melogan_torch.train.gan_loop import train
+    from melogan_torch.utils.checkpoint import load_checkpoint
+    from melogan_torch.utils.weights import export_ed, load_gan_final_full
+
+    raw = load_checkpoint(os.path.join(ed["workdir"], ed["cfg"].checkpoint_dir, "ed_best.ckpt"))
+    ed_sd = export_ed({"params": raw["params"], "batch_stats": raw["batch_stats"]})
+    cfg = dataclasses.replace(GANConfig.from_yaml(os.path.join(ROOT, "configs", "gan.yaml")), lambda_fm=10.0)
+    workdir = os.path.join(WORK_DIR, "gan_with_ed")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    state, hist = train(cfg, ed["cfg"], data["train"], ed_variables=ed_sd, workdir=workdir, epochs=1,
+                        verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+    if state.step < 1 or not all(np.isfinite(v) for v in hist.values()) or "Loss/Generator_FM" not in hist:
+        raise SystemExit(f"gan_with_ed: step {state.step}, history {hist}")
+    final = os.path.join(workdir, cfg.checkpoint_dir, "gan_final.ckpt")
+    gen_sd, fe_sd, extras = load_gan_final_full(final)
+    sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd, emotion_features=extras["emotion_features"],
+                      device="cuda")
+    report = judge.judge_generated(judged["cfg"], judged["state"], sampler, n_per_emotion=8, seed=1234)
+    if report["n"] != 32 or sum(map(sum, report["confusion"])) != 32:
+        raise SystemExit(f"gan_with_ed: judge report {report}")
+    emit({"phase": "gan_with_ed", "epochs": 1, "group_steps": state.step, "wall_s": wall, "history": hist,
+          "ed_best_epoch": int(raw["epoch"]), "judge_generated": report,
+          "checkpoint": os.path.relpath(final, ROOT)}, results)
+    return {"cfg": cfg, "final": final}
+
+
+def drive_serve_reload(torch, np, gan, trained, results):
+    """``serve_reload``: ``create_server`` with ``configs/gan.yaml``, the
+    sample pool (prefilled, its refill ladder warmed in the background) and
+    ``watch_ckpt``, on a path that holds no checkpoint (random weights);
+    four ``POST /generate`` from the pool; ``POST /reload`` of a copy of
+    ``gan_with_ed``'s ``gan_final.ckpt`` (200, pooled samples flushed, the
+    copy now the path served and watched), then ``/generate``; ``/metrics``
+    counts the reload; then the copy is replaced on disk by the training
+    phase's ``gan_final.ckpt`` and the watcher must swap it in within 30 s.
+    The server, its pool and its watcher are stopped at the end.
+
+    Only the server's own work runs here, inside the counted window. After
+    each swap the served sampler is snapshotted (a shallow copy keeps the
+    modules it serves at that moment, and launches nothing);
+    ``check_served_weights`` samples the snapshots after the window. Every
+    ``Sampler.sample_notes`` call the server makes is counted, so that the
+    phase's ``decoder_tail`` launches can be held to it."""
+    import copy
+    import shutil
+
+    from melogan_torch import EMOTIONS
+    from melogan_torch.sampling import Sampler
+    from melogan_torch.serving.app import create_server
+
+    workdir = os.path.join(WORK_DIR, "serve_reload")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    served = os.path.join(workdir, "served.ckpt")
+    cfg_path = os.path.join(ROOT, "configs", "gan.yaml")
+    calls = []  # the batch of every sample_notes call the server makes
+    original = Sampler.sample_notes
+
+    def counted(self, emotions, seed=0):
+        calls.append(len(emotions))
+        return original(self, emotions, seed=seed)
+
+    Sampler.sample_notes = counted
+    try:
+        t0 = time.perf_counter()
+        httpd, state = create_server("127.0.0.1", 0, config=cfg_path, checkpoint=served, device="cuda",
+                                     watch_ckpt=0.1)
+        startup = time.perf_counter() - t0
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        rec = {"phase": "serve_reload", "startup_s": startup}
+        try:
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            for emotion in EMOTIONS:
+                status, body = http(base, "/generate", json.dumps({"emotion": emotion}).encode())
+                if status != 200 or body[:4] != b"MThd":
+                    raise SystemExit(f"/generate {emotion} from the pool: status {status}")
+            health = json.loads(http(base, "/healthz")[1])
+            if health["generator"] != "random-weights" or health["sample_pool"]["hits"] < 1:
+                raise SystemExit(f"serve_reload /healthz before the reload: {health}")
+            reloaded = os.path.join(workdir, "reloaded.ckpt")
+            shutil.copy(gan["final"], reloaded)
+            t1 = time.perf_counter()
+            status, body = http(base, "/reload", json.dumps({"checkpoint": reloaded}).encode())
+            reload_s = time.perf_counter() - t1
+            answer = json.loads(body)
+            if status != 200 or answer["flushed_pool_samples"] < 1 or state.ckpt_path != reloaded:
+                raise SystemExit(f"/reload: {status} {answer}")
+            after_reload = copy.copy(state.sampler)
+            status, body = http(base, "/generate", json.dumps({"emotion": "sad"}).encode())
+            if status != 200 or body[:4] != b"MThd":
+                raise SystemExit(f"/generate after /reload: status {status}")
+            metrics = http(base, "/metrics")[1].decode()
+            if "melogan_reloads_total 1" not in metrics:
+                raise SystemExit("serve_reload: /metrics does not count the reload")
+            # the watcher: replace the served file on disk with another checkpoint
+            before = state.loaded_version
+            swapped_in = os.path.join(trained["workdir"], trained["cfg"].checkpoint_dir, "gan_final.ckpt")
+            incoming = os.path.join(workdir, "incoming.ckpt")
+            shutil.copy(swapped_in, incoming)
+            os.utime(incoming, (before[1] + 10, before[1] + 10))
+            os.replace(incoming, reloaded)
+            t2 = time.perf_counter()
+            while state.loaded_version == before and time.perf_counter() - t2 < 30:
+                time.sleep(0.05)
+            watch_s = time.perf_counter() - t2
+            if state.loaded_version == before:
+                raise SystemExit("serve_reload: the checkpoint watcher did not pick up the replaced file")
+            after_watch = copy.copy(state.sampler)
+            health = json.loads(http(base, "/healthz")[1])
+            rec.update({"reload": answer, "reload_s": reload_s, "watch_swap_s": watch_s,
+                        "metrics_lines": len(metrics.splitlines()), "healthz": health})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+            state.close()
+    finally:
+        Sampler.sample_notes = original
+    rec["server_sample_calls"] = len(calls)
+    rec["server_sample_batches"] = sorted(set(calls))
+    return {"rec": rec, "snapshots": [("/reload", after_reload, gan["final"], 5),
+                                      ("the watcher", after_watch, swapped_in, 6)]}
+
+
+def check_served_weights(np, gan, served, counts, results):
+    """Outside the counts: each snapshot of the served sampler against a
+    fresh ``Sampler`` on the file that was swapped in, bit for bit (a stale
+    folded-BN stage would serve the old weights); and ``serve_reload``'s
+    ``decoder_tail`` launches against the server's ``sample_notes`` calls,
+    one launch each."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.sampling import Sampler
+    from melogan_torch.utils.weights import load_gan_final_full
+
+    rec = served["rec"]
+    for swap, snapshot, path, seed in served["snapshots"]:
+        gen_sd, fe_sd, extras = load_gan_final_full(path)
+        fresh = Sampler(gan["cfg"], gen_variables=gen_sd, fe_variables=fe_sd,
+                        emotion_features=extras["emotion_features"], device="cuda")
+        notes, want = (s.sample_notes(list(EMOTIONS), seed=seed) for s in (snapshot, fresh))
+        if not np.array_equal(notes, want):
+            raise SystemExit(f"serve_reload: after {swap} the sampler does not serve the new weights")
+    if counts["decoder_tail"] != rec["server_sample_calls"]:
+        raise SystemExit(f"serve_reload: {counts['decoder_tail']} decoder_tail launches for "
+                         f"{rec['server_sample_calls']} sample_notes calls of the server")
+    emit(rec, results)
 
 
 def main() -> int:
@@ -1201,6 +1580,7 @@ def main() -> int:
         c1d[b] = check_conv1d(torch, F, ops, b, gen, results)
     check_backward_routes(torch, F, ops, TRAIN_BATCH, gen, results)
     vae_kernels = check_vae_kernels(torch, F, ops, gen, results)
+    check_ed_kernels(torch, F, ops, gen, results)
 
     def drive(path, fn, need):
         """Run one main path with every launch count at 0; its counts."""
@@ -1240,8 +1620,26 @@ def main() -> int:
     _, conditioning = drive("gan_conditioning",
                             lambda: drive_gan_conditioning(torch, np, data, latents, results),
                             ("conv1d", "convt1d", "decoder_tail"))
+    # Stage 2 and serving: the ED trained on the card, the judge, the GAN
+    # against that ED, and its checkpoint hot-swapped into a pooled server
+    ed, ed_training = drive("ed_train", lambda: drive_ed_train(torch, np, data, results), ("conv1d", "convt1d"))
+    want = ed_counts(data)
+    if {k: ed_training[k] for k in ("conv1d", "convt1d")} != {k: want[k] for k in ("conv1d", "convt1d")}:
+        raise SystemExit(f"ed_train launches {ed_training}, predicted {want}")
+    ed_step = time_ed_step(torch, np, data, results)
+    ed_resume_dir = seed_ed_resume(data, ed)
+    _, ed_resuming = drive("ed_resume", lambda: drive_ed_resume(torch, np, data, ed, ed_resume_dir, results),
+                           ("conv1d", "convt1d"))
+    judged, judging = drive("judge", lambda: drive_judge(torch, np, data, ed, results), ("conv1d", "convt1d"))
+    gan, gan_with_ed = drive("gan_with_ed", lambda: drive_gan_with_ed(torch, np, data, ed, judged, results),
+                             ("conv1d", "convt1d", "decoder_tail"))
+    served, reloading = drive("serve_reload", lambda: drive_serve_reload(torch, np, gan, trained, results),
+                              ("decoder_tail",))
+    check_served_weights(np, gan, served, reloading, results)
+    path_names = ("sampling", "training", "resume", "serve_ckpt", "data", "vae_train", "vae_resume", "encode",
+                  "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload")
     paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
-             conditioning)
+             conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading)
     launches = {k: sum(p[k] for p in paths) for k in wrappers}
 
     big_d, big_c = dec[MAIN_BATCH, 64], cvt[CONVT_BATCHES[-1]]  # batch 4096
@@ -1286,8 +1684,8 @@ def main() -> int:
           "vae_step_median_ms": vae_step["step_median_ms"], "vae_step_bound_ms": vae_step["step_bound_ms"],
           "vae_conv1d_b32_ms": sum(r["kernel_ms"] for r in vae_kernels["conv1d"] if r["batch"] == 32),
           "vae_convt1d_b32_ms": sum(r["kernel_ms"] for r in vae_kernels["convt1d"] if r["batch"] == 32),
-          "launches_by_path": dict(zip(("sampling", "training", "resume", "serve_ckpt", "data", "vae_train",
-                                        "vae_resume", "encode", "gan_conditioning"), paths))},
+          "ed_step_median_ms": ed_step["step_median_ms"], "ed_step_bound_ms": ed_step["step_bound_ms"],
+          "ed_train_predicted_launches": want, "launches_by_path": dict(zip(path_names, paths))},
          results)
     line = {"kernels": kernels}
     results.append(line)

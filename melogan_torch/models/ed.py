@@ -16,7 +16,9 @@ Notes are (B, T, note_dim), channels last. The convs run through
 ``ops.conv.conv1d``: the hand-written ``conv1d`` kernel on the card. During
 GAN training the ED runs frozen in eval mode inside the generator loss, and
 only its input gradient flows back (the ``convt1d`` kernel on the card).
-Train-mode dropout takes an explicit ``torch.Generator``.
+Train-mode dropout takes an explicit ``torch.Generator``, or the boolean keep
+masks themselves (``masks=``, one per ``Dropout`` in order), which is how the
+tests inject the JAX package's draws.
 """
 from __future__ import annotations
 
@@ -92,9 +94,16 @@ class MLPClassifier(nn.Module):
         self.net = nn.Sequential(*layers)
         self.head = nn.Linear(prev, n_classes)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """``masks``: one boolean keep mask per ``Dropout``, in order; without
+        them train-mode dropout draws from ``generator``."""
+        drops = iter(masks or ())
         for m in self.net:
-            x = m(x, generator=generator) if isinstance(m, Dropout) else m(x)
+            if isinstance(m, Dropout):
+                x = m(x, mask=next(drops, None), generator=generator)
+            else:
+                x = m(x)
         return self.head(x)
 
 
@@ -102,7 +111,8 @@ class EmotionDiscriminator(nn.Module):
     """4-class emotion classifier; returns raw logits (B, n_classes).
 
     Train or eval mode is the module's own (``.train()`` / ``.eval()``);
-    ``generator`` feeds the classifier's dropout in train mode."""
+    ``generator`` feeds the classifier's dropout in train mode, unless
+    ``masks`` gives its keep masks (one per ``Dropout``, in order)."""
 
     def __init__(
         self,
@@ -135,10 +145,11 @@ class EmotionDiscriminator(nn.Module):
             shape = "(B, latent_dim)" if want == 2 else "(B, T, note_dim)"
             raise ValueError(f"expected {shape}, got {tuple(x.shape)}")
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         self._check(x)
         feats = x if self.input_mode == "latent" else self.encoder(x)
-        return self.classifier(feats, generator)
+        return self.classifier(feats, generator, masks)
 
     def features(self, x: torch.Tensor, multi: bool = False) -> torch.Tensor:
         """The penultimate (B, notes_hidden) embedding; with ``multi`` also
@@ -152,16 +163,17 @@ class EmotionDiscriminator(nn.Module):
         return self.encoder(x)
 
     def features_and_logits(self, x: torch.Tensor, multi: bool = False,
-                            generator: Optional[torch.Generator] = None
+                            generator: Optional[torch.Generator] = None,
+                            masks: Optional[Sequence[torch.Tensor]] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(features, logits) from one encoder pass (the G loss needs both)."""
         if self.input_mode == "latent":
-            return x, self.classifier(x, generator)
+            return x, self.classifier(x, generator, masks)
         if multi:
             pen, taps = self.encoder(x, return_taps=True)
-            return taps, self.classifier(pen, generator)
+            return taps, self.classifier(pen, generator, masks)
         feats = self.encoder(x)
-        return feats, self.classifier(feats, generator)
+        return feats, self.classifier(feats, generator, masks)
 
     def predict_proba(self, x: torch.Tensor) -> torch.Tensor:
         """Class probabilities in eval mode (the module's mode is restored)."""

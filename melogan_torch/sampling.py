@@ -177,7 +177,9 @@ class Sampler:
         """Atomically replace the generator + feature-encoder weights
         (reference-layout state dicts). New modules are built and loaded
         first, then swapped in under the lock, so a sample in flight finishes
-        on the old pair. ``emotion_features``: the new checkpoint's
+        on the old pair, and the new decoder folds its BatchNorm afresh (the
+        old decoder's folded-stage cache goes with it). A load that fails
+        raises before the swap. ``emotion_features``: the new checkpoint's
         conditioning centroids, if it carries them."""
         gen, fe = self._build_modules(gen_variables, fe_variables)
         new_base = None

@@ -1,26 +1,37 @@
-"""HTTP serving on the port: ``POST /generate`` and ``GET /healthz``.
+"""HTTP serving on the port: the generation part of
+``melogan_tpu/serving/app.py`` on a stdlib WSGI stack.
 
-A stdlib WSGI app, the port of the generation part of
-``melogan_tpu/serving/app.py``:
-
+- ``GET  /``          the web UI (the JAX package's page, byte for byte)
 - ``POST /generate``  {"emotion": ...} → audio/midi download; 400 for an
-  unknown emotion, 413 for a body over ``MAX_JSON_BODY``
-- ``GET  /healthz``   liveness, weight provenance and the device that serves
+  unknown emotion, 413 for a body over ``MAX_JSON_BODY``, 503 when the
+  sample pool cannot produce a sample in time
+- ``GET  /healthz``   liveness, weight provenance, the sample pool's stats
+  and the device that serves
+- ``GET  /metrics``   Prometheus text: requests by route, method and status,
+  handler latency by route, pool gauges, reloads
+- ``POST /reload``    hot-swap a checkpoint into the running sampler (the
+  startup path, or {"checkpoint": path}); the pool is flushed
 
 Generation math matches the reference serving path: per-emotion feature base
 + N(0, 0.15²) jitter, zeros latent, emotion→bpm/scale maps (app.py:53-65,
-109-110), a fresh seed per request. As in the JAX ``serve``, the weights come
-from ``<workdir>/<cfg.checkpoint_dir>/gan_final.ckpt`` unless a checkpoint
-(``.ckpt`` or ``.pth``) is named, with random weights and a warning when the
-file is absent, and ``use_ema`` serves the file's EMA generator. The config
-is a YAML path (``configs/gan.yaml`` by default; ``GANConfig()`` when the
-file does not exist) or a ``GANConfig``. Text and camera emotion,
-``/video_feed``, ``/metrics``, ``/reload`` and the sample pool come with
-later slices.
+109-110), a fresh seed per sample. With the sample pool on (the default),
+``/generate`` pops a sample that a background producer generated in a large
+batch; without it each request samples on its own. As in the JAX ``serve``,
+the weights come from ``<workdir>/<cfg.checkpoint_dir>/gan_final.ckpt``
+unless a checkpoint (``.ckpt`` or ``.pth``) is named, with random weights
+and a warning when the file is absent, and ``use_ema`` serves the file's EMA
+generator; ``watch_ckpt`` polls the file and hot-swaps it when it changes.
+The config is a YAML path (``configs/gan.yaml`` by default; ``GANConfig()``
+when the file does not exist) or a ``GANConfig``. The text and camera
+routes and ``/video_feed`` come with a later slice. The JAX server's
+device-init watchdog is not ported: it guards a TPU backend that can hang
+while it initializes, and CUDA's initialization either returns or raises.
 
 Run: ``python -m melogan_torch.serving.app [--port 5000] [--workdir .]
 [--config configs/gan.yaml] [--checkpoint gan_final.ckpt] [--ema]
-[--device cuda]``.
+[--watch-ckpt SECONDS] [--device cuda]``; ``MELOGAN_SAMPLE_POOL=0`` turns
+the pool off and ``MELOGAN_POOL_WARM=0`` its background warm-up, as for the
+JAX server.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import argparse
 import json
 import os
 import threading
+import time
 from socketserver import ThreadingMixIn
 from typing import Dict, Optional, Tuple, Union
 from wsgiref.simple_server import WSGIServer, make_server
@@ -37,6 +49,8 @@ from melogan_torch.constants import EMOTION_BPM
 from melogan_torch.device import device_info
 from melogan_torch.midi.codec import render_to_bytes
 from melogan_torch.sampling import Sampler, emotion_scale
+from melogan_torch.serving.metrics import Registry
+from melogan_torch.serving.pool import PoolTimeout, SamplePool
 
 # JSON request bodies are tiny ({"emotion": ...}); cap reads so an oversized
 # body cannot balloon per-request memory
@@ -44,21 +58,45 @@ MAX_JSON_BODY = 1 << 20
 # how much of an over-limit body is drained (in chunks) so the connection
 # closes cleanly after a 413; beyond this the client is hostile
 _DRAIN_CAP = 8 << 20
-
+# how long serve() waits for in-flight responses after the accept loop stops
+DRAIN_SECS = 10.0
 
 class AppState:
-    """The sampler, the per-request seed counter and the in-flight count."""
+    """The sampler, the optional sample pool, the checkpoint served, the
+    metrics registry, the per-request seed counter and the in-flight
+    count."""
 
-    def __init__(self, cfg: GANConfig, sampler: Sampler, ckpt_path: Optional[str] = None,
-                 loaded: bool = False, use_ema: bool = False):
+    def __init__(self, cfg: GANConfig, sampler: Sampler, pool: Optional[SamplePool] = None,
+                 ckpt_path: Optional[str] = None, loaded_version: Optional[tuple] = None, use_ema: bool = False):
         self.cfg = cfg
         self.sampler = sampler
-        self.ckpt_path = ckpt_path  # the checkpoint path served from, if any
-        self.loaded = loaded  # whether the sampler holds its weights
-        self.use_ema = use_ema
+        self.pool = pool
+        self.ckpt_path = ckpt_path  # the default target of POST /reload
+        self.use_ema = use_ema  # serve G_ema from every checkpoint loaded
+        self._reload_lock = threading.Lock()  # serializes checkpoint swaps
+        # (path, mtime) of the checkpoint the sampler serves, None for seeded
+        # weights: the watcher's skip baseline, kept current by both reload
+        # paths. A caller that loaded the weights itself passes the version
+        # it read just before the load
+        self.loaded_version = loaded_version
+        self.watcher: Optional[threading.Thread] = None
+        self.metrics = Registry()
+        if pool is not None:
+            # polled at /metrics render time, not on the request path
+            self.metrics.gauge_fn("melogan_pool_depth", lambda: pool.depth(),
+                                  help="Pre-generated samples pooled per emotion")
+            self.metrics.gauge_fn("melogan_pool_hits_total", lambda: pool.stats()["hits"],
+                                  help="Pool takes served without waiting on a refill", typ="counter")
+            self.metrics.gauge_fn("melogan_pool_misses_total", lambda: pool.stats()["misses"],
+                                  help="Pool takes that found their emotion empty", typ="counter")
         self.seed_counter = 0
-        self._inflight = 0
+        self._inflight = 0  # requests whose body is not fully written yet
         self._lock = threading.Lock()
+
+    @property
+    def loaded(self) -> bool:
+        """Whether the sampler serves a checkpoint's weights."""
+        return self.loaded_version is not None
 
     def next_seed(self) -> int:
         with self._lock:
@@ -77,6 +115,50 @@ class AppState:
         with self._lock:
             return self._inflight
 
+    def reload_checkpoint(self, path: str) -> int:
+        """Hot-swap ``path`` into the running sampler; returns how many stale
+        pooled samples were flushed. Shared by ``POST /reload`` and the
+        checkpoint watcher. Raises on an unreadable or malformed file, and
+        the current weights keep serving: the swap happens only after a
+        successful load."""
+        from melogan_torch.utils.weights import load_gan_final_full
+
+        with self._reload_lock:
+            # mtime read BEFORE the load: if the file is replaced again
+            # mid-load, the recorded version is stale and the watcher's next
+            # tick reloads it
+            try:
+                mtime = os.path.getmtime(path)
+            except OSError:
+                mtime = None
+            gen_sd, fe_sd, extras = load_gan_final_full(path, ema=self.use_ema)
+            self.sampler.swap_variables(gen_sd, fe_sd, emotion_features=extras["emotion_features"])
+            flushed = self.pool.flush() if self.pool is not None else 0
+            self.ckpt_path = path
+            # (path, None) never equals a real (path, mtime): after a raced
+            # mtime read the watcher reads the file once more
+            self.loaded_version = (path, mtime)
+        self.metrics.counter_inc("melogan_reloads_total", help="Successful checkpoint hot-swaps")
+        return flushed
+
+    def close(self) -> None:
+        """Stop the checkpoint watcher and the sample pool's threads."""
+        if self.watcher is not None:
+            self.watcher.stop.set()
+            self.watcher.join(timeout=10)
+        if self.pool is not None:
+            self.pool.close()
+
+
+_KNOWN_METHODS = {"GET", "POST", "HEAD", "PUT", "DELETE", "OPTIONS", "PATCH"}
+_ROUTES = {"/", "/healthz", "/generate", "/metrics", "/reload"}
+
+
+def _method_label(method: str) -> str:
+    """The metrics label of a request method: the known HTTP verbs pass
+    through, anything else (a client-controlled token) is "other"."""
+    return method if method in _KNOWN_METHODS else "other"
+
 
 def _json_response(start_response, payload, status="200 OK"):
     body = json.dumps(payload).encode()
@@ -87,10 +169,13 @@ def _json_response(start_response, payload, status="200 OK"):
     return [body]
 
 
-def _read_json(environ, limit: int = MAX_JSON_BODY) -> Optional[Dict]:
+def _read_json(environ, limit: int = MAX_JSON_BODY, strict: bool = False) -> Optional[Dict]:
     """Parse the JSON request body; ``None`` means the declared body exceeds
     ``limit`` (answer 413). A negative, absent or unparsable Content-Length
-    reads nothing; unparsable JSON reads as ``{}`` (the route's defaults)."""
+    reads nothing. Unparsable JSON, or a body that is not an object, reads
+    as ``{}`` (the route's defaults) unless ``strict``, which raises
+    ValueError: a mutating route must answer 400 rather than act on
+    defaults."""
     try:
         length = int(environ.get("CONTENT_LENGTH") or 0)
     except (TypeError, ValueError):
@@ -109,12 +194,117 @@ def _read_json(environ, limit: int = MAX_JSON_BODY) -> Optional[Dict]:
     try:
         raw = environ["wsgi.input"].read(length) if length > 0 else b"{}"
     except OSError:
+        if strict:
+            raise ValueError("request body could not be read")
         return {}
     try:
         payload = json.loads(raw or b"{}")
     except ValueError:
+        if strict:
+            raise ValueError("request body is not valid JSON")
         return {}
-    return payload if isinstance(payload, dict) else {}
+    if not isinstance(payload, dict):
+        if strict:
+            raise ValueError("request body is not a JSON object")
+        return {}
+    return payload
+
+
+INDEX_HTML = """<!DOCTYPE html>
+<html><head><title>Melo-GAN TPU</title>
+<style>
+ body { font-family: system-ui, sans-serif; max-width: 760px; margin: 2rem auto; }
+ button { margin: .3rem; padding: .5rem 1rem; }
+ #log { color: #555; white-space: pre-wrap; }
+</style></head>
+<body>
+<h1>Melo-GAN TPU</h1>
+<p>Emotion-conditioned MIDI generation. Type how you feel, or pick an emotion.</p>
+<textarea id="text" rows="3" cols="60" placeholder="How are you feeling?"></textarea><br>
+<button onclick="detect()">Detect emotion from text</button>
+<span id="emotion">calm</span><br>
+<button onclick="gen('happy')">happy</button>
+<button onclick="gen('sad')">sad</button>
+<button onclick="gen('angry')">angry</button>
+<button onclick="gen('calm')">calm</button>
+<button onclick="gen(document.getElementById('emotion').textContent)">generate (detected)</button>
+<h3>Camera</h3>
+<video id="cam" width="320" height="240" autoplay muted playsinline style="background:#000"></video>
+<img id="feed" width="320" height="240" style="display:none;background:#000" alt="server stream"><br>
+<button onclick="startCam()">start camera</button>
+<button onclick="captureEmotion()">detect emotion from camera</button>
+<button onclick="toggleFeed()">server stream (/video_feed)</button>
+<span id="camEmotion">-</span>
+<div id="log"></div>
+<script>
+let camStream = null;
+async function startCam() {
+  try {
+    camStream = await navigator.mediaDevices.getUserMedia({video: true});
+    document.getElementById('cam').srcObject = camStream;
+  } catch (e) {
+    document.getElementById('log').textContent = 'camera unavailable: ' + e;
+  }
+}
+function toggleFeed() {
+  const img = document.getElementById('feed');
+  if (img.style.display === 'none') {
+    img.src = '/video_feed';  // MJPEG multipart stream (reference app.py:82-85)
+    img.style.display = 'inline';
+  } else {
+    img.removeAttribute('src');
+    img.style.display = 'none';
+  }
+}
+async function captureEmotion() {
+  const video = document.getElementById('cam');
+  const canvas = document.createElement('canvas');
+  canvas.width = 96; canvas.height = 96;
+  const ctx = canvas.getContext('2d');
+  ctx.drawImage(video, 0, 0, 96, 96);
+  const data = ctx.getImageData(0, 0, 96, 96).data;
+  const gray = [];
+  for (let y = 0; y < 96; y++) {
+    const row = [];
+    for (let x = 0; x < 96; x++) {
+      const i = (y * 96 + x) * 4;
+      row.push(0.299 * data[i] + 0.587 * data[i+1] + 0.114 * data[i+2]);
+    }
+    gray.push(row);
+  }
+  const r = await fetch('/camera_frame', {method:'POST', headers:{'Content-Type':'application/json'},
+    body: JSON.stringify({frame: gray})});
+  const j = await r.json();
+  document.getElementById('camEmotion').textContent = j.emotion || j.error;
+  if (j.emotion) document.getElementById('emotion').textContent = j.emotion;
+}
+</script>
+<script>
+async function detect() {
+  const r = await fetch('/get_text_emotion', {method:'POST', headers:{'Content-Type':'application/json'},
+    body: JSON.stringify({text: document.getElementById('text').value})});
+  const j = await r.json();
+  document.getElementById('emotion').textContent = j.emotion;
+}
+async function gen(emotion) {
+  document.getElementById('log').textContent = 'generating ' + emotion + '...';
+  const r = await fetch('/generate', {method:'POST', headers:{'Content-Type':'application/json'},
+    body: JSON.stringify({emotion})});
+  const blob = await r.blob();
+  const a = document.createElement('a');
+  a.href = URL.createObjectURL(blob);
+  a.download = 'melo_' + emotion + '.mid';
+  a.click();
+  document.getElementById('log').textContent = 'downloaded melo_' + emotion + '.mid';
+}
+</script>
+</body></html>
+"""
+
+
+def _too_large(start_response):
+    return _json_response(start_response, {"error": "request body too large"},
+                          status="413 Content Too Large")
 
 
 def build_app(state: AppState):
@@ -122,16 +312,22 @@ def build_app(state: AppState):
         method = environ["REQUEST_METHOD"]
         path = environ.get("PATH_INFO", "/")
 
+        if method == "GET" and path == "/":
+            body = INDEX_HTML.encode()
+            start_response("200 OK", [("Content-Type", "text/html"), ("Content-Length", str(len(body)))])
+            return [body]
+
         if method == "GET" and path == "/healthz":
             return _json_response(
                 start_response,
                 {
                     "status": "ok",
                     # weight provenance: random weights until a checkpoint is
-                    # served — an operator must be able to see that
+                    # served (at startup, by /reload or by the watcher)
                     "generator": "checkpoint" if state.loaded else "random-weights",
                     "checkpoint": state.ckpt_path,
                     "ema": state.use_ema,
+                    "sample_pool": state.pool.stats() if state.pool else None,
                     "device": device_info(state.sampler.device),
                 },
             )
@@ -139,10 +335,7 @@ def build_app(state: AppState):
         if method == "POST" and path == "/generate":
             payload = _read_json(environ)
             if payload is None:
-                return _json_response(
-                    start_response, {"error": "request body too large"},
-                    status="413 Content Too Large",
-                )
+                return _too_large(start_response)
             emotion = str(payload.get("emotion", "happy")).lower()
             if emotion not in EMOTION_BPM:
                 return _json_response(
@@ -150,7 +343,17 @@ def build_app(state: AppState):
                     {"error": f"unknown emotion {emotion!r}; valid: {sorted(EMOTION_BPM)}"},
                     status="400 Bad Request",
                 )
-            notes = state.sampler.sample_notes([emotion], seed=state.next_seed())[0]
+            if state.pool is not None:
+                try:
+                    notes = state.pool.take(emotion)
+                except PoolTimeout as e:
+                    # a persistently failing sampler is a 503 with the
+                    # producer's last error, not a hang
+                    return _json_response(start_response,
+                                          {"error": str(e), "last_refill_error": e.last_error},
+                                          status="503 Service Unavailable")
+            else:
+                notes = state.sampler.sample_notes([emotion], seed=state.next_seed())[0]
             body = render_to_bytes(notes, bpm=EMOTION_BPM[emotion], scale=emotion_scale(emotion))
             start_response(
                 "200 OK",
@@ -162,22 +365,132 @@ def build_app(state: AppState):
             )
             return [body]
 
+        if method == "GET" and path == "/metrics":
+            body = state.metrics.render().encode()
+            start_response("200 OK", [("Content-Type", "text/plain; version=0.0.4; charset=utf-8"),
+                                      ("Content-Length", str(len(body)))])
+            return [body]
+
+        if method == "POST" and path == "/reload":
+            # an internal operations route, unauthenticated as the whole
+            # server is: bind it accordingly
+            try:
+                payload = _read_json(environ, strict=True)
+            except ValueError as e:
+                return _json_response(start_response, {"error": str(e)}, status="400 Bad Request")
+            if payload is None:
+                return _too_large(start_response)
+            target = payload.get("checkpoint") or state.ckpt_path
+            if not target or not os.path.exists(target):
+                return _json_response(start_response, {"error": f"checkpoint not found: {target!r}"},
+                                      status="404 Not Found")
+            try:
+                flushed = state.reload_checkpoint(target)
+            except Exception as e:  # noqa: BLE001 — a bad file must not stop serving
+                return _json_response(start_response,
+                                      {"error": f"reload failed: {type(e).__name__}: {e}"},
+                                      status="400 Bad Request")
+            return _json_response(start_response, {"status": "ok", "checkpoint": target,
+                                                   "flushed_pool_samples": flushed})
+
         return _json_response(start_response, {"error": "not found"}, status="404 Not Found")
 
-    def tracked(environ, start_response):
-        # in-flight accounting around the handler; bodies are single byte
-        # strings, written by the server right after the handler returns
-        state.request_started()
-        try:
-            return app(environ, start_response)
-        finally:
-            state.request_finished()
+    class _TrackedBody:
+        """The response iterable, with the in-flight count held until the
+        server has written the body and closed it."""
 
-    return tracked
+        def __init__(self, body):
+            self._body = body
+            self._done = False
+
+        def __iter__(self):
+            return iter(self._body)
+
+        def close(self):
+            if not self._done:
+                self._done = True
+                state.request_finished()
+            closer = getattr(self._body, "close", None)
+            if closer is not None:
+                closer()
+
+    def instrumented(environ, start_response):
+        # counters and latency per known route; unknown paths and methods
+        # collapse into "other" (client-controlled strings must not mint
+        # unbounded label values)
+        path = environ.get("PATH_INFO", "/")
+        route = path if path in _ROUTES else "other"
+        status_box = {"code": "500"}
+
+        def recording_start_response(status, headers, exc_info=None):
+            status_box["code"] = status.split(" ", 1)[0]
+            return start_response(status, headers, exc_info)
+
+        state.request_started()
+        t0 = time.perf_counter()
+        try:
+            result = app(environ, recording_start_response)
+        except BaseException:
+            state.request_finished()
+            raise
+        finally:
+            state.metrics.counter_inc(
+                "melogan_http_requests_total", help="HTTP requests by route/method/status",
+                route=route, method=_method_label(environ.get("REQUEST_METHOD", "-")),
+                status=status_box["code"])
+        state.metrics.observe("melogan_http_request_duration_seconds", time.perf_counter() - t0,
+                              help="Handler latency (body build included; streams excluded)",
+                              route=route)
+        return _TrackedBody(result)
+
+    return instrumented
 
 
 class ThreadingWSGIServer(ThreadingMixIn, WSGIServer):
     daemon_threads = True
+    # serve() bounds the drain itself (AppState.inflight): server_close must
+    # not block joining request threads
+    block_on_close = False
+
+
+def watch_checkpoint(state: AppState, interval_secs: float) -> threading.Thread:
+    """Poll the served checkpoint's mtime every ``interval_secs`` and
+    hot-swap it when it changes (a training job rewrites ``gan_final.ckpt``
+    atomically, so a partial file is never visible under its name). A load
+    failure keeps the current weights serving and records that (path,
+    mtime) as failed: the next try comes when the file changes again. The
+    skip baseline is ``state.loaded_version``, which ``POST /reload`` keeps
+    current too. The returned thread carries a ``stop`` Event: set it to
+    end the watch."""
+    stop = threading.Event()
+
+    def _watch():
+        last_failed = None  # (path, mtime) of a version that failed to load
+        while not stop.wait(interval_secs):
+            path = state.ckpt_path
+            if not path:
+                continue
+            try:
+                mtime = os.path.getmtime(path)
+            except OSError:
+                continue  # vanished mid-replace; retry next tick
+            version = (path, mtime)
+            if version == state.loaded_version or version == last_failed:
+                continue
+            try:
+                flushed = state.reload_checkpoint(path)
+                print(f"[RELOAD] checkpoint changed on disk: hot-swapped {path} "
+                      f"(flushed {flushed} pooled samples)")
+            except Exception as e:  # noqa: BLE001 — keep serving the old weights
+                last_failed = version
+                print(f"[WARN] checkpoint watch: reload of {path} failed "
+                      f"({type(e).__name__}: {e}); keeping current weights "
+                      f"until the file changes again")
+
+    t = threading.Thread(target=_watch, name="ckpt-watch", daemon=True)
+    t.stop = stop  # type: ignore[attr-defined]
+    t.start()
+    return t
 
 
 DEFAULT_CONFIG = "configs/gan.yaml"
@@ -202,24 +515,37 @@ def create_server(
     checkpoint: Optional[str] = None,
     use_ema: bool = False,
     device="cuda",
+    sample_pool: bool = True,
+    pool_warm: bool = True,
+    watch_ckpt: float = 0.0,
 ) -> Tuple[WSGIServer, AppState]:
-    """Build the sampler, warm it up, and bind a threaded WSGI server. The
-    caller runs ``serve_forever`` and, at the end, ``shutdown`` and
-    ``server_close``.
+    """Build the sampler, warm it up, fill the sample pool, and bind a
+    threaded WSGI server. The caller runs ``serve_forever`` and, at the
+    end, ``shutdown``, ``server_close`` and ``AppState.close``.
 
     ``config``: a YAML path (a missing file, or None, gives ``GANConfig()``)
-    or a ``GANConfig``. ``checkpoint``:
-    a ``gan_final`` (``.ckpt`` or ``.pth``); by default
-    ``<workdir>/<cfg.checkpoint_dir>/gan_final.ckpt``. When the file is
-    absent the weights are seeded random ones and a warning is printed.
-    ``use_ema``: serve the file's EMA generator (``G_ema``)."""
+    or a ``GANConfig``. ``checkpoint``: a ``gan_final`` (``.ckpt`` or
+    ``.pth``); by default ``<workdir>/<cfg.checkpoint_dir>/gan_final.ckpt``.
+    When the file is absent the weights are seeded random ones and a warning
+    is printed; the path stays the target of ``/reload`` and of the watcher,
+    which load it once it appears. ``use_ema``: serve the file's EMA
+    generator (``G_ema``). ``sample_pool``: serve ``/generate`` from a
+    ``SamplePool`` (prefilled here) and, with ``pool_warm``, run its refill
+    ladder once in the background. ``watch_ckpt``: the watcher's poll
+    interval in seconds (0: off)."""
     from melogan_torch.utils.weights import load_gan_final_full
 
     cfg = _resolve_config(config)
     gen_sd = fe_sd = features = None
+    loaded_version = None
     ckpt_path = checkpoint or os.path.join(workdir, cfg.checkpoint_dir, "gan_final.ckpt")
-    loaded = os.path.exists(ckpt_path)
-    if loaded:
+    if os.path.exists(ckpt_path):
+        # the version read just before the load: a file rewritten during the
+        # warm-up below must look new to the watcher
+        try:
+            loaded_version = (ckpt_path, os.path.getmtime(ckpt_path))
+        except OSError:
+            pass
         # the training corpus's emotion centroids come along where train() saved them
         gen_sd, fe_sd, extras = load_gan_final_full(ckpt_path, ema=use_ema)
         features = extras["emotion_features"]
@@ -227,30 +553,61 @@ def create_server(
               + (" (EMA weights)" if use_ema else "")
               + ("" if features is None else " (corpus-calibrated conditioning)"))
     else:
-        print(f"[WARN] GAN checkpoint not found at {ckpt_path}; serving random weights")
+        print(f"[WARN] GAN checkpoint not found at {ckpt_path}; serving random weights"
+              + (" until it appears" if watch_ckpt > 0 else ""))
     sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd,
                       emotion_features=features, device=device)
     # warm up before accepting traffic: the first call builds the kernels
     sampler.sample_notes(["happy"], seed=0)
-    state = AppState(cfg, sampler, ckpt_path=ckpt_path, loaded=loaded, use_ema=use_ema)
-    httpd = make_server(host, port, build_app(state), server_class=ThreadingWSGIServer)
+    pool = None
+    if sample_pool:
+        pool = SamplePool(sampler)
+        try:
+            pool.prefill(timeout=120.0)
+        except BaseException:
+            pool.close()
+            raise
+        if pool_warm:
+            pool.warm_async()
+    state = AppState(cfg, sampler, pool=pool, ckpt_path=ckpt_path, loaded_version=loaded_version,
+                     use_ema=use_ema)
+    if watch_ckpt > 0:
+        state.watcher = watch_checkpoint(state, watch_ckpt)
+    try:
+        httpd = make_server(host, port, build_app(state), server_class=ThreadingWSGIServer)
+    except BaseException:
+        state.close()
+        raise
     return httpd, state
 
 
 def serve(host: str = "0.0.0.0", port: int = 5000, workdir: str = ".",
           config: Union[str, GANConfig, None] = DEFAULT_CONFIG, checkpoint: Optional[str] = None,
-          use_ema: bool = False, device="cuda") -> None:
-    """Serve ``/generate`` and ``/healthz`` until interrupted."""
-    httpd, state = create_server(host, port, workdir=workdir, config=config,
-                                 checkpoint=checkpoint, use_ema=use_ema, device=device)
+          use_ema: bool = False, device="cuda", watch_ckpt: float = 0.0, dp: int = 0) -> None:
+    """Serve until interrupted, then wait up to ``DRAIN_SECS`` for the
+    responses in flight. The sample pool is on unless
+    ``MELOGAN_SAMPLE_POOL=0``, and warms its refill ladder unless
+    ``MELOGAN_POOL_WARM=0``, as for the JAX server. ``dp`` (data-parallel
+    sampling) is not ported yet and raises unless 0."""
+    if dp:
+        raise NotImplementedError("data-parallel sampling over a mesh is not ported yet")
+    httpd, state = create_server(
+        host, port, workdir=workdir, config=config, checkpoint=checkpoint, use_ema=use_ema,
+        device=device, sample_pool=os.environ.get("MELOGAN_SAMPLE_POOL", "1") != "0",
+        pool_warm=os.environ.get("MELOGAN_POOL_WARM", "1") != "0", watch_ckpt=watch_ckpt)
     print(f"[INIT] serving on http://{host}:{httpd.server_address[1]} "
           f"({device_info(state.sampler.device)['kind']}, "
-          f"{'checkpoint ' + state.ckpt_path if state.loaded else 'random weights'})")
+          f"{'checkpoint ' + state.ckpt_path if state.loaded else 'random weights'}"
+          f"{', sample pool ' + str(state.pool.depth()) if state.pool else ''})")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        deadline = time.monotonic() + DRAIN_SECS
+        while state.inflight() > 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        state.close()
         httpd.server_close()
 
 
@@ -264,10 +621,12 @@ def main(argv=None) -> None:
                     help="a GAN YAML config (GANConfig() when the file does not exist)")
     ap.add_argument("--checkpoint", default=None, help="a gan_final .ckpt or .pth")
     ap.add_argument("--ema", action="store_true", help="serve the checkpoint's EMA generator (G_ema)")
+    ap.add_argument("--watch-ckpt", type=float, default=0.0, metavar="SECONDS",
+                    help="poll the checkpoint and hot-swap it when it changes (0: off)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     serve(args.host, args.port, workdir=args.workdir, config=args.config, checkpoint=args.checkpoint,
-          use_ema=args.ema, device=args.device)
+          use_ema=args.ema, device=args.device, watch_ckpt=args.watch_ckpt)
 
 
 if __name__ == "__main__":

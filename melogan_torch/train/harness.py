@@ -1,5 +1,7 @@
-"""Training harness: plateau learning-rate control, early stopping and the
-KL schedules, the port of ``melogan_tpu/train/harness.py:17-80, 200-216``.
+"""Training harness: plateau learning-rate control, early stopping, the KL
+schedules, the port of ``melogan_tpu/train/harness.py:17-80, 200-216``, and
+what the VAE and ED loops share besides: ``AdamW``, optax's injected AdamW
+written out, and ``batch_indices``, an epoch's full batches.
 
 ``ReduceLROnPlateau`` and ``EarlyStopping`` hold the two controllers'
 settings and resume state (torch semantics, mode 'min'), as the JAX
@@ -13,9 +15,97 @@ decisions on the same validation losses. (The JAX dataclasses' own host
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+class AdamW:
+    """optax's ``inject_hyperparams(adamw)(learning_rate, b1, b2,
+    weight_decay)`` over a list of named parameters, step for step, after
+    ``clip_by_global_norm(max_norm)`` when ``max_norm`` is given (the VAE's
+    ``chain``; the ED's optimizer has no clip):
+
+    - with a clip, the gradients are scaled by max_norm/‖g‖ only when their
+      global norm ‖g‖ is not below max_norm (torch's ``clip_grad_norm_``
+      scales by max_norm/(‖g‖ + 1e-6) at every step);
+    - mu = (1−b1)·g + b1·mu and nu = (1−b2)·g² + b2·nu, bias-corrected by
+      1 − b^count, u = mû/(√(nû + eps_root) + eps);
+    - the decay is applied inside the update, p ← p − lr·(u + wd·p), on
+      every parameter, BatchNorm's included.
+
+    The hyperparameters are float32 values, as optax injects them; the
+    plateau controller writes ``lr`` between epochs."""
+
+    HYPERPARAMS = ("b1", "b2", "eps", "eps_root", "learning_rate", "weight_decay")
+
+    def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]], lr: float,
+                 weight_decay: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 eps_root: float = 0.0, max_norm: Optional[float] = None):
+        self.names = [n for n, _ in named_params]
+        self.params = [p for _, p in named_params]
+        self.hyperparams = {k: _f32(v) for k, v in zip(
+            self.HYPERPARAMS, (b1, b2, eps, eps_root, lr, weight_decay))}
+        self.max_norm = None if max_norm is None else float(max_norm)
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @property
+    def lr(self) -> float:
+        return self.hyperparams["learning_rate"]
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        self.hyperparams["learning_rate"] = _f32(value)
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        h = self.hyperparams
+        g = [t.detach() for t in grads]  # fresh tensors of autograd's: scaled in place
+        if self.max_norm is not None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            # t if ‖g‖ < max_norm else (t / ‖g‖)·max_norm, with no host sync
+            max_norm = torch.full_like(norm, self.max_norm)
+            torch._foreach_div_(g, torch.where(norm < max_norm, max_norm, norm))
+            torch._foreach_mul_(g, self.max_norm)
+        self.count += 1
+        one = np.float32(1.0)
+        b1, b2 = np.float32(h["b1"]), np.float32(h["b2"])
+        torch._foreach_mul_(self.mu, float(b1))
+        torch._foreach_add_(self.mu, torch._foreach_mul(g, float(one - b1)))
+        torch._foreach_mul_(self.nu, float(b2))
+        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(g, g), float(one - b2)))
+        mu_hat = torch._foreach_div(self.mu, float(one - b1 ** np.float32(self.count)))
+        nu_hat = torch._foreach_div(self.nu, float(one - b2 ** np.float32(self.count)))
+        torch._foreach_add_(nu_hat, h["eps_root"])
+        torch._foreach_sqrt_(nu_hat)
+        torch._foreach_add_(nu_hat, h["eps"])
+        torch._foreach_div_(mu_hat, nu_hat)
+        if h["weight_decay"]:
+            torch._foreach_add_(mu_hat, torch._foreach_mul(self.params, h["weight_decay"]))
+        torch._foreach_mul_(mu_hat, -h["learning_rate"])
+        torch._foreach_add_(self.params, mu_hat)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{count, mu, nu (name → tensor copies), hyperparams}."""
+        return {"count": self.count,
+                "mu": {n: t.detach().clone() for n, t in zip(self.names, self.mu)},
+                "nu": {n: t.detach().clone() for n, t in zip(self.names, self.nu)},
+                "hyperparams": dict(self.hyperparams)}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.count = int(state["count"])
+        with torch.no_grad():
+            for n, mu, nu in zip(self.names, self.mu, self.nu):
+                mu.copy_(state["mu"][n])
+                nu.copy_(state["nu"][n])
+        self.hyperparams.update({k: _f32(v) for k, v in state["hyperparams"].items()})
 
 
 @dataclass
@@ -79,6 +169,15 @@ def sched_step(plateau: ReduceLROnPlateau, stopper: EarlyStopping, val: float,
     else:
         stopper.num_bad_epochs += 1
     return float(lr), stopper.improved, stopper.num_bad_epochs >= stopper.patience
+
+
+def batch_indices(order: np.ndarray, batch_size: int) -> np.ndarray:
+    """(n_batches, B) gather indices: the full batches of ``min(batch_size,
+    len(order))`` rows of ``order``, the remainder dropped (a split smaller
+    than the batch is one whole-split batch), as the JAX loops stack them."""
+    batch_size = min(batch_size, len(order))
+    n_batches = max(1, len(order) // batch_size)
+    return order[: n_batches * batch_size].reshape(n_batches, batch_size)
 
 
 def beta_schedule(epoch: int, warmup_epochs: int, final_beta: float) -> float:

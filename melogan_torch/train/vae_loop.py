@@ -20,11 +20,12 @@ stop do not run, and ``ae_best.ckpt`` is written at the end of every epoch
 that improved (the JAX loop writes it at the end of a fused chunk; the file
 a run leaves is the same).
 
-The optimizer is ``AdamW`` below, the arithmetic of optax's
-``chain(clip_by_global_norm(1.0), inject_hyperparams(adamw))`` in the same
-order. On the card the encoder's convs and the decoder's transposed convs
-run the port's kernels forward, and each conv's input gradient runs the
-other's kernel; on the CPU their plain versions run.
+The optimizer is ``harness.AdamW`` with its global-norm clip at 1.0, the
+arithmetic of optax's ``chain(clip_by_global_norm(1.0),
+inject_hyperparams(adamw))`` in the same order. On the card the encoder's
+convs and the decoder's transposed convs run the port's kernels forward,
+and each conv's input gradient runs the other's kernel; on the CPU their
+plain versions run.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import copy
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,8 +45,10 @@ from melogan_torch.midi.codec import save_recon_midi
 from melogan_torch.models.layers import torch_default_init_
 from melogan_torch.models.vae import VAE, vae_loss
 from melogan_torch.train.harness import (
+    AdamW,
     EarlyStopping,
     ReduceLROnPlateau,
+    batch_indices,
     beta_schedule,
     capacity_schedule,
     sched_step,
@@ -59,87 +62,6 @@ ENCODE_BATCH = 256  # encode_mu pads its last chunk to this, as the JAX loop doe
 
 def _f32(x: float) -> float:
     return float(np.float32(x))
-
-
-class AdamW:
-    """optax's ``chain(clip_by_global_norm(max_norm),
-    inject_hyperparams(adamw)(learning_rate, weight_decay))`` over a list of
-    named parameters, step for step:
-
-    - the gradients are scaled by max_norm/‖g‖ only when their global norm
-      ‖g‖ is not below max_norm (torch's ``clip_grad_norm_`` scales by
-      max_norm/(‖g‖ + 1e-6) at every step);
-    - mu = (1−b1)·g + b1·mu and nu = (1−b2)·g² + b2·nu, bias-corrected by
-      1 − b^count, u = mû/(√(nû + eps_root) + eps);
-    - the decay is applied inside the update, p ← p − lr·(u + wd·p), on
-      every parameter, BatchNorm's included.
-
-    The hyperparameters are float32 values, as optax injects them; the
-    plateau controller writes ``lr`` between epochs."""
-
-    HYPERPARAMS = ("b1", "b2", "eps", "eps_root", "learning_rate", "weight_decay")
-
-    def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]], lr: float,
-                 weight_decay: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 eps_root: float = 0.0, max_norm: float = 1.0):
-        self.names = [n for n, _ in named_params]
-        self.params = [p for _, p in named_params]
-        self.hyperparams = {k: _f32(v) for k, v in zip(
-            self.HYPERPARAMS, (b1, b2, eps, eps_root, lr, weight_decay))}
-        self.max_norm = float(max_norm)
-        self.count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-
-    @property
-    def lr(self) -> float:
-        return self.hyperparams["learning_rate"]
-
-    @lr.setter
-    def lr(self, value: float) -> None:
-        self.hyperparams["learning_rate"] = _f32(value)
-
-    @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
-        h = self.hyperparams
-        g = [t.detach() for t in grads]  # fresh tensors of autograd's: scaled in place
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-        # t if ‖g‖ < max_norm else (t / ‖g‖)·max_norm, with no host sync
-        max_norm = torch.full_like(norm, self.max_norm)
-        torch._foreach_div_(g, torch.where(norm < max_norm, max_norm, norm))
-        torch._foreach_mul_(g, self.max_norm)
-        self.count += 1
-        one = np.float32(1.0)
-        b1, b2 = np.float32(h["b1"]), np.float32(h["b2"])
-        torch._foreach_mul_(self.mu, float(b1))
-        torch._foreach_add_(self.mu, torch._foreach_mul(g, float(one - b1)))
-        torch._foreach_mul_(self.nu, float(b2))
-        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(g, g), float(one - b2)))
-        mu_hat = torch._foreach_div(self.mu, float(one - b1 ** np.float32(self.count)))
-        nu_hat = torch._foreach_div(self.nu, float(one - b2 ** np.float32(self.count)))
-        torch._foreach_add_(nu_hat, h["eps_root"])
-        torch._foreach_sqrt_(nu_hat)
-        torch._foreach_add_(nu_hat, h["eps"])
-        torch._foreach_div_(mu_hat, nu_hat)
-        if h["weight_decay"]:
-            torch._foreach_add_(mu_hat, torch._foreach_mul(self.params, h["weight_decay"]))
-        torch._foreach_mul_(mu_hat, -h["learning_rate"])
-        torch._foreach_add_(self.params, mu_hat)
-
-    def state_dict(self) -> Dict[str, Any]:
-        """{count, mu, nu (name → tensor copies), hyperparams}."""
-        return {"count": self.count,
-                "mu": {n: t.detach().clone() for n, t in zip(self.names, self.mu)},
-                "nu": {n: t.detach().clone() for n, t in zip(self.names, self.nu)},
-                "hyperparams": dict(self.hyperparams)}
-
-    def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.count = int(state["count"])
-        with torch.no_grad():
-            for n, mu, nu in zip(self.names, self.mu, self.nu):
-                mu.copy_(state["mu"][n])
-                nu.copy_(state["nu"][n])
-        self.hyperparams.update({k: _f32(v) for k, v in state["hyperparams"].items()})
 
 
 @dataclass
@@ -156,7 +78,8 @@ class VAETrainState:
 
 
 def make_optimizer(cfg: AEConfig, model: VAE) -> AdamW:
-    return AdamW(list(model.named_parameters()), lr=cfg.lr, weight_decay=cfg.weight_decay)
+    return AdamW(list(model.named_parameters()), lr=cfg.lr, weight_decay=cfg.weight_decay,
+                 max_norm=1.0)
 
 
 def init_state(cfg: AEConfig, seed: int = 42, device="cuda") -> VAETrainState:
@@ -223,10 +146,7 @@ def eval_step(state: VAETrainState, x: torch.Tensor) -> torch.Tensor:
 def epoch_indices(n: int, batch_size: int, rng: np.random.Generator, shuffle=True) -> np.ndarray:
     """(n_batches, B) gather indices for one epoch; a split smaller than the
     batch is one whole-split batch."""
-    batch_size = min(batch_size, n)
-    order = rng.permutation(n) if shuffle else np.arange(n)
-    n_batches = max(1, n // batch_size)
-    return order[: n_batches * batch_size].reshape(n_batches, batch_size)
+    return batch_indices(rng.permutation(n) if shuffle else np.arange(n), batch_size)
 
 
 def _metrics(rows: List[torch.Tensor]) -> Dict[str, float]:

@@ -1,13 +1,13 @@
-"""Analytic FLOP counts of the models, of one WGAN-GP group step and of one
-VAE training step.
+"""Analytic FLOP counts of the models, of one WGAN-GP group step, of one
+VAE training step and of one emotion-discriminator training step.
 
 The port's own copy of ``melogan_tpu/utils/flops.py`` (matmul and conv
 FLOPs only, 1 MAC = 2 FLOPs), with one change: the frozen emotion
 discriminator counts forward plus input gradient (2× its forward) inside
 the generator update, since its weights take no gradient; the JAX count
 takes it at 3×. The counts give the group step's bound on the card:
-operations over the f32 peak. ``vae_flops`` and ``vae_step_flops`` have no
-JAX counterpart.
+operations over the f32 peak. ``vae_flops``, ``vae_step_flops`` and
+``ed_step_flops`` have no JAX counterpart.
 """
 from __future__ import annotations
 
@@ -59,18 +59,37 @@ def critic_flops(cfg: GANConfig) -> int:
 
 
 def ed_flops(ed_cfg) -> int:
-    """ED forward, notes mode: the conv blocks, the projection, the MLP."""
+    """ED forward: in notes mode the conv blocks and the projection, then
+    the MLP (over the latent in latent mode)."""
+    if ed_cfg.input_mode == "latent":
+        return _ed_mlp_flops(ed_cfg, ed_cfg.latent_dim)
     l, total = ed_cfg.max_notes, 0
     c_in, ch = ed_cfg.note_dim, 64
     for i in range(ed_cfg.notes_blocks):
         total += _conv1d(l, c_in, ch, 5 if i == 0 else 3)
         c_in, ch = ch, min(ch * 2, ed_cfg.notes_hidden)
     total += _linear(c_in, ed_cfg.notes_hidden)
-    d = ed_cfg.notes_hidden
+    return total + _ed_mlp_flops(ed_cfg, ed_cfg.notes_hidden)
+
+
+def _ed_mlp_flops(ed_cfg, d: int) -> int:
+    total = 0
     for h in ed_cfg.mlp_hidden:
         total += _linear(d, h)
         d = h
     return total + _linear(d, ed_cfg.n_classes)
+
+
+def ed_step_flops(ed_cfg, batch: int) -> int:
+    """One ED training step over ``batch`` samples: the forward, every
+    weight gradient and every input gradient but the first layer's (its
+    input is data), each as many FLOPs as its forward. The first layer is
+    the k5 conv of block 1 in notes mode, the first Linear in latent mode."""
+    if ed_cfg.input_mode == "latent":
+        first = _linear(ed_cfg.latent_dim, (tuple(ed_cfg.mlp_hidden) or (ed_cfg.n_classes,))[0])
+    else:
+        first = _conv1d(ed_cfg.max_notes, ed_cfg.note_dim, 64, 5)
+    return batch * (3 * ed_flops(ed_cfg) - first)
 
 
 def train_flops_per_step(cfg: GANConfig, ed_cfg) -> int:

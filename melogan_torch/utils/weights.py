@@ -21,7 +21,10 @@ cross over.
 training state to and from the payload of the JAX loop's periodic
 ``gan_epochNNNN.ckpt`` (``melogan_tpu/train/gan_loop.py:335-353``), Adam
 included; ``export_vae_payload`` / ``load_vae_payload`` do the same for the
-VAE loop's ``ae_best.ckpt`` (``melogan_tpu/train/vae_loop.py:556-578``).
+VAE loop's ``ae_best.ckpt`` (``melogan_tpu/train/vae_loop.py:556-578``), and
+``export_ed_payload`` / ``load_ed_payload`` for the ED loop's
+``ed_epochNNNN.ckpt`` and ``ed_best.ckpt``
+(``melogan_tpu/train/ed_loop.py:446-500``).
 ``read_gan_final`` / ``write_gan_final`` read and write a ``gan_final`` in
 either format, by suffix: ``.pth`` (the reference layout) or ``.ckpt`` (the
 JAX layout). Convert one into the other with
@@ -141,7 +144,8 @@ def export_ed(
 ) -> Dict[str, np.ndarray]:
     """ED variables → torch state_dict keyed per ed_model.py module names.
 
-    Layer counts default to what the tree itself contains."""
+    Layer counts default to what the tree itself contains. A tree without
+    ``batch_stats`` maps its parameters alone (Adam's moments)."""
     p = variables["params"]
     st = variables.get("batch_stats", {})
     if mlp_hidden is None:
@@ -155,7 +159,7 @@ def export_ed(
             _exp_conv1d(block["Conv1d_0"], f"encoder.conv.{i}.net.0", sd)
             _exp_bn(
                 block["TorchBatchNorm_0"],
-                st["encoder"][f"ConvBlock1D_{i}"]["TorchBatchNorm_0"],
+                st["encoder"][f"ConvBlock1D_{i}"]["TorchBatchNorm_0"] if st else None,
                 f"encoder.conv.{i}.net.1",
                 sd,
             )
@@ -522,17 +526,7 @@ def load_train_payload(state, raw: Mapping[str, Any], ema_decay: float) -> Tuple
         with torch.no_grad():
             for name, e in state.ema_params.items():
                 e.copy_(src[name])
-    note = None
-    if TORCH_RNG_KEY in raw:
-        rng_state = torch.from_numpy(np.array(raw[TORCH_RNG_KEY], np.uint8))
-        if rng_state.numel() == state.rng.get_state().numel():
-            state.rng.set_state(rng_state)
-        else:
-            note = (f"the checkpoint's random stream is of another device's generator; "
-                    f"the {state.rng.device} generator keeps its seeded stream")
-    else:
-        note = "the checkpoint carries no torch random stream; the seeded stream goes on"
-    return int(np.asarray(raw["epoch"])), note
+    return int(np.asarray(raw["epoch"])), _rng_note(state.rng, raw)
 
 
 # ---------------------------------------------------------------------------
@@ -554,18 +548,10 @@ def export_vae_payload(snapshot: Mapping[str, Any]) -> Dict[str, Any]:
     file keeps its own stream."""
     sd = {k: _np(v) for k, v in snapshot["model"].items()}
     opt = snapshot["opt"]
-    count = np.asarray(opt["count"], np.int32)
-    adam = {"count": count,
-            "mu": convert_vae({k: _np(v) for k, v in opt["mu"].items()})["params"],
-            "nu": convert_vae({k: _np(v) for k, v in opt["nu"].items()})["params"]}
-    inject = {"count": count,
-              "hyperparams": {k: np.asarray(v, np.float32) for k, v in opt["hyperparams"].items()},
-              "hyperparams_states": {},
-              "inner_state": {"0": adam, "1": {}, "2": {}}}
     return {
         "epoch": int(snapshot["epoch"]),
         **convert_vae(sd),
-        "opt_state": {"0": {}, "1": inject},
+        "opt_state": {"0": {}, "1": _inject_adamw(opt, lambda m: convert_vae(m)["params"])},
         "best_val": float(snapshot["stopper"]["best"]),
         "lr": float(opt["hyperparams"]["learning_rate"]),
         "plateau": {"best": float(snapshot["plateau"]["best"]),
@@ -604,17 +590,105 @@ def load_vae_payload(state, raw: Mapping[str, Any]) -> Tuple[int, Optional[str]]
         "nu": to_tensors(export_vae({"params": adam["nu"]})),
         "hyperparams": {k: float(np.asarray(v)) for k, v in inject["hyperparams"].items()},
     })
-    note = None
-    if TORCH_RNG_KEY in raw:
-        rng_state = torch.from_numpy(np.array(raw[TORCH_RNG_KEY], np.uint8))
-        if rng_state.numel() == state.rng.get_state().numel():
-            state.rng.set_state(rng_state)
-        else:
-            note = (f"the checkpoint's random stream is of another device's generator; "
-                    f"the {state.rng.device} generator keeps its seeded stream")
-    else:
-        note = "the checkpoint carries no torch random stream; the seeded stream goes on"
-    return int(np.asarray(raw["epoch"])), note
+    return int(np.asarray(raw["epoch"])), _rng_note(state.rng, raw)
+
+
+# ---------------------------------------------------------------------------
+# The ED loop's ed_epochNNNN.ckpt and ed_best.ckpt
+# ---------------------------------------------------------------------------
+
+
+def _ed_layout(sd: Mapping) -> Tuple[int, int]:
+    """(conv blocks, hidden Linears) of an ED state dict."""
+    blocks = {k.split(".")[2] for k in sd if k.startswith("encoder.conv.")}
+    hidden = {k.split(".")[2] for k in sd if k.startswith("classifier.net.")}
+    return len(blocks), len(hidden)
+
+
+def _inject_adamw(opt: Mapping[str, Any], convert) -> Dict[str, Any]:
+    """optax ``inject_hyperparams(adamw)``'s state as flax serializes it:
+    ``{count, hyperparams, hyperparams_states, inner_state: {"0": {count,
+    mu, nu}, "1": {}, "2": {}}}``; ``convert`` maps a parameters-only state
+    dict of moments to the parameter tree."""
+    count = np.asarray(opt["count"], np.int32)
+    adam = {"count": count,
+            "mu": convert({k: _np(v) for k, v in opt["mu"].items()}),
+            "nu": convert({k: _np(v) for k, v in opt["nu"].items()})}
+    return {"count": count,
+            "hyperparams": {k: np.asarray(v, np.float32) for k, v in opt["hyperparams"].items()},
+            "hyperparams_states": {},
+            "inner_state": {"0": adam, "1": {}, "2": {}}}
+
+
+def _rng_note(rng: torch.Generator, raw: Mapping[str, Any]) -> Optional[str]:
+    """Take over a port file's random stream into ``rng``; a note when the
+    file has none this generator can take."""
+    if TORCH_RNG_KEY not in raw:
+        return "the checkpoint carries no torch random stream; the seeded stream goes on"
+    rng_state = torch.from_numpy(np.array(raw[TORCH_RNG_KEY], np.uint8))
+    if rng_state.numel() != rng.get_state().numel():
+        return (f"the checkpoint's random stream is of another device's generator; "
+                f"the {rng.device} generator keeps its seeded stream")
+    rng.set_state(rng_state)
+    return None
+
+
+def export_ed_payload(snapshot: Mapping[str, Any]) -> Dict[str, Any]:
+    """A snapshot of the port's ED training state (``train.ed_loop.
+    snapshot``) as the JAX ED loop's checkpoint: ``epoch``, ``params``,
+    ``batch_stats`` (an empty map in latent mode), ``opt_state`` (the tree
+    of ``inject_hyperparams(adamw)``, moments in the parameters' HIO
+    layout), ``lr`` (the injected learning rate), ``plateau`` and
+    ``stopper``. The ``torch.Generator``'s state and each BatchNorm's
+    ``num_batches_tracked`` go under keys of the port's own, which JAX
+    ignores; there is no ``rng``, so a JAX run resumed from this file keeps
+    its own stream."""
+    sd = {k: _np(v) for k, v in snapshot["model"].items()}
+    blocks, hidden = _ed_layout(sd)
+    tree = convert_ed(sd, blocks, hidden)
+    opt = snapshot["opt"]
+    return {
+        "epoch": int(snapshot["epoch"]),
+        "params": tree["params"],
+        "batch_stats": tree.get("batch_stats", {}),
+        "opt_state": _inject_adamw(opt, lambda m: convert_ed(m, blocks, hidden)["params"]),
+        "lr": float(opt["hyperparams"]["learning_rate"]),
+        "plateau": {"best": float(snapshot["plateau"]["best"]),
+                    "num_bad_epochs": int(snapshot["plateau"]["num_bad_epochs"])},
+        "stopper": {"best": float(snapshot["stopper"]["best"]),
+                    "num_bad_epochs": int(snapshot["stopper"]["num_bad_epochs"])},
+        TORCH_RNG_KEY: snapshot["rng"].numpy(),
+        TORCH_BN_KEY: {k: v for k, v in sd.items() if k.endswith("num_batches_tracked")},
+    }
+
+
+def load_ed_payload(state, raw: Mapping[str, Any]) -> Tuple[int, Optional[str]]:
+    """Restore an ED checkpoint (the port's or the JAX loop's) into the
+    port's ``train.ed_loop.EDTrainState`` in place: weights, BatchNorm
+    statistics, the optimizer's step count, moments and hyperparameters,
+    and from a port file also the ``torch.Generator`` and
+    ``num_batches_tracked``. Keys and shapes are checked first (a
+    ValueError names the key). Returns (the file's epoch, a note when its
+    random stream could not be taken over, else None). The top-level
+    ``lr``, ``plateau`` and ``stopper`` are the loop's to read."""
+    from melogan_torch.train.ed_loop import snapshot
+
+    want = export_ed_payload(snapshot(state, 0))
+    check_tree({k: want[k] for k in ("params", "batch_stats", "opt_state")}, raw)
+    if "epoch" not in raw:
+        raise ValueError("checkpoint lacks key /epoch")
+    sd = export_ed({"params": raw["params"], "batch_stats": raw["batch_stats"]})
+    sd.update({k: np.asarray(v) for k, v in raw.get(TORCH_BN_KEY, {}).items()})
+    _load_module(state.model, sd)
+    inject = raw["opt_state"]
+    adam = inject["inner_state"]["0"]
+    state.opt.load_state_dict({
+        "count": int(np.asarray(adam["count"])),
+        "mu": to_tensors(export_ed({"params": adam["mu"]})),
+        "nu": to_tensors(export_ed({"params": adam["nu"]})),
+        "hyperparams": {k: float(np.asarray(v)) for k, v in inject["hyperparams"].items()},
+    })
+    return int(np.asarray(raw["epoch"])), _rng_note(state.rng, raw)
 
 
 # ---------------------------------------------------------------------------

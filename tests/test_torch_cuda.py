@@ -346,3 +346,90 @@ def test_vae_step_and_encode_on_card_match_cpu(cuda, rng):
     notes = rng.uniform(-1, 1, size=(300, 512, 4)).astype(np.float32)
     a, b = vae_loop.encode_mu(gpu.model, notes), vae_loop.encode_mu(cpu.model, notes)
     assert a.shape == (300, cfg.latent_dim) and np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+
+# the ED's four conv blocks at full width: (L, Cin, Cout, K, padding), stride 1
+ED_LAYERS = [(512, 4, 64, 5, 2), (512, 64, 128, 3, 1), (512, 128, 256, 3, 1), (512, 256, 256, 3, 1)]
+
+
+@pytest.mark.parametrize("layer", range(4))
+def test_ed_layers_at_batch_64_on_card(cuda, rng, layer):
+    """The ED trainer's batch (64): ``conv1d`` forward at each block, and
+    the conv Function's backward, whose input gradient runs the ``convt1d``
+    kernel (one launch), against autograd through the plain version."""
+    l, cin, cout, k, p = ED_LAYERS[layer]
+    x = _t(rng.normal(size=(64, l, cin)), cuda)
+    w = _t(rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin), cuda)
+    bias = _t(0.1 * rng.normal(size=(cout,)), cuda)
+    out, ref = conv1d_cuda(x, w, bias, 1, p), conv1d_plain(x, w, bias, 1, p)
+    torch.testing.assert_close(out, ref, atol=1e-4 * float(ref.abs().max()), rtol=1e-4)
+    g = _t(rng.normal(size=tuple(ref.shape)), cuda)
+    before = convt1d_cuda.launches
+    got = _grads(lambda x_, w_, b_: conv_ops.conv1d(x_, w_, 1, p, bias=b_), x, w, bias, g)
+    torch.cuda.synchronize()
+    assert convt1d_cuda.launches == before + 1
+    for a, e in zip(got, _grads(lambda x_, w_, b_: conv1d_plain(x_, w_, b_, 1, p), x, w, bias, g)):
+        torch.testing.assert_close(a, e, atol=1e-4 * float(e.abs().max()), rtol=1e-4)
+
+
+def test_ed_step_and_evaluate_on_card_match_cpu(cuda, rng):
+    """One ED training step at full width (``EDConfig()``, batch 64) on the
+    card against the port's CPU path from the same weights and dropout
+    masks: loss 1e-4 of scale, accuracy exactly, BatchNorm running
+    statistics 1e-4 of scale, parameters within 2·lr; 4 ``conv1d`` and 3
+    ``convt1d`` launches. Adam's first moments are held against a float64
+    step on the CPU: the card's error within three times the CPU float32
+    path's own, plus 1e-5 of the largest moment (as for the VAE step: a
+    fixed bound would test the input's conditioning). Then ``evaluate`` of
+    a 70-row split on each: loss 1e-4 of scale, the confusion matrix
+    equal."""
+    import copy
+
+    from melogan_torch.config import EDConfig
+    from melogan_torch.data.datasets import SplitData
+    from melogan_torch.train import ed_loop
+
+    cfg = EDConfig()
+    gpu = ed_loop.init_state(cfg, seed=0, device="cuda")
+    cpu = ed_loop.init_state(cfg, model=copy.deepcopy(gpu.model).cpu(), device="cpu")
+    f64 = ed_loop.init_state(cfg, model=copy.deepcopy(gpu.model).cpu().double(), device="cpu")
+    x = rng.uniform(-1, 1, size=(64, 512, 4)).astype(np.float32)
+    y = rng.integers(0, 4, size=64)
+    masks = [rng.uniform(size=(64, h)) < 0.8 for h in cfg.mlp_hidden]
+
+    def step(state, dtype=torch.float32):
+        dev = state.device
+        return ed_loop.train_step(state, torch.from_numpy(x).to(dev, dtype), torch.from_numpy(y).to(dev),
+                                  masks=[torch.from_numpy(m).to(dev) for m in masks]).cpu()
+
+    launches = (conv1d_cuda.launches, convt1d_cuda.launches)
+    rows = [step(gpu), step(cpu)]
+    assert (conv1d_cuda.launches - launches[0], convt1d_cuda.launches - launches[1]) == (4, 3)
+    step(f64, torch.float64)
+    torch.testing.assert_close(rows[0][0], rows[1][0], atol=1e-4 * float(rows[1][0].abs()), rtol=0)
+    assert float(rows[0][1]) == float(rows[1][1])
+    mu_g, mu_c = gpu.opt.state_dict()["mu"], cpu.opt.state_dict()["mu"]
+    mu_ref = f64.opt.state_dict()["mu"]
+    gmax = max(float(v.abs().max()) for v in mu_ref.values())
+    lr = cfg.optimizer.lr
+    for (name, pg), (_, pc) in zip(gpu.model.named_parameters(), cpu.model.named_parameters()):
+        err_g = float((mu_g[name].cpu().double() - mu_ref[name]).abs().max())
+        err_c = float((mu_c[name].double() - mu_ref[name]).abs().max())
+        assert err_g <= 3 * err_c + 1e-5 * gmax, (name, err_g, err_c)
+        assert float((pg.detach().cpu() - pc.detach()).abs().max()) <= 2 * lr * (1 + 1e-3), name
+    sd_g, sd_c = gpu.model.state_dict(), cpu.model.state_dict()
+    for k in sd_c:
+        if "running" in k:
+            torch.testing.assert_close(sd_g[k].cpu(), sd_c[k], atol=1e-4 * float(sd_c[k].abs().max()), rtol=0)
+
+    n = 70
+    raw = np.stack([rng.integers(36, 97, (n, 512)), np.cumsum(rng.uniform(0, 1, (n, 512)), 1),
+                    rng.uniform(0.1, 2, (n, 512)), rng.integers(40, 111, (n, 512))], -1).astype(np.float32)
+    data = SplitData(raw, np.array(["happy", "sad", "angry", "calm"] * 18)[:n],
+                     rng.normal(size=(n, 6)).astype(np.float32), [])
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    before = conv1d_cuda.launches
+    a, b = ed_loop.evaluate(cfg, gpu, data), ed_loop.evaluate(cfg, cpu, data)
+    assert conv1d_cuda.launches == before + 4
+    assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
+    assert (a["confusion"], a["n"]) == (b["confusion"], n) and gpu.model.training

@@ -1,10 +1,16 @@
 """The port's WSGI app with a CPU sampler: /generate, /healthz and errors,
-and ``create_server`` on a ``.ckpt`` with a config and EMA, and with the
-shipped YAML configs."""
+``create_server`` on a ``.ckpt`` with a config and EMA and with the shipped
+YAML configs, the sample pool behind /generate, /, /metrics against the JAX
+server's, /reload and the checkpoint watcher.
+
+Every server a test starts is shut down, and its pool and watcher closed,
+in a ``finally`` block; every wait on a thread is bounded."""
 import dataclasses
 import io
+import os
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 from wsgiref.util import setup_testing_defaults
@@ -18,7 +24,7 @@ from melogan_torch.config import EDConfig, GANConfig
 from melogan_torch.data.datasets import SplitData
 from melogan_torch.midi.midifile import read_midi
 from melogan_torch.sampling import Sampler
-from melogan_torch.serving.app import MAX_JSON_BODY, AppState, build_app, create_server
+from melogan_torch.serving.app import MAX_JSON_BODY, AppState, build_app, create_server, serve
 from melogan_torch.train import gan_loop, gan_step
 
 SMALL = dict(max_notes=64, noise_dim=16, latent_dim=8, gen_hidden=32)
@@ -56,7 +62,12 @@ def call(app, method, path, body=b"", content_length=None):
     def start_response(status, headers, exc_info=None):
         seen["status"], seen["headers"] = status, dict(headers)
 
-    out = b"".join(app(environ, start_response))
+    result = app(environ, start_response)
+    try:
+        out = b"".join(result)
+    finally:  # as a WSGI server does once the body is written
+        if hasattr(result, "close"):
+            result.close()
     return int(seen["status"].split()[0]), seen["headers"], out
 
 
@@ -145,7 +156,8 @@ def _healthz(base):
 def test_create_server_answers_over_http(tmp_path):
     """The user entry point: build, warm up, bind, and answer real HTTP. No
     checkpoint in the workdir: seeded random weights, and /healthz says so."""
-    httpd, state = create_server("127.0.0.1", 0, workdir=str(tmp_path), device="cpu")  # the shipped config
+    httpd, state = create_server("127.0.0.1", 0, workdir=str(tmp_path), device="cpu",
+                                 sample_pool=False)  # the shipped config
     t, base = _serve(httpd)
     try:
         status, body = _post(base, "calm")
@@ -187,7 +199,7 @@ def test_create_server_serves_a_ckpt_with_config_and_ema(trained_1024):
     cfg, workdir, state = trained_1024
     path = str(workdir / cfg.checkpoint_dir / "gan_final.ckpt")
     httpd, app_state = create_server("127.0.0.1", 0, config=GANConfig(max_notes=1024, ema_decay=0.9),
-                                     checkpoint=path, use_ema=True, device="cpu")
+                                     checkpoint=path, use_ema=True, device="cpu", sample_pool=False)
     t, base = _serve(httpd)
     try:
         for emotion in EMOTIONS:
@@ -214,12 +226,14 @@ def test_create_server_default_checkpoint_and_config_path(trained_1024, tmp_path
     (the AE latent concatenated, zeros when serving) each answer
     ``POST /generate``."""
     cfg, workdir, _ = trained_1024
-    httpd, app_state = create_server("127.0.0.1", 0, workdir=str(workdir), config=cfg, device="cpu")
+    httpd, app_state = create_server("127.0.0.1", 0, workdir=str(workdir), config=cfg, device="cpu",
+                                     sample_pool=False)
     httpd.server_close()
     assert app_state.loaded and not app_state.use_ema
     assert app_state.ckpt_path == str(workdir / cfg.checkpoint_dir / "gan_final.ckpt")
     for path in ("configs/gan.yaml", "configs/gan_conditioning.yaml"):
-        httpd, app_state = create_server("127.0.0.1", 0, workdir=str(tmp_path), config=path, device="cpu")
+        httpd, app_state = create_server("127.0.0.1", 0, workdir=str(tmp_path), config=path, device="cpu",
+                                         sample_pool=False)
         t, base = _serve(httpd)
         try:
             status, body = _post(base, "angry")
@@ -232,6 +246,216 @@ def test_create_server_default_checkpoint_and_config_path(trained_1024, tmp_path
         assert app_state.ckpt_path == str(tmp_path / app_state.cfg.checkpoint_dir / "gan_final.ckpt")
     assert app_state.cfg.integration_mode == "conditioning" and app_state.cfg.latent_dim == 8
     httpd, app_state = create_server("127.0.0.1", 0, workdir=str(tmp_path),
-                                     config=str(tmp_path / "missing.yaml"), device="cpu")
+                                     config=str(tmp_path / "missing.yaml"), device="cpu", sample_pool=False)
     httpd.server_close()
     assert app_state.cfg == GANConfig()
+
+
+# ---------------------------------------------------------------------------
+# The web UI, /metrics, the sample pool, /reload and the watcher
+# ---------------------------------------------------------------------------
+
+
+def test_index_page_is_the_jax_page(state):
+    from melogan_tpu.serving.app import INDEX_HTML as JAX_INDEX
+
+    status, headers, body = call(build_app(state), "GET", "/")
+    assert status == 200 and headers["Content-Type"] == "text/html"
+    assert body == JAX_INDEX.encode() and int(headers["Content-Length"]) == len(body)
+
+
+def test_metrics_match_the_jax_server_for_the_same_requests(state):
+    """The same requests to the port's app and to the JAX package's: the
+    request counters by route, method and status and the histograms'
+    series and counts are equal (the latencies themselves differ), with
+    unknown paths and methods collapsed into "other"."""
+    from melogan_tpu.config import GANConfig as JaxGANConfig
+    from melogan_tpu.serving import app as japp
+
+    requests = [("GET", "/", b""), ("GET", "/nope", b""), ("BREW", "/", b""),
+                ("POST", "/generate", b'{"emotion": "elated"}'), ("POST", "/generate", b" " * (MAX_JSON_BODY + 1)),
+                ("POST", "/reload", b"{not json"), ("POST", "/reload", b'{"checkpoint": "/nonexistent.ckpt"}'),
+                ("GET", "/metrics", b"")]
+
+    def scrape(app, registry):
+        for method, path, body in requests:
+            call(app, method, path, body)
+        keep = []
+        for line in registry.render().splitlines():
+            if "process_uptime_seconds" in line or "_bucket{" in line or "_sum{" in line:
+                continue
+            keep.append(line)
+        return keep
+
+    ours_state = AppState(state.cfg, state.sampler)
+    theirs_state = japp.AppState(JaxGANConfig(**SMALL), sampler=None)
+    ours = scrape(build_app(ours_state), ours_state.metrics)
+    theirs = scrape(japp.build_app(theirs_state), theirs_state.metrics)
+    assert ours == theirs
+    assert 'melogan_http_requests_total{method="other",route="/",status="404"} 1' in ours
+    assert 'melogan_http_requests_total{method="GET",route="other",status="404"} 1' in ours
+    assert 'melogan_http_requests_total{method="POST",route="/reload",status="400"} 1' in ours
+    status, headers, body = call(build_app(ours_state), "GET", "/metrics")
+    assert status == 200 and headers["Content-Type"].startswith("text/plain; version=0.0.4")
+    assert ours_state.inflight() == 0
+
+
+def _write_final(path, sampler, bn_shift=0.0):
+    """A ``gan_final.ckpt`` of ``sampler``'s weights, the decoder's
+    BatchNorm running means shifted by ``bn_shift``."""
+    from melogan_torch.utils.weights import write_gan_final
+
+    gen = {k: v.clone() for k, v in sampler.generator.state_dict().items()}
+    for k in gen:
+        if k.endswith("running_mean"):
+            gen[k] += bn_shift
+    write_gan_final(str(path), {"G": gen, "E_num": sampler.feature_encoder.state_dict(),
+                                "emotion_features": None})
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def two_checkpoints(tmp_path_factory):
+    """Two ``gan_final.ckpt`` files at the small config that differ only in
+    the decoder's BatchNorm running means, and fresh samplers on each."""
+    from melogan_torch.utils.weights import load_gan_final_full
+
+    d = tmp_path_factory.mktemp("ckpts")
+    base = Sampler(GANConfig(**SMALL), seed=3, device="cpu")
+    paths = [_write_final(d / "a.ckpt", base), _write_final(d / "b.ckpt", base, bn_shift=0.5)]
+    samplers = []
+    for p in paths:
+        gen, fe, extras = load_gan_final_full(p)
+        samplers.append(Sampler(GANConfig(**SMALL), gen_variables=gen, fe_variables=fe, device="cpu"))
+    assert samplers[0].generator.decoder.fuses()  # eval mode takes the folded-BN stages
+    return paths, samplers
+
+
+def _served_notes(sampler, seed=11):
+    return sampler.sample_notes(list(EMOTIONS), seed=seed)
+
+
+def test_pooled_generate_serves_valid_unique_midi(two_checkpoints):
+    """``create_server`` fills a sample pool; ``POST /generate`` pops
+    samples from it (pool hits), each once, and /healthz and /metrics
+    report it."""
+    paths, _ = two_checkpoints
+    httpd, app_state = create_server("127.0.0.1", 0, config=GANConfig(**SMALL), checkpoint=paths[0],
+                                     device="cpu", pool_warm=False)
+    t, base = _serve(httpd)
+    try:
+        assert app_state.pool is not None
+        for e in ("happy", "happy", "sad", "happy"):
+            status, body = _post(base, e)
+            assert status == 200 and len(read_midi(body).instruments) == 1
+        # each sample is served once (a random generator's pieces can encode
+        # to the same bytes, so the notes are compared)
+        a, b = app_state.pool.take("calm"), app_state.pool.take("calm")
+        assert a.shape == (64, 4) and not np.array_equal(a, b)
+        health = _healthz(base)
+        assert health["sample_pool"]["hits"] == 6 and health["generator"] == "checkpoint"
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+            text = resp.read().decode()
+        assert "melogan_pool_hits_total 6" in text and 'melogan_pool_depth{key="happy"}' in text
+    finally:
+        _stop(httpd, t)
+        app_state.close()
+    assert not app_state.pool._thread.is_alive()
+
+
+def test_generate_answers_503_when_the_pool_times_out(state):
+    """A pool whose sampler keeps failing: ``/generate`` answers 503 with
+    the refill's last error instead of hanging."""
+    from melogan_torch.serving.pool import SamplePool
+
+    class Failing:
+        def sample_notes(self, prompts, seed=0):
+            raise RuntimeError("device lost")
+
+    pool = SamplePool(Failing(), target=1, refill_batch=1, background=False, take_timeout=0.2)
+    app_state = AppState(state.cfg, state.sampler, pool=pool)
+    status, _, body = call(build_app(app_state), "POST", "/generate", b'{"emotion": "calm"}')
+    assert status == 503 and json.loads(body)["last_refill_error"] == "RuntimeError: device lost"
+
+
+def test_reload_swaps_the_weights_and_flushes_the_pool(two_checkpoints, tmp_path):
+    """``POST /reload``: 200 with the number of pooled samples flushed, the
+    sampler then serves the new file's weights (its notes equal a fresh
+    ``Sampler`` on that file bit for bit: the folded-BN stages of the old
+    weights are not reused); 400 on a body that is not JSON and on a
+    malformed file, which leave the new weights serving; 404 for a missing
+    path; 413 for an oversized body; the reload is counted in /metrics."""
+    (a, b), (fresh_a, fresh_b) = two_checkpoints
+    from melogan_torch.serving.pool import SamplePool
+
+    httpd, app_state = create_server("127.0.0.1", 0, config=GANConfig(**SMALL), checkpoint=a, device="cpu",
+                                     sample_pool=False)
+    httpd.server_close()
+    app_state.pool = SamplePool(app_state.sampler, target=2, refill_batch=4, background=False)
+    app_state.pool.prefill(timeout=10)
+    app = build_app(app_state)
+    try:
+        np.testing.assert_array_equal(_served_notes(app_state.sampler), _served_notes(fresh_a))
+        depth = sum(app_state.pool.depth().values())
+        status, _, body = call(app, "POST", "/reload", json.dumps({"checkpoint": b}).encode())
+        assert status == 200
+        assert json.loads(body) == {"status": "ok", "checkpoint": b, "flushed_pool_samples": depth}
+        assert app_state.ckpt_path == b and app_state.loaded_version[0] == b
+        assert sum(app_state.pool.depth().values()) == 0
+        served = _served_notes(app_state.sampler)
+        np.testing.assert_array_equal(served, _served_notes(fresh_b))
+        assert not np.array_equal(served, _served_notes(fresh_a))
+
+        bad = tmp_path / "bad.ckpt"
+        bad.write_bytes(b"\x81\xa1Gnot a checkpoint")
+        for body_ in (b"{not json", b"[1]", json.dumps({"checkpoint": str(bad)}).encode()):
+            status, _, out = call(app, "POST", "/reload", body_)
+            assert status == 400, out
+        np.testing.assert_array_equal(_served_notes(app_state.sampler), _served_notes(fresh_b))
+        assert app_state.ckpt_path == b
+        status, _, out = call(app, "POST", "/reload", b'{"checkpoint": "/nonexistent/gan_final.ckpt"}')
+        assert status == 404 and "checkpoint not found" in json.loads(out)["error"]
+        status, _, _ = call(app, "POST", "/reload", b" " * (MAX_JSON_BODY + 1))
+        assert status == 413
+        status, _, out = call(app, "POST", "/reload")  # no body: the path served
+        assert status == 200 and json.loads(out)["checkpoint"] == b
+        text = call(app, "GET", "/metrics")[2].decode()
+        assert "melogan_reloads_total 2" in text
+        assert 'melogan_http_requests_total{method="POST",route="/reload",status="400"} 3' in text
+        status, _, out = call(app, "POST", "/generate", b'{"emotion": "sad"}')
+        assert status == 200 and out[:4] == b"MThd"
+    finally:
+        app_state.close()
+
+
+def test_watch_checkpoint_picks_up_a_replaced_file(two_checkpoints, tmp_path):
+    """``create_server(watch_ckpt=...)`` polls the served file: when it is
+    replaced (a new mtime), the watcher hot-swaps it and flushes the pool;
+    ``close`` stops the watcher."""
+    (a, b), (_, fresh_b) = two_checkpoints
+    served = tmp_path / "gan_final.ckpt"
+    served.write_bytes(open(a, "rb").read())
+    httpd, app_state = create_server("127.0.0.1", 0, config=GANConfig(**SMALL), checkpoint=str(served),
+                                     device="cpu", pool_warm=False, watch_ckpt=0.02)
+    httpd.server_close()
+    try:
+        first = app_state.loaded_version
+        assert first == (str(served), os.path.getmtime(served))
+        tmp = tmp_path / "incoming.ckpt"
+        tmp.write_bytes(open(b, "rb").read())
+        os.utime(tmp, (first[1] + 10, first[1] + 10))
+        os.replace(tmp, served)  # an atomic replace, as a training job writes it
+        deadline = time.monotonic() + 10
+        while app_state.loaded_version == first and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert app_state.loaded_version == (str(served), first[1] + 10)
+        np.testing.assert_array_equal(_served_notes(app_state.sampler), _served_notes(fresh_b))
+        assert "melogan_reloads_total 1" in app_state.metrics.render()
+    finally:
+        app_state.close()
+    assert not app_state.watcher.is_alive() and not app_state.pool._thread.is_alive()
+
+
+def test_unported_server_options_raise(tmp_path):
+    with pytest.raises(NotImplementedError):
+        serve("127.0.0.1", 0, workdir=str(tmp_path), config=GANConfig(**SMALL), device="cpu", dp=2)
