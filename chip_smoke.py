@@ -89,7 +89,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     versions, timed beside the library calls; between ``ed_train`` and
     ``ed_resume``, outside any counted path, ``ed_step`` times the median
     wall of 10 ED training steps and traces 3;
-13. prints the ``kernels`` JSON line (launches summed over every driven
+13. the population sweep on the training phase's corpus and config, each
+    path with the counts set to 0 first and checked against
+    ``sweep_counts``' prediction: ``sweep`` (``sweep_gan`` of 4 members,
+    seeds ``cfg.seed`` to ``cfg.seed + 3`` with ``SWEEP_GRID``, 2 epochs,
+    ``promote_best``; each member-epoch, gate and state write timed; after
+    the window, member 0 read back from ``sweep_state.ckpt`` must equal the
+    ``training`` phase's state bit for bit, and every member's
+    ``gan_final.ckpt`` must sample finite notes), ``sweep_resume`` (the
+    same sweep for 1 epoch, seeded before the counts are set to 0, resumed
+    to 2: it must be ``sweep`` bit for bit) and ``sweep_halving`` (rungs of
+    1 epoch for 3 epochs: 4 → 2 → 1 members); between them, outside any
+    counted path, ``sweep_state`` reads the file's size, its load and save
+    seconds and those of ``load_sweep_state``/``export_sweep_state``;
+14. prints the ``kernels`` JSON line (launches summed over every driven
     path), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without CUDA, or without the rest of
@@ -160,6 +173,12 @@ JUDGE_EPOCHS = 4
 # input gradients of ED blocks 2-4 (block 1's input is data and takes none)
 ED_BACKWARD = [((l, cin, cout, k, s, p, 0), False, n) for l, cin, cout, k, s, p, n in ED_LAYERS[1:]]
 CORPUS_ROWS = 384  # batch 32: 12 batches, 2 groups of 5 and a 2-batch tail per epoch
+# the population sweep (train/sweep.py) on the training phase's corpus and config: four
+# members, the first the training phase's own run, two more seeds, a learning rate and a
+# loss weight of their own
+SWEEP_EPOCHS = 2
+SWEEP_GRID = [{}, {}, {"lr_g": 1e-4}, {"lambda_emotion": 0.5}]
+HALVING_EPOCHS = 3  # rungs of 1 epoch: 4 members, then 2, then the winner alone
 GROUP_STEPS = 10  # timed group steps after a first
 
 
@@ -1526,6 +1545,257 @@ def check_served_weights(np, gan, served, counts, results):
     emit(rec, results)
 
 
+def state_differences(torch, a, b):
+    """Where two GAN training states differ: the four modules' parameters
+    and buffers, both Adams' moments and steps, the step count, the EMA
+    stream and the random stream."""
+    out = []
+    for name in ("generator", "feature_encoder", "critic", "ed"):
+        sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+        out += [f"{name}.{k}" for k in sa if not torch.equal(sa[k], sb[k])]
+    for opt in ("opt_g", "opt_d"):
+        oa, ob = getattr(a, opt), getattr(b, opt)
+        for pa, pb in zip(oa.param_groups[0]["params"], ob.param_groups[0]["params"]):
+            out += [f"{opt}.{k}" for k in ("exp_avg", "exp_avg_sq", "step")
+                    if not torch.equal(oa.state[pa][k], ob.state[pb][k])]
+    if a.step != b.step:
+        out.append("step")
+    if (a.ema_params is None) != (b.ema_params is None) or any(
+            not torch.equal(a.ema_params[n], b.ema_params[n]) for n in a.ema_params or {}):
+        out.append("ema_params")
+    if not torch.equal(a.rng.get_state(), b.rng.get_state()):
+        out.append("rng")
+    return sorted(set(out))
+
+
+def sweep_counts(cfg, member_epochs, gates):
+    """The launches a sweep phase must show, from the code: a member's epoch
+    is ``gan_loop.run_epoch`` over the training corpus (2 group steps and a
+    2-batch tail at 384 rows, batch 32). A group step launches ``convt1d``
+    22 times (the generator's 3 transposed convs in each of 5 critic
+    updates and in the generator update, then the input gradients of the
+    frozen ED's 4 convs) and ``conv1d`` 7 times (the ED's 4 convs, the input
+    gradients of the decoder's 3); a tail batch 3 ``convt1d`` (the
+    generator's forward); a gate one ``decoder_tail`` (one
+    ``sample_notes`` of 4 × 2 pieces)."""
+    n_batches = CORPUS_ROWS // cfg.batch_size
+    groups = n_batches // cfg.critic_iters
+    tail = n_batches - groups * cfg.critic_iters
+    per_epoch = {"convt1d": groups * (3 * cfg.critic_iters + 3 + 4) + 3 * tail, "conv1d": groups * (4 + 3)}
+    return {"conv1d": member_epochs * per_epoch["conv1d"], "convt1d": member_epochs * per_epoch["convt1d"],
+            "decoder_tail": gates}
+
+
+class _Timed:
+    """Host seconds of each call of ``module.name`` while the phase runs
+    (the wrapped calls end in a host sync or a file write; the wrapper
+    launches nothing)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = self.real(*a, **k)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _sweep_args(trained, workdir, **kw):
+    cfg = trained["cfg"]
+    return dict(cfg=cfg, ed_cfg=trained["ed_cfg"], train_data=trained["data"],
+                seeds=[cfg.seed + k for k in range(len(SWEEP_GRID))], workdir=workdir, verbose=False,
+                hyper_grid=SWEEP_GRID, device="cuda", **kw)
+
+
+def _bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _sweep_file(cfg, workdir):
+    return os.path.join(os.path.dirname(os.path.join(workdir, cfg.checkpoint_dir).rstrip("/")), "sweep",
+                        "sweep_state.ckpt")
+
+
+def drive_sweep(torch, np, trained, results):
+    """``sweep``: ``sweep_gan`` of 4 members for 2 epochs with
+    ``promote_best``, timed: each member-epoch (``run_epoch``), each gate
+    and each ``sweep_state.ckpt`` write."""
+    import shutil
+
+    from melogan_torch.train import sweep
+
+    workdir = os.path.join(WORK_DIR, "sweep")
+    shutil.rmtree(workdir, ignore_errors=True)
+    args = _sweep_args(trained, workdir, epochs=SWEEP_EPOCHS, promote_best=True)
+    t0 = time.perf_counter()
+    with _Timed(sweep, "run_epoch") as epochs, _Timed(sweep, "gate_member") as gates, \
+            _Timed(sweep, "save_checkpoint") as saves:
+        report = sweep.sweep_gan(**args)
+    wall = time.perf_counter() - t0
+    k = len(SWEEP_GRID)
+    # chunks of one epoch (save_freq 1): each epoch's k member-epochs in turn
+    rec = {"phase": "sweep", "members": k, "epochs": SWEEP_EPOCHS, "wall_s": wall,
+           "population_epoch_s": [sum(epochs.seconds[e * k:(e + 1) * k]) for e in range(SWEEP_EPOCHS)],
+           "member_epoch_s": epochs.seconds, "solo_epoch_s": trained["history"]["epoch_seconds"],
+           "gate_s": gates.seconds, "state_save_s": saves.seconds,
+           "best_seed": report["best_seed"],
+           "gates": [(r["gate_passed"], r["gate_violations"]) for r in report["results"]]}
+    emit(rec, results)
+    return {"report": report, "workdir": workdir, "record": rec}
+
+
+def check_sweep(torch, np, trained, swept, results):
+    """After ``sweep``'s counted window: member 0 (the training phase's
+    seed, config and epochs) read back from ``sweep_state.ckpt`` equals the
+    training phase's state bit for bit; every member's ``gan_final.ckpt``
+    loads and samples finite notes; the promoted file is the winner's."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.sampling import Sampler
+    from melogan_torch.train import gan_step
+    from melogan_torch.utils.checkpoint import load_checkpoint
+    from melogan_torch.utils.weights import load_gan_final_full, load_sweep_state
+
+    cfg, report = trained["cfg"], swept["report"]
+    members = [gan_step.init_state(cfg, gan_step.build_models(cfg, trained["ed_cfg"]), seed=s, device="cuda")
+               for s in report["seeds"]]
+    note = load_sweep_state(members, load_checkpoint(_sweep_file(cfg, swept["workdir"])))
+    differing = state_differences(torch, trained["state"], members[0])
+    if note or differing:
+        raise SystemExit(f"sweep: member 0 is not the training phase's state: {note}, {differing[:10]}")
+    notes_std = []
+    for r in report["results"]:
+        gen_sd, fe_sd, extras = load_gan_final_full(r["checkpoint"])
+        notes = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd, emotion_features=extras["emotion_features"],
+                        device="cuda").sample_notes(list(EMOTIONS), seed=0)
+        if notes.shape != (4, 512, 4) or not np.isfinite(notes).all():
+            raise SystemExit(f"sweep: {r['checkpoint']} sampled {notes.shape} or not finite")
+        notes_std.append(float(notes.std()))
+    with open(report["best_checkpoint"], "rb") as f, open(report["promoted_to"], "rb") as g:
+        if f.read() != g.read():
+            raise SystemExit("sweep: the promoted gan_final.ckpt is not the winner's")
+    emit({"phase": "sweep_check", "member0_equals_training": True, "notes_std": notes_std,
+          "promoted": os.path.relpath(report["promoted_to"], ROOT)}, results)
+
+
+def seed_sweep_resume(trained):
+    """Before ``sweep_resume``'s counted run: the same sweep for 1 epoch in
+    the resume's workdir, which leaves its ``sweep_state.ckpt`` there."""
+    import shutil
+
+    from melogan_torch.train.sweep import sweep_gan
+
+    workdir = os.path.join(WORK_DIR, "sweep_resume")
+    shutil.rmtree(workdir, ignore_errors=True)
+    sweep_gan(**_sweep_args(trained, workdir, epochs=1, promote_best=True))
+    return workdir
+
+
+def drive_sweep_resume(torch, trained, swept, workdir, results):
+    """``sweep_resume``: ``sweep_gan(resume=True)`` from the 1-epoch sweep's
+    state to epoch 2; the members, their finals and the state file must be
+    ``sweep``'s bit for bit."""
+    from melogan_torch.train.sweep import sweep_gan
+
+    t0 = time.perf_counter()
+    report = sweep_gan(**_sweep_args(trained, workdir, epochs=SWEEP_EPOCHS, promote_best=True, resume=True))
+    wall = time.perf_counter() - t0
+    cfg, straight = trained["cfg"], swept["report"]
+    same = {"curves": [r["curve"] for r in report["results"]] == [r["curve"] for r in straight["results"]]}
+    for name, a, b in [("finals", [r["checkpoint"] for r in report["results"]],
+                        [r["checkpoint"] for r in straight["results"]]),
+                       ("state", [_sweep_file(cfg, workdir)], [_sweep_file(cfg, swept["workdir"])])]:
+        same[name] = all(_bytes(x) == _bytes(y) for x, y in zip(a, b))
+    rec = {"phase": "sweep_resume", "wall_s": wall, "resumed_from_epoch": 1, "bit_identical": all(same.values()),
+           **{f"same_{k}": v for k, v in same.items()}}
+    emit(rec, results)
+    if not rec["bit_identical"]:
+        raise SystemExit(f"sweep_resume is not the sweep done in one go: {same}")
+    return rec
+
+
+def drive_sweep_halving(torch, np, trained, results):
+    """``sweep_halving``: the 4 members in rungs of 1 epoch for 3 epochs
+    (4 → 2 → 1), each rung gated; rung sizes, survivors and the report
+    checked."""
+    import shutil
+
+    from melogan_torch.train import sweep
+
+    workdir = os.path.join(WORK_DIR, "sweep_halving")
+    shutil.rmtree(workdir, ignore_errors=True)
+    args = _sweep_args(trained, workdir, epochs=HALVING_EPOCHS, halving=True, rung_epochs=1)
+    t0 = time.perf_counter()
+    with _Timed(sweep, "gate_member") as gates:
+        report = sweep.sweep_gan(**args)
+    wall = time.perf_counter() - t0
+    rungs = report.get("rungs", [])
+    sizes = [len(r["members"]) for r in rungs]
+    kept = [sum(m["survived"] for m in r["members"]) for r in rungs]
+    (winner,) = report["results"]
+    with open(os.path.join(os.path.dirname(os.path.dirname(winner["checkpoint"])), "sweep_report.json")) as f:
+        on_disk = json.load(f)
+    if sizes != [4, 2] or kept != [2, 1] or [row["epoch"] for row in winner["curve"]] != [1, 2, 3] \
+            or on_disk["rungs"] != rungs or not all(np.isfinite(v) for row in winner["curve"] for v in row.values()):
+        raise SystemExit(f"sweep_halving: rungs {sizes}, kept {kept}, winner curve {winner['curve']}")
+    rec = {"phase": "sweep_halving", "wall_s": wall, "rung_sizes": sizes, "survivors": kept,
+           "winner_seed": winner["seed"], "winner_hyper": winner["hyper"], "gate_s": gates.seconds,
+           "rungs": [[(m["member"], m["gate_passed"], m["gate_violations"], m["survived"]) for m in r["members"]]
+                     for r in rungs]}
+    emit(rec, results)
+    return rec
+
+
+def measure_sweep_state(torch, np, trained, swept, results):
+    """``sweep_state``, outside any counted path: the size of ``sweep``'s
+    ``sweep_state.ckpt`` (4 members at full width), its ``load_checkpoint``
+    and ``save_checkpoint`` seconds (a load and a save must give the same
+    bytes), and the seconds ``load_sweep_state`` takes to put it into 4
+    card states and ``export_sweep_state`` to take it back out."""
+    from melogan_torch.train import gan_step
+    from melogan_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from melogan_torch.utils.weights import export_sweep_state, load_sweep_state
+
+    cfg = trained["cfg"]
+    path = _sweep_file(cfg, swept["workdir"])
+    t0 = time.perf_counter()
+    raw = load_checkpoint(path)
+    t1 = time.perf_counter()
+    copy = os.path.join(WORK_DIR, "resaved_sweep_state.ckpt")
+    save_checkpoint(copy, raw)
+    t2 = time.perf_counter()
+    with open(path, "rb") as f, open(copy, "rb") as g:
+        if f.read() != g.read():
+            raise SystemExit(f"{path}: a load and save does not give the same bytes")
+    os.remove(copy)
+    seeds = swept["report"]["seeds"]
+    states = [gan_step.init_state(cfg, gan_step.build_models(cfg, trained["ed_cfg"]), seed=s, device="cuda")
+              for s in seeds]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    load_sweep_state(states, raw)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    export_sweep_state(states, seeds)
+    t5 = time.perf_counter()
+    rec = {"phase": "sweep_state", "file": os.path.relpath(path, ROOT), "members": len(seeds),
+           "mb": os.path.getsize(path) / 1e6, "load_s": t1 - t0, "save_s": t2 - t1,
+           "load_sweep_state_s": t4 - t3, "export_sweep_state_s": t5 - t4,
+           "in_run_save_s": swept["record"]["state_save_s"]}
+    emit(rec, results)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1636,10 +1906,30 @@ def main() -> int:
     served, reloading = drive("serve_reload", lambda: drive_serve_reload(torch, np, gan, trained, results),
                               ("decoder_tail",))
     check_served_weights(np, gan, served, reloading, results)
+    # the population sweep: 4 members on the training phase's corpus and config
+    swept, sweeping = drive("sweep", lambda: drive_sweep(torch, np, trained, results),
+                            ("conv1d", "convt1d", "decoder_tail"))
+    check_sweep(torch, np, trained, swept, results)
+    sweep_state = measure_sweep_state(torch, np, trained, swept, results)
+    sweep_resume_dir = seed_sweep_resume(trained)
+    _, sweep_resuming = drive("sweep_resume",
+                              lambda: drive_sweep_resume(torch, trained, swept, sweep_resume_dir, results),
+                              ("conv1d", "convt1d", "decoder_tail"))
+    _, sweep_halving = drive("sweep_halving", lambda: drive_sweep_halving(torch, np, trained, results),
+                                   ("conv1d", "convt1d", "decoder_tail"))
+    k = len(SWEEP_GRID)
+    sweep_want = {"sweep": (sweeping, sweep_counts(trained["cfg"], k * SWEEP_EPOCHS, k)),
+                  "sweep_resume": (sweep_resuming, sweep_counts(trained["cfg"], k * (SWEEP_EPOCHS - 1), k)),
+                  "sweep_halving": (sweep_halving, sweep_counts(trained["cfg"], k + k // 2 + 1, k + k // 2 + 1))}
+    for name, (got, predicted) in sweep_want.items():
+        if got != predicted:
+            raise SystemExit(f"{name} launches {got}, predicted {predicted}")
     path_names = ("sampling", "training", "resume", "serve_ckpt", "data", "vae_train", "vae_resume", "encode",
-                  "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload")
+                  "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload",
+                  "sweep", "sweep_resume", "sweep_halving")
     paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
-             conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading)
+             conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading,
+             sweeping, sweep_resuming, sweep_halving)
     launches = {k: sum(p[k] for p in paths) for k in wrappers}
 
     big_d, big_c = dec[MAIN_BATCH, 64], cvt[CONVT_BATCHES[-1]]  # batch 4096
@@ -1685,7 +1975,13 @@ def main() -> int:
           "vae_conv1d_b32_ms": sum(r["kernel_ms"] for r in vae_kernels["conv1d"] if r["batch"] == 32),
           "vae_convt1d_b32_ms": sum(r["kernel_ms"] for r in vae_kernels["convt1d"] if r["batch"] == 32),
           "ed_step_median_ms": ed_step["step_median_ms"], "ed_step_bound_ms": ed_step["step_bound_ms"],
-          "ed_train_predicted_launches": want, "launches_by_path": dict(zip(path_names, paths))},
+          "ed_train_predicted_launches": want,
+          "sweep_population_epoch_s": swept["record"]["population_epoch_s"],
+          "sweep_solo_epoch_s": swept["record"]["solo_epoch_s"],
+          "sweep_state_mb": sweep_state["mb"], "sweep_state_save_s": sweep_state["save_s"],
+          "sweep_state_load_s": sweep_state["load_s"], "sweep_gate_s": swept["record"]["gate_s"],
+          "sweep_predicted_launches": {name: predicted for name, (_, predicted) in sweep_want.items()},
+          "launches_by_path": dict(zip(path_names, paths))},
          results)
     line = {"kernels": kernels}
     results.append(line)

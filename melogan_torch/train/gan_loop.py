@@ -14,6 +14,8 @@ at each of those epochs that keeps the best weights as ``gan_best.ckpt``;
 at the end ``gan_final.pth`` (reference layout) and ``gan_final.ckpt`` (JAX
 layout) with ``emotion_features`` and, when EMA is on, ``G_ema``.
 ``load_gan_final`` / ``load_gan_final_full`` read either file for sampling.
+``run_epoch`` is one epoch's body, which the population sweep
+(``train/sweep.py``) runs for each member.
 
 bf16 training (``precision``) and the data-parallel mesh are not ported yet.
 """
@@ -30,7 +32,6 @@ from melogan_torch.config import EDConfig, GANConfig
 from melogan_torch.data.datasets import SplitData, epoch_group_indices
 from melogan_torch.device import resolve_device
 from melogan_torch.train import gan_step
-from melogan_torch.train.sweep import gate_member
 from melogan_torch.utils import weights
 from melogan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from melogan_torch.utils.metrics import MetricsWriter
@@ -60,6 +61,51 @@ def _epoch_scalars(m: Dict[str, float], n_groups: int, n_steps: int) -> Dict[str
     if "loss_g_fm" in m:
         scalars["Loss/Generator_FM"] = m["loss_g_fm"] / n_groups
     return scalars
+
+
+def device_gather(arrays, dev: torch.device):
+    """The corpus arrays on ``dev``, and ``gather(idx)``: the rows ``idx``
+    (any index array) of each, gathered on the device."""
+    data = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in arrays)
+
+    def gather(idx: np.ndarray):
+        i = torch.as_tensor(idx, device=dev)
+        return tuple(a[i] for a in data)
+
+    return gather
+
+
+def run_epoch(steps: gan_step.TrainStepFns, state: gan_step.GANTrainState, gather, gi, ti):
+    """One epoch of ``epoch_group_indices``' cut: a group step for each row
+    of ``gi`` (``critic_iters`` critic updates and one generator update),
+    then one critic-only tail step over ``ti``. Returns ``(state, sums,
+    n_groups, n_steps)``: ``sums`` are the step metrics summed over the
+    epoch as host floats (one sync), with ``gp_mean`` the mean over every
+    critic update, or None when the epoch has no batch; ``n_steps``
+    counts critic updates."""
+    if gi is None and ti is None:
+        return state, None, 0, 0
+    sums: Dict[str, torch.Tensor] = {}
+    gps = []
+    for g in (gi if gi is not None else []):
+        state, m = steps.group(state, gather(g))
+        gps.append(m.pop("gp_mean"))
+        for k, v in m.items():
+            sums[k] = sums[k] + v if k in sums else v
+    n_group = 0 if gi is None else gi.shape[0] * gi.shape[1]
+    gp = torch.stack(gps).mean() if gps else None
+    if ti is not None:
+        state, tm = steps.tail(state, gather(ti))
+        for k in ("loss_d_sum", "d_real_sum", "d_fake_sum"):
+            sums[k] = sums[k] + tm[k] if k in sums else tm[k]
+        # fold the tail's gp into the mean by critic-update counts
+        n_tail = ti.shape[0]
+        gp = tm["gp_mean"] if gp is None else (gp * n_group + tm["gp_mean"] * n_tail) / float(
+            n_group + n_tail)
+    sums["gp_mean"] = gp
+    n_groups = 0 if gi is None else gi.shape[0]
+    n_steps = n_group + (0 if ti is None else ti.shape[0])
+    return state, {k: float(v) for k, v in sums.items()}, n_groups, n_steps
 
 
 def save_gan_final(path: str, state: gan_step.GANTrainState, cfg: GANConfig,
@@ -169,12 +215,7 @@ def train(
             f"to the AE latent size, or re-export the latents."
         )
     # the corpus lives on the device; each step gathers its batches there
-    data = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
-                 for a in (notes, emotion_idx, latents.astype(np.float32), numeric))
-
-    def gather(idx: np.ndarray):
-        i = torch.as_tensor(idx, device=dev)
-        return tuple(a[i] for a in data)
+    gather = device_gather((notes, emotion_idx, latents.astype(np.float32), numeric), dev)
 
     gate_sampler = None
     best_gate = None  # (passed, -violations) of gan_best.ckpt
@@ -199,32 +240,12 @@ def train(
     for ep in range(start_epoch, n_epochs + 1):
         t0 = time.perf_counter()
         gi, ti = epoch_group_indices(notes.shape[0], cfg.batch_size, cfg.critic_iters, rng)
-        if gi is None and ti is None:
+        state, m, n_groups, n_steps = run_epoch(steps, state, gather, gi, ti)
+        if m is None:
             scalars = {k: 0.0 for k in ("Loss/Critic", "Loss/Generator_Adv", "Loss/Generator_Emo",
                                         "Critic/Wasserstein", "Critic/d_real", "Critic/d_fake",
                                         "Critic/gp")}
         else:
-            sums: Dict[str, torch.Tensor] = {}
-            gps = []
-            for g in (gi if gi is not None else []):
-                state, m = steps.group(state, gather(g))
-                gps.append(m.pop("gp_mean"))
-                for k, v in m.items():
-                    sums[k] = sums[k] + v if k in sums else v
-            n_group = 0 if gi is None else gi.shape[0] * gi.shape[1]
-            gp = torch.stack(gps).mean() if gps else None
-            if ti is not None:
-                state, tm = steps.tail(state, gather(ti))
-                for k in ("loss_d_sum", "d_real_sum", "d_fake_sum"):
-                    sums[k] = sums[k] + tm[k] if k in sums else tm[k]
-                # fold the tail's gp into the mean by critic-update counts
-                n_tail = ti.shape[0]
-                gp = tm["gp_mean"] if gp is None else (gp * n_group + tm["gp_mean"] * n_tail) / float(
-                    n_group + n_tail)
-            sums["gp_mean"] = gp
-            m = {k: float(v) for k, v in sums.items()}  # one host sync per epoch
-            n_groups = 0 if gi is None else gi.shape[0]
-            n_steps = n_group + (0 if ti is None else ti.shape[0])
             scalars = _epoch_scalars(m, n_groups, n_steps)
         dt = time.perf_counter() - t0
         scalars = dict(scalars, epoch_seconds=dt)
@@ -243,6 +264,8 @@ def train(
                                 state, ep, emotion_features,
                                 g_ema=gan_step.ema_weights(state, cfg.ema_decay)))
         if track_best and (ep % cfg.save_freq == 0 or ep == n_epochs):
+            from melogan_torch.train.sweep import gate_member
+
             gate_dir = os.path.join(workdir or ".", cfg.sample_dir, f"gate_epoch{ep:04d}")
             passed, total, violations, _, _, gate_sampler = gate_member(
                 cfg, state, cfg.seed + ep, gate_dir, gate_samples_per_emotion, gate_sampler,

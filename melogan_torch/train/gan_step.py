@@ -103,10 +103,42 @@ def build_models(cfg: GANConfig, ed_cfg: Optional[EDConfig] = None) -> GANModels
     )
 
 
-def make_optimizers(cfg: GANConfig, models: GANModels):
+class HyperParams(NamedTuple):
+    """One run's learning rates and loss weights, for a population member
+    that trains another configuration than ``cfg`` (``train/sweep.py``).
+
+    :func:`make_train_steps` reads the three λ's from it, and
+    :func:`init_state` (``hyper=``) sets the two learning rates in the
+    Adams' parameter groups. Both are the values a run of
+    ``dataclasses.replace(cfg, **overrides)`` would use, so a member with
+    overrides trains exactly as that solo run does, and one without
+    overrides exactly as a run of ``cfg``. Adam's state holds no learning
+    rate, so checkpoints serve both paths alike."""
+
+    lr_g: Any
+    lr_d: Any
+    lambda_gp: Any
+    lambda_emotion: Any
+    lambda_fm: Any = 0.0
+
+    @classmethod
+    def from_config(cls, cfg: GANConfig, **overrides) -> "HyperParams":
+        """Config defaults, with any of the fields overridden (a None
+        override keeps the config's value)."""
+        bad = set(overrides) - set(cls._fields)
+        if bad:
+            raise ValueError(f"unknown hyperparams {sorted(bad)}; "
+                             f"valid: {list(cls._fields)}")
+        vals = {f: getattr(cfg, f) for f in cls._fields}
+        vals.update({k: v for k, v in overrides.items() if v is not None})
+        return cls(**vals)
+
+
+def make_optimizers(cfg: GANConfig, models: GANModels, hyper: Optional[HyperParams] = None):
+    lr_g, lr_d = (cfg.lr_g, cfg.lr_d) if hyper is None else (hyper.lr_g, hyper.lr_d)
     g_params = list(models.generator.parameters()) + list(models.feature_encoder.parameters())
-    opt_g = torch.optim.Adam(g_params, lr=cfg.lr_g, betas=(cfg.beta1, cfg.beta2), eps=1e-8)
-    opt_d = torch.optim.Adam(models.critic.parameters(), lr=cfg.lr_d,
+    opt_g = torch.optim.Adam(g_params, lr=lr_g, betas=(cfg.beta1, cfg.beta2), eps=1e-8)
+    opt_d = torch.optim.Adam(models.critic.parameters(), lr=lr_d,
                              betas=(cfg.beta1, cfg.beta2), eps=1e-8)
     return opt_g, opt_d
 
@@ -117,13 +149,15 @@ def init_state(
     seed: int = 42,
     ed_variables: Optional[Dict[str, Any]] = None,
     device="cuda",
+    hyper: Optional[HyperParams] = None,
 ) -> GANTrainState:
     """Initialize weights from ``seed`` (the reference's N(0, 0.02) for G,
     the feature encoder and the critic; torch's default for the ED), move
     everything to ``device`` and build the optimizers. ``ed_variables``: a
     pre-trained ED as a reference-layout state dict (``ed_best.pth``, or
     ``utils.weights.export_ed`` of JAX variables); without it the ED is
-    random, as the reference warns and proceeds (train_gan.py:128-129)."""
+    random, as the reference warns and proceeds (train_gan.py:128-129).
+    ``hyper``: the Adams take its learning rates instead of the config's."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         # IEEE f32 as the JAX package's Precision.HIGHEST: no TF32 in cuBLAS,
@@ -150,7 +184,7 @@ def init_state(
     models.feature_encoder.train()
     models.critic.train()
     models.ed.eval().requires_grad_(False)
-    opt_g, opt_d = make_optimizers(cfg, models)
+    opt_g, opt_d = make_optimizers(cfg, models, hyper)
     ema = None
     if cfg.ema_decay:
         ema = {n: torch.zeros_like(p) for n, p in models.generator.named_parameters()}
@@ -326,14 +360,20 @@ class TrainStepFns(NamedTuple):
     tail: Callable
 
 
-def make_train_steps(cfg: GANConfig, fm_target=None, fm_ed_target=None) -> TrainStepFns:
+def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
+                     fm_target=None, fm_ed_target=None) -> TrainStepFns:
     """Build the step functions. ``fm_target`` / ``fm_ed_target``: the
     ``(targets, scale)`` pairs of :func:`fm_targets_from_data` /
     :func:`fm_ed_targets_from_data`; ``cfg.lambda_fm > 0`` needs at least
-    one. Metrics are 0-d tensors on the state's device, with the JAX
+    one. ``hyper``: the loss weights λ_gp, λ_emotion and λ_fm come from it
+    instead of the config (its learning rates are the state's, see
+    :func:`init_state`); as in the JAX package, the λ_fm check is then
+    skipped. Metrics are 0-d tensors on the state's device, with the JAX
     package's keys."""
     fm_on, fm_ed_on = fm_target is not None, fm_ed_target is not None
-    if cfg.lambda_fm and not (fm_on or fm_ed_on):
+    src = cfg if hyper is None else hyper
+    lambda_gp, lambda_emo, lambda_fm = src.lambda_gp, src.lambda_emotion, src.lambda_fm
+    if hyper is None and cfg.lambda_fm and not (fm_on or fm_ed_on):
         raise ValueError(
             "cfg.lambda_fm > 0 requires fm_target / fm_ed_target — compute "
             "them from the training corpus with fm_targets_from_data() / "
@@ -387,7 +427,7 @@ def make_train_steps(cfg: GANConfig, fm_target=None, fm_ed_target=None) -> Train
             dr = critic(real, emb).mean()
             df = critic(fake, emb).mean()
             gp = gradient_penalty(critic, real, fake, emb, alpha)
-        loss = df - dr + cfg.lambda_gp * gp
+        loss = df - dr + lambda_gp * gp
         _apply(state.opt_d, list(critic.parameters()), loss)
         return loss.detach(), gp.detach(), dr.detach(), df.detach()
 
@@ -406,7 +446,7 @@ def make_train_steps(cfg: GANConfig, fm_target=None, fm_ed_target=None) -> Train
         else:
             logits = ed(ed_in)
         emo = cross_entropy(logits, emot_idx)
-        loss = adv + cfg.lambda_emotion * emo
+        loss = adv + lambda_emo * emo
         fm = torch.zeros((), device=notes.device)
         if fm_on:
             phi = note_space_stats(notes)
@@ -419,7 +459,7 @@ def make_train_steps(cfg: GANConfig, fm_target=None, fm_ed_target=None) -> Train
             dfe = (ed_feats - mu[emot_idx]) / scale
             fm = fm + dfe.square().sum(dim=-1).mean() / dfe.shape[-1]
         if fm_on or fm_ed_on:
-            loss = loss + cfg.lambda_fm * fm
+            loss = loss + lambda_fm * fm
         params = list(state.generator.parameters()) + list(state.feature_encoder.parameters())
         _apply(state.opt_g, params, loss)
         return adv.detach(), emo.detach(), fm.detach()

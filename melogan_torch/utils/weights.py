@@ -24,7 +24,9 @@ included; ``export_vae_payload`` / ``load_vae_payload`` do the same for the
 VAE loop's ``ae_best.ckpt`` (``melogan_tpu/train/vae_loop.py:556-578``), and
 ``export_ed_payload`` / ``load_ed_payload`` for the ED loop's
 ``ed_epochNNNN.ckpt`` and ``ed_best.ckpt``
-(``melogan_tpu/train/ed_loop.py:446-500``).
+(``melogan_tpu/train/ed_loop.py:446-500``), and ``export_sweep_state`` /
+``load_sweep_state`` for a population's ``sweep_state.ckpt``
+(``melogan_tpu/train/sweep.py:443-465``).
 ``read_gan_final`` / ``write_gan_final`` read and write a ``gan_final`` in
 either format, by suffix: ``.pth`` (the reference layout) or ``.ckpt`` (the
 JAX layout). Convert one into the other with
@@ -527,6 +529,115 @@ def load_train_payload(state, raw: Mapping[str, Any], ema_decay: float) -> Tuple
             for name, e in state.ema_params.items():
                 e.copy_(src[name])
     return int(np.asarray(raw["epoch"])), _rng_note(state.rng, raw)
+
+
+# ---------------------------------------------------------------------------
+# The population sweep's sweep_state.ckpt
+# ---------------------------------------------------------------------------
+
+
+def _stack(trees):
+    """Trees of one structure → one tree, each leaf stacked on a new leading
+    axis; None stays None."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if first is None:
+        return None
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def _member(tree, k: int):
+    """Member ``k`` of a stacked tree."""
+    if isinstance(tree, dict):
+        return {key: _member(v, k) for key, v in tree.items()}
+    if tree is None:
+        return None
+    return np.asarray(tree)[k]
+
+
+def _bn_counts(module: nn.Module) -> Dict[str, np.ndarray]:
+    return {k: v for k, v in _state_np(module).items() if k.endswith("num_batches_tracked")}
+
+
+def _sweep_member_state(state, seed: int) -> Dict[str, Any]:
+    """One member as the state dict of the JAX package's ``GANTrainState``.
+    ``rng`` is JAX's ``PRNGKey(seed + 1)``, ``[0, seed + 1]``: the key its
+    ``init_state`` starts the member's stream from."""
+    g = convert_generator(_state_np(state.generator))
+    ed_sd = _state_np(state.ed)
+    ed = convert_ed(ed_sd, *_ed_layout(ed_sd))
+    return {
+        "step": np.asarray(state.step, np.int32),
+        "gen_params": g["params"],
+        "gen_stats": g["batch_stats"],
+        "fe_params": _fe_params(_state_np(state.feature_encoder)),
+        "critic_params": convert_critic(_state_np(state.critic))["params"],
+        "ed_params": ed["params"],
+        "ed_stats": ed.get("batch_stats", {}),
+        "opt_g": _adam_to_optax(state.opt_g, (state.generator, state.feature_encoder),
+                                lambda t: {"0": _gen_params(t[0]), "1": _fe_params(t[1])}),
+        "opt_d": _adam_to_optax(state.opt_d, (state.critic,),
+                                lambda t: convert_critic(t[0])["params"]),
+        "rng": np.asarray([0, int(seed) + 1], np.uint32),
+        "ema_params": (None if state.ema_params is None
+                       else _gen_params({k: _np(v) for k, v in state.ema_params.items()})),
+    }
+
+
+def export_sweep_state(states, seeds) -> Dict[str, Any]:
+    """A population of the port's training states (member ``k`` trained
+    from ``seeds[k]``) as the JAX sweep's ``sweep_state.ckpt`` without its
+    ``meta``: ``state`` holds the fields of JAX's ``GANTrainState``, each
+    stacked on a leading member axis (``opt_g``/``opt_d`` in optax's adam
+    layout, ``ema_params`` the raw stream or None). The members'
+    ``torch.Generator`` states, (K, n) uint8, and the generators'
+    BatchNorm ``num_batches_tracked``, (K,) each, go under top-level keys
+    of the port's own, which JAX's loader does not read."""
+    return {
+        "state": _stack([_sweep_member_state(s, seed) for s, seed in zip(states, seeds)]),
+        TORCH_RNG_KEY: np.stack([s.rng.get_state().numpy() for s in states]),
+        TORCH_BN_KEY: _stack([_bn_counts(s.generator) for s in states]),
+    }
+
+
+def load_sweep_state(states, raw: Mapping[str, Any]) -> Optional[str]:
+    """Restore a ``sweep_state.ckpt`` (the port's or the JAX sweep's) into
+    the population ``states`` in place, member ``k`` from row ``k``:
+    weights, BatchNorm statistics, the frozen ED, both Adams, ``step`` and
+    the EMA stream; from a port file also the ``torch.Generator`` states
+    and ``num_batches_tracked``. The ED keeps its own
+    ``num_batches_tracked``, which JAX's tree has no slot for. Keys and
+    shapes are checked first (a ValueError names the key). Returns a note
+    when the file's random streams could not be taken over, else None."""
+    want = export_sweep_state(states, [0] * len(states))
+    check_tree(want["state"], raw["state"], "/state")
+    notes = []
+    for k, state in enumerate(states):
+        m = _member(raw["state"], k)
+        gen_sd = export_generator({"params": m["gen_params"], "batch_stats": m["gen_stats"]})
+        gen_sd.update({name: np.asarray(v)[k] for name, v in raw.get(TORCH_BN_KEY, {}).items()})
+        _load_module(state.generator, gen_sd)
+        _load_module(state.critic, export_critic({"params": m["critic_params"]}))
+        _load_module(state.feature_encoder, export_feature_encoder({"params": m["fe_params"]}))
+        ed_vars = {"params": m["ed_params"]}
+        if m["ed_stats"]:
+            ed_vars["batch_stats"] = m["ed_stats"]
+        ed_sd = export_ed(ed_vars)
+        ed_sd.update(_bn_counts(state.ed))
+        _load_module(state.ed, ed_sd)
+        _load_adam(state.opt_g, m["opt_g"], (state.generator, state.feature_encoder),
+                   lambda t: (export_generator({"params": t["0"]}), export_feature_encoder({"params": t["1"]})))
+        _load_adam(state.opt_d, m["opt_d"], (state.critic,), lambda t: (export_critic({"params": t}),))
+        state.step = int(m["step"])
+        if state.ema_params is not None:
+            src = to_tensors(export_generator({"params": m["ema_params"]}))
+            with torch.no_grad():
+                for name, e in state.ema_params.items():
+                    e.copy_(src[name])
+        rng = {TORCH_RNG_KEY: np.asarray(raw[TORCH_RNG_KEY])[k]} if TORCH_RNG_KEY in raw else {}
+        notes.append(_rng_note(state.rng, rng))
+    return next((n for n in notes if n), None)
 
 
 # ---------------------------------------------------------------------------

@@ -433,3 +433,107 @@ def test_ed_step_and_evaluate_on_card_match_cpu(cuda, rng):
     assert conv1d_cuda.launches == before + 4
     assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
     assert (a["confusion"], a["n"]) == (b["confusion"], n) and gpu.model.training
+
+
+# ---------------------------------------------------------------------------
+# The population sweep on the card
+# ---------------------------------------------------------------------------
+
+SWEEP_KW = dict(max_notes=64, batch_size=8, noise_dim=16, latent_dim=8, gen_hidden=32, save_freq=1)
+SWEEP_ED = dict(max_notes=64, notes_blocks=2, notes_hidden=32, mlp_hidden=(16,))
+
+
+def _sweep_corpus(rng, n=8 * 7 + 3):
+    """A SplitData at the small width above: at batch 8, one group of 5 and
+    a 2-batch tail an epoch."""
+    from melogan_torch.data.datasets import SplitData
+
+    pitch = rng.uniform(20, 110, (n, 64))
+    raw = np.stack([pitch, np.cumsum(rng.uniform(0, 1, (n, 64)), 1), rng.uniform(0, 3, (n, 64)),
+                    rng.uniform(0, 127, (n, 64))], -1).astype(np.float32)
+    emotions = np.array(["happy", "sad", "angry", "calm"])[rng.integers(0, 4, n)]
+    return SplitData(raw, emotions, rng.normal(size=(n, 6)).astype(np.float32), [])
+
+
+def _sweep(tmp_path, data, seeds, **kw):
+    from melogan_torch.config import EDConfig
+    from melogan_torch.train.sweep import sweep_gan
+
+    return sweep_gan(GANConfig(**SWEEP_KW), EDConfig(**SWEEP_ED), data, seeds, workdir=str(tmp_path),
+                     verbose=False, samples_per_emotion=1, device="cuda", **kw)
+
+
+def _state_file(workdir):
+    return workdir / "experiments" / "gan" / "sweep" / "sweep_state.ckpt"
+
+
+def _same_state(a, b, what):
+    for name in ("generator", "feature_encoder", "critic", "ed"):
+        for (k, v), (_, w) in zip(getattr(a, name).state_dict().items(), getattr(b, name).state_dict().items()):
+            assert torch.equal(v, w), f"{what}: {name}.{k}"
+    for opt in ("opt_g", "opt_d"):
+        oa, ob = getattr(a, opt), getattr(b, opt)
+        for pa, pb in zip(oa.param_groups[0]["params"], ob.param_groups[0]["params"]):
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(oa.state[pa][k], ob.state[pb][k]), f"{what}: {opt} {k}"
+    assert a.step == b.step and torch.equal(a.rng.get_state(), b.rng.get_state()), what
+
+
+def test_sweep_members_on_card_are_solo_card_runs(cuda, rng, tmp_path):
+    """K = 2 on the card, with a grid: each member, read back from the
+    sweep's ``sweep_state.ckpt`` into fresh card states, equals a solo
+    ``train()`` on the card with its seed and overrides, bit for bit (the
+    training state turns ``cudnn.deterministic`` on), and both conv kernels
+    and the decoder tail (the gates) launched."""
+    import dataclasses
+
+    from melogan_torch.config import EDConfig
+    from melogan_torch.train import gan_loop, gan_step
+    from melogan_torch.utils.checkpoint import load_checkpoint
+    from melogan_torch.utils.weights import load_sweep_state
+
+    data = _sweep_corpus(rng)
+    grid = [{}, {"lr_g": 1e-4, "lambda_emotion": 0.5}]
+    before = (conv1d_cuda.launches, convt1d_cuda.launches, decoder_tail_cuda.launches)
+    report = _sweep(tmp_path / "sweep", data, [5, 5], epochs=2, hyper_grid=grid)
+    assert conv1d_cuda.launches > before[0] and convt1d_cuda.launches > before[1]
+    assert decoder_tail_cuda.launches == before[2] + 2  # one gate a member
+    cfg = GANConfig(**SWEEP_KW)
+    members = [gan_step.init_state(cfg, gan_step.build_models(cfg, EDConfig(**SWEEP_ED)), seed=5, device="cuda")
+               for _ in grid]
+    assert load_sweep_state(members, load_checkpoint(str(_state_file(tmp_path / "sweep")))) is None
+    for k, over in enumerate(grid):
+        solo, hist = gan_loop.train(dataclasses.replace(cfg, seed=5, **over), EDConfig(**SWEEP_ED), data,
+                                    workdir=str(tmp_path / f"solo{k}"), epochs=2, verbose=False, device="cuda")
+        _same_state(solo, members[k], f"member {k}")
+        row = report["results"][k]["final"]
+        assert all(row[key] == hist[key] for key in row if key != "epoch"), (row, hist)
+
+
+def test_sweep_resume_on_card_is_bit_identical(cuda, rng, tmp_path):
+    """2 epochs in one go against 1 epoch, then a resume to 2, on the card:
+    the same curves, member finals and ``sweep_state.ckpt``, byte for byte."""
+    data = _sweep_corpus(rng)
+    straight = _sweep(tmp_path / "a", data, [3, 4], epochs=2)
+    _sweep(tmp_path / "b", data, [3, 4], epochs=1)
+    resumed = _sweep(tmp_path / "b", data, [3, 4], epochs=2, resume=True)
+    for rs, rr in zip(straight["results"], resumed["results"]):
+        assert rs["curve"] == rr["curve"]
+        with open(rs["checkpoint"], "rb") as f, open(rr["checkpoint"], "rb") as g:
+            assert f.read() == g.read()
+    assert _state_file(tmp_path / "a").read_bytes() == _state_file(tmp_path / "b").read_bytes()
+
+
+def test_sweep_halving_on_card(cuda, rng, tmp_path):
+    """K = 4, rungs of 1 epoch, 3 epochs on the card: populations 4 → 2 → 1,
+    the winner's curve over all 3 epochs, 4 + 2 + 1 gates (one
+    ``decoder_tail`` launch each)."""
+    data = _sweep_corpus(rng)
+    before = decoder_tail_cuda.launches
+    report = _sweep(tmp_path, data, [1, 2, 3, 4], epochs=3, halving=True, rung_epochs=1)
+    assert decoder_tail_cuda.launches == before + 7
+    assert [len(r["members"]) for r in report["rungs"]] == [4, 2]
+    assert [sum(m["survived"] for m in r["members"]) for r in report["rungs"]] == [2, 1]
+    (winner,) = report["results"]
+    assert [row["epoch"] for row in winner["curve"]] == [1, 2, 3]
+    assert all(np.isfinite(v) for row in winner["curve"] for v in row.values())

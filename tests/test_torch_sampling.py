@@ -221,7 +221,7 @@ def test_port_imports_nothing_of_jax():
         "        'melogan_torch.utils.yaml_subset', 'melogan_torch.data.npz', 'melogan_torch.data.scaler',\n"
         "        'melogan_torch.data.splits', 'melogan_torch.data.synthetic', 'melogan_torch.data.augment',\n"
         "        'melogan_torch.train.ed_loop', 'melogan_torch.diagnostics.judge',\n"
-        "        'melogan_torch.serving.pool', 'melogan_torch.serving.metrics'}\n"
+        "        'melogan_torch.serving.pool', 'melogan_torch.serving.metrics', 'melogan_torch.train.sweep'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "assert len(mods) >= 50, mods\n"
         "assert not bad, bad\n"
