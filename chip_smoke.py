@@ -102,8 +102,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     1 epoch for 3 epochs: 4 → 2 → 1 members); between them, outside any
     counted path, ``sweep_state`` reads the file's size, its load and save
     seconds and those of ``load_sweep_state``/``export_sweep_state``;
-14. prints the ``kernels`` JSON line (launches summed over every driven
-    path), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+14. the bf16 slice: before the paths, ``kernels_bf16`` holds both conv
+    kernels' one-pass bf16 mode against their plain versions
+    (``bf16=True``) at the decoder's, the ED's and the VAE's layers and as
+    each other's input gradient at batch 32, timed beside the f32 mode and
+    cuDNN on bf16 tensors, bounds at 495 TFLOP/s; every earlier path must
+    show no bf16-mode launch (``main_path_launches_bf16``, a line a path);
+    then, each with the counts set to 0 first, ``sampling_fast``
+    (``Sampler(fast_math=True)`` at batch 1 and 4096: three ``convt1d``
+    launches in bf16 mode a call, no ``decoder_tail``; a
+    ``create_server(fast_math=True)`` answering three ``POST /generate``
+    whose MIDI parses), ``training_bf16`` (``gan_loop.train`` for 1 epoch,
+    ``vae_loop.train`` for 3 and ``ed_loop.train`` for 4 at
+    ``precision="bf16"``: every launch in bf16 mode, as many as the f32
+    runs of the same shape) and ``spectral`` (a sampler with a
+    spectral-norm encoder against the CPU path); between them, outside the
+    counted windows, ``fast_vs_f32`` (the fast notes against the card's f32
+    sampler and the CPU's fast path; the f32 walls) and ``bf16_steps``
+    (group, VAE and ED steps at f32 and bf16 in turns);
+15. prints the per-mode launch counts (``launches_by_mode``), the
+    ``kernels`` JSON line (launches summed over every driven path; the
+    bf16 mode of each conv kernel as an entry of its own), the nvidia-smi
+    line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing a result.
@@ -1796,6 +1816,355 @@ def measure_sweep_state(torch, np, trained, swept, results):
     return rec
 
 
+# --- the bf16 slice ---------------------------------------------------------
+
+
+def _bf16_record(torch, F, ops, results, kind, layer, b, shape, x, w, bias, geo, iters,
+                 phase="kernels_bf16"):
+    """One layer in the kernels' one-pass bf16 mode against its plain
+    version (``bf16=True``), timed beside the f32 mode and beside cuDNN on
+    bf16 tensors (the yardstick: bf16 in and out, f32 sums)."""
+    from melogan_torch.utils.flops import PEAK_TF32_FLOPS
+
+    if kind == "convt1d":
+        s, p, op = geo
+        run = lambda bf16: ops["convt"].convt1d_cuda(x, w, bias, s, p, op, bf16=bf16)  # noqa: E731
+        plain = lambda: ops["convt"].convt1d_plain(x, w, bias, s, p, op, bf16=True)  # noqa: E731
+        xn, wt = x.transpose(1, 2).contiguous().bfloat16(), w.permute(1, 2, 0).contiguous().bfloat16()
+        bb = None if bias is None else bias.bfloat16()
+        library = lambda: F.conv_transpose1d(xn, wt, bb, s, p, op)  # noqa: E731
+        k = w.shape[0]
+        flops = ops["convt"].convt_flops(b, x.shape[1], x.shape[2], w.shape[2], k, s, p, op)
+    else:
+        s, p = geo
+        run = lambda bf16: ops["conv1d"].conv1d_cuda(x, w, bias, s, p, bf16=bf16)  # noqa: E731
+        plain = lambda: ops["conv1d"].conv1d_plain(x, w, bias, s, p, bf16=True)  # noqa: E731
+        xn, wt = x.transpose(1, 2).contiguous().bfloat16(), w.permute(2, 1, 0).contiguous().bfloat16()
+        bb = None if bias is None else bias.bfloat16()
+        library = lambda: F.conv1d(xn, wt, bb, s, p)  # noqa: E731
+        flops = ops["conv1d"].conv1d_flops(b, x.shape[1], x.shape[2], w.shape[2], w.shape[0], s, p)
+    out32 = run(False)
+    out = run(True)
+    ref = plain()
+    again32 = run(False)
+    torch.cuda.synchronize()
+    err, rel = compare(out, ref, f"{kind} bf16 {layer} B={b}")
+    if not torch.equal(again32, out32):
+        raise SystemExit(f"{kind} {layer} B={b}: the f32 mode moved after a bf16 launch")
+    diff = float((out - out32).abs().max()) / max(float(out32.abs().max()), 1e-30)
+    if not diff > 0:
+        raise SystemExit(f"{kind} {layer} B={b}: bf16 equals f32, the mode was not honoured")
+    nbytes = 4 * (x.numel() + w.numel() + (0 if bias is None else bias.numel()) + out.numel())
+    rec = {
+        "phase": phase, "kernel": kind, "mode": "bf16", "layer": layer, "batch": b, "shape": shape,
+        "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL, "rel_diff_from_f32": diff,
+        "kernel_ms": time_ms(torch, lambda: run(True), iters),
+        "f32_kernel_ms": time_ms(torch, lambda: run(False), iters),
+        "plain_ms": time_ms(torch, plain, iters),
+        "library_ms": time_ms(torch, library, iters),
+        **bound(flops, nbytes, PEAK_TF32_FLOPS), "flops": flops, "bytes": nbytes,
+    }
+    emit(rec, results)
+    return rec
+
+
+def check_bf16_kernels(torch, F, ops, gen, results):
+    """``kernels_bf16``: both conv kernels in the one-pass bf16 mode against
+    their plain versions (``bf16=True``) at the decoder's layers (batch 1,
+    32 and 4096), the ED's (32, 64, 1024), the VAE's (32, 256) and, at 32,
+    as the other conv's input gradient; each timed beside its f32 mode and
+    cuDNN on bf16 tensors; bounds at the dense TF32 rate (495 TFLOP/s). The
+    f32 mode's result must not move after the bf16 launches, and the bf16
+    result must differ from it."""
+    recs = {"convt1d": [], "conv1d": []}
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(shape, device="cuda", generator=gen)
+
+    for b in CONVT_BATCHES:
+        for i, (l, cin, cout) in enumerate(CONVT_LAYERS):
+            x, w, bias = rand(b, l, cin), rand(5, cin, cout, scale=(5 * cin) ** -0.5), rand(cout, scale=0.1)
+            recs["convt1d"].append(_bf16_record(torch, F, ops, results, "convt1d", f"dec{i + 1}", b,
+                                                [b, l, cin, cout], x, w, bias, (2, 2, 1),
+                                                20 if b > 64 else 100))
+    for b in (TRAIN_BATCH, ED_BATCH, 1024):
+        for l, cin, cout, k, s, p, name in ED_LAYERS:
+            x, w, bias = rand(b, l, cin), rand(k, cin, cout, scale=(k * cin) ** -0.5), rand(cout, scale=0.1)
+            recs["conv1d"].append(_bf16_record(torch, F, ops, results, "conv1d", name, b,
+                                               [b, l, cin, cout, k, s, p], x, w, bias, (s, p),
+                                               10 if b > 64 else 50))
+    for b in VAE_BATCHES:
+        for l, cin, cout, k, s, p, name in VAE_ENCODER:
+            x, w, bias = rand(b, l, cin), rand(k, cin, cout, scale=(k * cin) ** -0.5), rand(cout, scale=0.1)
+            recs["conv1d"].append(_bf16_record(torch, F, ops, results, "conv1d", f"vae_{name}", b,
+                                               [b, l, cin, cout, k, s, p], x, w, bias, (s, p), 50))
+        for i, (l, cin, cout) in enumerate(VAE_DECODER):
+            x, w, bias = rand(b, l, cin), rand(5, cin, cout, scale=(5 * cin) ** -0.5), rand(cout, scale=0.1)
+            recs["convt1d"].append(_bf16_record(torch, F, ops, results, "convt1d", f"vae_dec{i + 1}", b,
+                                                [b, l, cin, cout], x, w, bias, (2, 2, 1), 50))
+    # the input gradients at the training batch: conv1d's runs convt1d on
+    # (g, wᵀ), convT's runs conv1d on (g, wᵀ)
+    for (l, cin, cout, k, s, p, op), transposed, name in BACKWARD_LAYERS:
+        w = rand(k, cin, cout, scale=(k * cin) ** -0.5)
+        wT = w.transpose(1, 2).contiguous()
+        if transposed:
+            g = rand(TRAIN_BATCH, (l - 1) * s - 2 * p + k + op, cout)
+            recs["conv1d"].append(_bf16_record(torch, F, ops, results, "conv1d", f"dx_{name}", TRAIN_BATCH,
+                                               list(g.shape), g, wT, None, (s, p), 50))
+        else:
+            lout = (l + 2 * p - k) // s + 1
+            g = rand(TRAIN_BATCH, lout, cout)
+            recs["convt1d"].append(_bf16_record(torch, F, ops, results, "convt1d", f"dx_{name}", TRAIN_BATCH,
+                                                list(g.shape), g, wT, None, (s, p, (l + 2 * p - k) % s), 50))
+    return recs
+
+
+FAST_B1_CALLS = 20  # /generate's batch
+FAST_BIG_CALLS = 3
+FAST_GENERATE = 3
+
+
+def drive_sampling_fast(torch, np, results):
+    """``sampling_fast`` (counted): ``Sampler(GANConfig(), fast_math=True)``
+    at batch 1 (20 calls) and 4096 (3 calls): each call must launch
+    ``convt1d`` three times, all in bf16 mode, and ``decoder_tail`` never;
+    then ``create_server(fast_math=True)`` answering three ``POST
+    /generate`` whose MIDI parses. Every forward of a fast sampler is
+    counted, so that the phase's launches can be held to 3 a forward."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.config import GANConfig
+    from melogan_torch.midi.midifile import read_midi
+    from melogan_torch.ops import convt, decoder
+    from melogan_torch.sampling import Sampler
+    from melogan_torch.serving.app import create_server
+
+    forwards = []
+    original = Sampler._forward
+
+    def counted(self, *a, **k):
+        forwards.append(self.fast_math)
+        return original(self, *a, **k)
+
+    Sampler._forward = counted
+    try:
+        sampler = Sampler(GANConfig(), seed=0, fast_math=True, device="cuda")
+        walls = {}
+        for b, calls in ((1, FAST_B1_CALLS), (MAIN_BATCH, FAST_BIG_CALLS)):
+            emotions = [EMOTIONS[i % 4] for i in range(b)]
+            walls[b] = []
+            for seed in range(calls):
+                before = (convt.convt1d_cuda.launches, convt.convt1d_cuda.launches_bf16,
+                          decoder.decoder_tail_cuda.launches)
+                t0 = time.perf_counter()
+                notes = sampler.sample_notes(emotions, seed=seed)  # ends in a device→host copy
+                walls[b].append((time.perf_counter() - t0) * 1e3)
+                delta = (convt.convt1d_cuda.launches - before[0], convt.convt1d_cuda.launches_bf16 - before[1],
+                         decoder.decoder_tail_cuda.launches - before[2])
+                if delta != (3, 3, 0) or notes.shape != (b, 512, 4) or not np.isfinite(notes).all():
+                    raise SystemExit(f"fast sample_notes B={b}: launches (convt1d, bf16, decoder_tail) "
+                                     f"{delta}, want (3, 3, 0); notes {notes.shape}")
+        httpd, state = create_server("127.0.0.1", 0, workdir=os.path.join(WORK_DIR, "no_checkpoint"),
+                                     device="cuda", sample_pool=False, fast_math=True)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            notes_read = []
+            for emotion in EMOTIONS[:FAST_GENERATE]:
+                status, body = http(base, "/generate", json.dumps({"emotion": emotion}).encode())
+                if status != 200 or body[:4] != b"MThd":
+                    raise SystemExit(f"fast /generate {emotion}: status {status}")
+                notes_read.append(sum(len(inst.notes) for inst in read_midi(body).instruments))
+            if not state.sampler.fast_math:
+                raise SystemExit("create_server(fast_math=True) built an f32 sampler")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+    finally:
+        Sampler._forward = original
+    if not all(forwards):
+        raise SystemExit("an f32 sampler ran inside sampling_fast")
+    emit({"phase": "sampling_fast", "wall_ms_b1": walls[1], "wall_ms_b4096": walls[MAIN_BATCH],
+          "median_ms_b1": float(np.median(walls[1])), "median_ms_b4096": float(np.median(walls[MAIN_BATCH])),
+          "samples_per_s_b4096_best": MAIN_BATCH / (min(walls[MAIN_BATCH]) / 1e3),
+          "fast_forwards": len(forwards), "generate_notes_read": notes_read}, results)
+    return {"sampler": sampler, "forwards": len(forwards), "walls": walls}
+
+
+def check_fast_sampling(torch, np, fast, results):
+    """After ``sampling_fast``'s window: the fast sampler's notes against
+    the card's f32 sampler on the same weights (they must differ, within 10
+    product stages of 2⁻⁸: the encoder's 3 Linears, NoiseToLatent's 2, the
+    pre-net's 2, the decoder's 3 transposed convs) and against the port's
+    CPU fast path (the same roundings, sums in another order: within one
+    bf16 step, 2⁻⁸, of the scale), on the same features and noise; and the
+    f32 sampler's wall at 1 and 4096 beside the fast one's."""
+    from melogan_torch.sampling import Sampler
+
+    s = fast["sampler"]
+    kw = dict(gen_variables=s.generator.state_dict(), fe_variables=s.feature_encoder.state_dict())
+    f32 = Sampler(s.cfg, device="cuda", **kw)
+    cpu = Sampler(s.cfg, device="cpu", fast_math=True, **kw)
+    rng = np.random.default_rng(1)
+    feats = rng.normal(size=(16, 6)).astype(np.float32)
+    noise = rng.normal(size=(16, s.cfg.noise_dim)).astype(np.float32)
+    ours, ref32, refcpu = s.sample_from(feats, noise), f32.sample_from(feats, noise), cpu.sample_from(feats, noise)
+    scale = float(np.abs(ref32).max())
+    vs_f32 = float(np.abs(ours - ref32).max()) / scale
+    vs_cpu = float(np.abs(ours - refcpu).max()) / float(np.abs(refcpu).max())
+    if not (0 < vs_f32 <= 10 * 2.0 ** -8) or not vs_cpu <= 2.0 ** -8:
+        raise SystemExit(f"fast sampler: {vs_f32:.3e} of scale from the card's f32 sampler "
+                         f"(want 0 < x <= {10 * 2.0 ** -8:.3e}), {vs_cpu:.3e} from the CPU's fast path")
+    from melogan_torch import EMOTIONS
+
+    walls32 = {}
+    for b, calls in ((1, FAST_B1_CALLS), (MAIN_BATCH, FAST_BIG_CALLS)):
+        emotions = [EMOTIONS[i % 4] for i in range(b)]
+        f32.sample_notes(emotions, seed=0)
+        walls32[b] = []
+        for seed in range(calls):
+            t0 = time.perf_counter()
+            f32.sample_notes(emotions, seed=seed)
+            walls32[b].append((time.perf_counter() - t0) * 1e3)
+    rec = {"phase": "fast_vs_f32", "rel_err_vs_card_f32": vs_f32, "rel_err_vs_cpu_fast": vs_cpu,
+           "f32_wall_ms_b1": walls32[1], "f32_wall_ms_b4096": walls32[MAIN_BATCH],
+           "f32_median_ms_b1": float(np.median(walls32[1])),
+           "f32_median_ms_b4096": float(np.median(walls32[MAIN_BATCH]))}
+    emit(rec, results)
+    return rec
+
+
+def drive_training_bf16(torch, np, data, trained, vae, results):
+    """``training_bf16`` (counted): the three trainers as a user calls them
+    at ``precision="bf16"`` on the card: ``gan_loop.train`` for 1 epoch on
+    the training phase's corpus and config, ``vae_loop.train`` with
+    ``configs/ae.yaml`` for 3 epochs and ``ed_loop.train`` with
+    ``configs/ed.yaml`` for 4 epochs on the data phase's splits. Every
+    launch must be in bf16 mode, and the counts those of the f32 phases'
+    runs of the same shape: ``sweep_counts`` for one GAN epoch, the
+    ``vae_train`` phase's counts, ``ed_counts``. Losses finite."""
+    import shutil
+
+    from melogan_torch.train import ed_loop, gan_loop, vae_loop
+
+    rec = {"phase": "training_bf16"}
+    workdir = os.path.join(WORK_DIR, "bf16")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    state, hist = gan_loop.train(trained["cfg"], trained["ed_cfg"], trained["data"],
+                                 workdir=os.path.join(workdir, "gan"), epochs=1, verbose=False,
+                                 precision="bf16", device="cuda")
+    rec["gan_wall_s"] = time.perf_counter() - t0
+    if state.step < 1 or not all(np.isfinite(v) for v in hist.values()):
+        raise SystemExit(f"training_bf16 GAN: step {state.step}, history {hist}")
+    rec["gan_history"] = hist
+    t0 = time.perf_counter()
+    _, vm = vae_loop.train(vae["cfg"], data["train"], data["val"], workdir=os.path.join(workdir, "vae"),
+                           verbose=False, precision="bf16", device="cuda")
+    rec["vae_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, em = ed_loop.train(_ed_cfg(), data["train"], data["val"], workdir=os.path.join(workdir, "ed"),
+                          verbose=False, precision="bf16", device="cuda")
+    rec["ed_wall_s"] = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in list(vm.values()) + list(em.values())):
+        raise SystemExit(f"training_bf16: VAE {vm}, ED {em}")
+    rec.update(vae_metrics=vm, ed_metrics=em)
+    emit(rec, results)
+
+
+def time_bf16_steps(torch, np, data, vae, results):
+    """``bf16_steps``, outside any counted path: the group step (batch 32,
+    ``GANConfig()``), the VAE step (``configs/ae.yaml``) and the ED step
+    (``configs/ed.yaml``, batch 64) at f32 and at ``precision="bf16"``, in
+    turns (f32, bf16, bf16, f32), 5 steps each after a first, host clock
+    around steps that end in a synchronize; each step's launches, which at
+    bf16 must all be in bf16 mode and as many as at f32."""
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.ops import conv1d, convt
+    from melogan_torch.train import ed_loop, gan_loop, gan_step, vae_loop
+    from melogan_torch.train.harness import with_precision
+
+    def counts():
+        return (conv1d.conv1d_cuda.launches, convt.convt1d_cuda.launches,
+                conv1d.conv1d_cuda.launches_bf16, convt.convt1d_cuda.launches_bf16)
+
+    def timed(step, n=5):
+        step()
+        torch.cuda.synchronize()
+        before = counts()
+        walls = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        per = [(a - b) / n for a, b in zip(counts(), before)]
+        return walls, {"conv1d": per[0], "convt1d": per[1], "conv1d_bf16": per[2], "convt1d_bf16": per[3]}
+
+    cfgs = {}
+    for precision in (None, "bf16"):
+        cfg = gan_step.precision_tuned_cfg(GANConfig(), precision)
+        state = gan_step.init_state(cfg, gan_step.build_models(cfg, EDConfig()), seed=0, device="cuda")
+        steps = gan_loop.precision_steps(gan_step.make_train_steps(cfg), precision)
+        (batches, _), = _batches_and_draws(torch, np, cfg, state.feature_encoder, 1, ["cuda"])
+        cfgs[("group", precision)] = lambda s=state, st=steps, bt=batches: st.group(s, bt)
+        vcfg = vae["cfg"]
+        vstate = vae_loop.init_state(vcfg, seed=1, device="cuda")
+        x = torch.as_tensor(data["train"].notes_ae(vcfg)[: vcfg.batch_size], device="cuda")
+        vstep = with_precision(vae_loop.train_step, precision)
+        cfgs[("vae", precision)] = lambda s=vstate, x=x, f=vstep, c=vcfg: f(s, x, c.beta, c.free_bits)
+        ecfg = _ed_cfg()
+        estate = ed_loop.init_state(ecfg, seed=1, device="cuda")
+        xe = torch.as_tensor(data["train"].notes_gan()[:ED_BATCH], device="cuda")
+        ye = torch.as_tensor(data["train"].emotion_idx[:ED_BATCH].astype(np.int64), device="cuda")
+        estep = with_precision(ed_loop.train_step, precision)
+        cfgs[("ed", precision)] = lambda s=estate, f=estep, x=xe, y=ye: f(s, x, y)
+    rec = {"phase": "bf16_steps"}
+    for name in ("group", "vae", "ed"):
+        walls = {None: [], "bf16": []}
+        per = {}
+        for precision in (None, "bf16", "bf16", None):
+            w, per[precision] = timed(cfgs[(name, precision)])
+            walls[precision] += w
+        want = dict(per[None], conv1d_bf16=per[None]["conv1d"], convt1d_bf16=per[None]["convt1d"])
+        if per["bf16"] != want or per[None]["conv1d_bf16"] or per[None]["convt1d_bf16"]:
+            raise SystemExit(f"{name} step launches: f32 {per[None]}, bf16 {per['bf16']}")
+        rec[name] = {"f32_wall_ms": walls[None], "bf16_wall_ms": walls["bf16"],
+                     "f32_median_ms": float(np.median(walls[None])),
+                     "bf16_median_ms": float(np.median(walls["bf16"])), "launches_per_step": per["bf16"]}
+    emit(rec, results)
+    return rec
+
+
+def drive_spectral(torch, np, results):
+    """``spectral`` (counted): a ``Sampler`` whose feature encoder has
+    spectral norm (``GANConfig(encoder_use_sn=True)``, seeded weights and
+    ``u``) on the card: ``sample_notes`` for the four emotions through the
+    decoder-tail kernel, ``u`` unchanged (eval mode), and ``sample_from``
+    held against the port's CPU path on the same state (1e-4 of scale)."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.config import GANConfig
+    from melogan_torch.sampling import Sampler
+
+    s = Sampler(GANConfig(encoder_use_sn=True), seed=0, device="cuda")
+    u = s.feature_encoder.net[1].u.clone()
+    notes = s.sample_notes(list(EMOTIONS), seed=1)
+    if notes.shape != (4, 512, 4) or not np.isfinite(notes).all():
+        raise SystemExit(f"spectral: notes {notes.shape} or not finite")
+    if not torch.equal(s.feature_encoder.net[1].u, u):
+        raise SystemExit("spectral: eval-mode sampling moved u")
+    cpu = Sampler(s.cfg, gen_variables=s.generator.state_dict(), fe_variables=s.feature_encoder.state_dict(),
+                  device="cpu")
+    rng = np.random.default_rng(2)
+    feats = rng.normal(size=(8, 6)).astype(np.float32)
+    noise = rng.normal(size=(8, s.cfg.noise_dim)).astype(np.float32)
+    err, rel = compare(torch.from_numpy(s.sample_from(feats, noise)), torch.from_numpy(cpu.sample_from(feats, noise)),
+                       "spectral-norm sampler, card vs CPU")
+    emit({"phase": "spectral", "max_abs_err": err, "max_rel_err": rel,
+          "sigma": [float(m.sigma()) for m in s.feature_encoder.net if hasattr(m, "sigma")]}, results)
+
+
 def main() -> int:
     import torch
 
@@ -1851,14 +2220,22 @@ def main() -> int:
     check_backward_routes(torch, F, ops, TRAIN_BATCH, gen, results)
     vae_kernels = check_vae_kernels(torch, F, ops, gen, results)
     check_ed_kernels(torch, F, ops, gen, results)
+    bf16_kernels = check_bf16_kernels(torch, F, ops, gen, results)
+    moded = {k: w for k, w in wrappers.items() if hasattr(w, "launches_bf16")}
+    bf16_by_path = {}
 
     def drive(path, fn, need):
-        """Run one main path with every launch count at 0; its counts."""
+        """Run one main path with every launch count at 0; its counts (and
+        the conv kernels' bf16-mode counts, on a line of their own)."""
         for w in wrappers.values():
             w.launches = 0
+        for w in moded.values():
+            w.launches_bf16 = 0
         out = fn()
         counts = {k: w.launches for k, w in wrappers.items()}
+        bf16_by_path[path] = {k: w.launches_bf16 for k, w in moded.items()}
         emit({"phase": "main_path_launches", "path": path, **counts}, results)
+        emit({"phase": "main_path_launches_bf16", "path": path, **bf16_by_path[path]}, results)
         missing = [k for k in need if counts[k] <= 0]
         if missing:
             raise SystemExit(f"{path} path never launched: {missing}")
@@ -1924,13 +2301,38 @@ def main() -> int:
     for name, (got, predicted) in sweep_want.items():
         if got != predicted:
             raise SystemExit(f"{name} launches {got}, predicted {predicted}")
+    # every path so far runs f32: no launch in bf16 mode
+    f32_paths = dict(bf16_by_path)
+    if any(n for counts in f32_paths.values() for n in counts.values()):
+        raise SystemExit(f"an f32 path launched the bf16 mode: {f32_paths}")
+    # the bf16 slice: fast sampling and serving, bf16 training, spectral norm
+    fast, sampling_fast = drive("sampling_fast", lambda: drive_sampling_fast(torch, np, results),
+                                ("convt1d",))
+    want_fast = {"decoder_tail": 0, "convt1d": 3 * fast["forwards"], "conv1d": 0}
+    if sampling_fast != want_fast or bf16_by_path["sampling_fast"] != {"convt1d": 3 * fast["forwards"],
+                                                                       "conv1d": 0}:
+        raise SystemExit(f"sampling_fast launches {sampling_fast} / bf16 {bf16_by_path['sampling_fast']}, "
+                         f"predicted {want_fast}, all bf16")
+    fast_vs_f32 = check_fast_sampling(torch, np, fast, results)
+    _, training_bf16 = drive("training_bf16",
+                             lambda: drive_training_bf16(torch, np, data, trained, vae, results),
+                             ("conv1d", "convt1d"))
+    gan_epoch = sweep_counts(trained["cfg"], 1, 0)
+    want_bf16 = {k: gan_epoch[k] + vae_training[k] + want[k] for k in ("conv1d", "convt1d")}
+    if ({k: training_bf16[k] for k in want_bf16} != want_bf16 or bf16_by_path["training_bf16"] != want_bf16
+            or training_bf16["decoder_tail"] != 0):
+        raise SystemExit(f"training_bf16 launches {training_bf16} / bf16 {bf16_by_path['training_bf16']}, "
+                         f"predicted {want_bf16}, all bf16, no decoder_tail")
+    bf16_steps = time_bf16_steps(torch, np, data, vae, results)
+    _, spectral = drive("spectral", lambda: drive_spectral(torch, np, results), ("decoder_tail",))
     path_names = ("sampling", "training", "resume", "serve_ckpt", "data", "vae_train", "vae_resume", "encode",
                   "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload",
-                  "sweep", "sweep_resume", "sweep_halving")
+                  "sweep", "sweep_resume", "sweep_halving", "sampling_fast", "training_bf16", "spectral")
     paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
              conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading,
-             sweeping, sweep_resuming, sweep_halving)
+             sweeping, sweep_resuming, sweep_halving, sampling_fast, training_bf16, spectral)
     launches = {k: sum(p[k] for p in paths) for k in wrappers}
+    launches_bf16 = {k: sum(bf16_by_path[p][k] for p in path_names) for k in moded}
 
     big_d, big_c = dec[MAIN_BATCH, 64], cvt[CONVT_BATCHES[-1]]  # batch 4096
     ed32 = [r for r in c1d[TRAIN_BATCH] if r["layer"].startswith("ed")]
@@ -1969,6 +2371,22 @@ def main() -> int:
                replaces="melogan_tpu/ops/pallas/conv1d.py:64",
                max_abs_err=max(r["max_abs_err"] for b in CONV1D_BATCHES for r in c1d[b])),
     ]
+    # the one-pass bf16 mode of each conv kernel at the same shapes as its f32
+    # entry, its launches those of the bf16 mode, its library call cuDNN on
+    # bf16 tensors
+    for name, recs, source, replaces in (
+            ("convt1d", [r for r in bf16_kernels["convt1d"] if r["batch"] == CONVT_BATCHES[-1]
+                         and r["layer"].startswith("dec")],
+             "melogan_torch/csrc/convt1d.cu", "melogan_tpu/ops/pallas/conv1d.py:140"),
+            ("conv1d", [r for r in bf16_kernels["conv1d"] if r["batch"] == TRAIN_BATCH
+                        and r["layer"].startswith("ed")],
+             "melogan_torch/csrc/conv1d.cu", "melogan_tpu/ops/pallas/conv1d.py:64")):
+        entry = summed(name, recs, source=source, replaces=replaces, mode="bf16",
+                       max_abs_err=max(r["max_abs_err"] for r in bf16_kernels[name]))
+        kernels.append(dict(entry, name=f"{name}_bf16", launches=launches_bf16[name]))
+    emit({"phase": "launches_by_mode",
+          **{k: {"all": launches[k], "bf16": launches_bf16[k], "f32": launches[k] - launches_bf16[k]}
+             for k in moded}}, results)
     emit({"phase": "summary", "group_steps_per_s": step["group_steps_per_s"],
           "group_step_median_ms": step["median_ms"], "group_step_bound_ms": step["bound_ms"],
           "vae_step_median_ms": vae_step["step_median_ms"], "vae_step_bound_ms": vae_step["step_bound_ms"],
@@ -1981,7 +2399,14 @@ def main() -> int:
           "sweep_state_mb": sweep_state["mb"], "sweep_state_save_s": sweep_state["save_s"],
           "sweep_state_load_s": sweep_state["load_s"], "sweep_gate_s": swept["record"]["gate_s"],
           "sweep_predicted_launches": {name: predicted for name, (_, predicted) in sweep_want.items()},
-          "launches_by_path": dict(zip(path_names, paths))},
+          "fast_median_ms_b1": float(np.median(fast["walls"][1])),
+          "fast_median_ms_b4096": float(np.median(fast["walls"][MAIN_BATCH])),
+          "f32_median_ms_b1": fast_vs_f32["f32_median_ms_b1"],
+          "f32_median_ms_b4096": fast_vs_f32["f32_median_ms_b4096"],
+          "bf16_steps_median_ms": {k: {p: bf16_steps[k][f"{p}_median_ms"] for p in ("f32", "bf16")}
+                                   for k in ("group", "vae", "ed")},
+          "training_bf16_predicted_launches": want_bf16,
+          "launches_by_path": dict(zip(path_names, paths)), "launches_bf16_by_path": bf16_by_path},
          results)
     line = {"kernels": kernels}
     results.append(line)

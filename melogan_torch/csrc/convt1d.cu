@@ -19,10 +19,13 @@
 
 // Launches on `stream` (PyTorch's current stream) and returns
 // cudaGetLastError() as an int; the Python wrapper raises if it is not 0.
+// bf16 != 0: the core's one-pass bf16 mode (operands rounded to bf16, f32
+// sums), else 3xTF32.
 extern "C" int melogan_convt1d(const float* x, const float* w, const float* bias, float* y,
-                               const igemm::Plan* plan, int device, void* stream) {
+                               const igemm::Plan* plan, int device, void* stream, int bf16) {
   if (plan == nullptr || plan->sigma != 1 || plan->classes != plan->stride) {
     return (int)cudaErrorInvalidValue;
   }
-  return igemm::run(x, w, bias, y, *plan, /*relu=*/0, device, stream);
+  return bf16 ? igemm::run<true>(x, w, bias, y, *plan, /*relu=*/0, device, stream)
+              : igemm::run<false>(x, w, bias, y, *plan, /*relu=*/0, device, stream);
 }

@@ -27,7 +27,14 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from melogan_torch.models.layers import Conv1d, Dropout, adaptive_avg_pool_1, batch_norm_lc
+from melogan_torch.models.layers import (
+    Conv1d,
+    Dropout,
+    Linear,
+    SpectralNormLinear,
+    adaptive_avg_pool_1,
+    batch_norm_lc,
+)
 
 
 class ConvBlock1D(nn.Module):
@@ -59,7 +66,7 @@ class NotesEncoder(nn.Module):
                                       padding=2 if i == 0 else 1))
             cin, ch = ch, min(ch * 2, hidden_dim)
         self.conv = nn.ModuleList(blocks)
-        self.project = nn.Linear(cin, hidden_dim)
+        self.project = Linear(cin, hidden_dim)
 
     def forward(self, notes: torch.Tensor, return_taps: bool = False):
         """``return_taps``: also the mean-pooled activation of every block and
@@ -78,21 +85,21 @@ class NotesEncoder(nn.Module):
 
 
 class MLPClassifier(nn.Module):
-    """(Linear, GELU, Dropout) per hidden width, then the ``head``."""
+    """(Linear, GELU, Dropout) per hidden width, then the ``head``. With
+    ``use_sn`` the hidden layers are ``SpectralNormLinear`` (the head stays
+    a plain ``Linear``), as in the JAX classifier."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int] = (256, 128), n_classes: int = 4,
                  dropout: float = 0.2, use_sn: bool = False):
         super().__init__()
-        if use_sn:
-            raise NotImplementedError(
-                "SpectralNormLinear is not ported yet (the shipped EDConfig has use_spectral_norm=False)")
         layers = []
         prev = in_dim
         for h in hidden_dims:
-            layers += [nn.Linear(prev, h), nn.GELU(), Dropout(dropout)]
+            hidden = SpectralNormLinear(prev, h) if use_sn else Linear(prev, h)
+            layers += [hidden, nn.GELU(), Dropout(dropout)]
             prev = h
         self.net = nn.Sequential(*layers)
-        self.head = nn.Linear(prev, n_classes)
+        self.head = Linear(prev, n_classes)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:

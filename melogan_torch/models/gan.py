@@ -34,6 +34,8 @@ from melogan_torch.config import GANConfig
 from melogan_torch.models.layers import (
     Conv1d,
     Dropout,
+    Linear,
+    SpectralNormLinear,
     adaptive_avg_pool_1,
     batch_norm_lc,
     default_precision,
@@ -55,7 +57,7 @@ class NoiseToLatent(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, hidden: int = 512):
         super().__init__()
-        self.net = nn.Sequential(nn.Linear(in_dim, hidden), nn.ReLU(), nn.Linear(hidden, out_dim))
+        self.net = nn.Sequential(Linear(in_dim, hidden), nn.ReLU(), Linear(hidden, out_dim))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.net(z)
@@ -77,7 +79,7 @@ class GeneratorDecoder(nn.Module):
         self.max_notes = max_notes
         self.reduced_len = max(1, max_notes // 8)
         self.pre = nn.Sequential(
-            nn.Linear(latent_dim, 512), nn.ReLU(), nn.Linear(512, 256 * self.reduced_len), nn.ReLU()
+            Linear(latent_dim, 512), nn.ReLU(), Linear(512, 256 * self.reduced_len), nn.ReLU()
         )
         self.deconv = nn.Sequential(
             nn.ConvTranspose1d(256, 128, **_CONVT),
@@ -149,7 +151,11 @@ class GeneratorDecoder(nn.Module):
     def forward(self, latent: torch.Tensor) -> torch.Tensor:
         y = self.pre(latent)
         # the reference reshapes to (B, 256, reduced_len); our layout is (B, L, C)
-        y = y.reshape(y.shape[0], 256, self.reduced_len).transpose(1, 2).contiguous()
+        return self.tail(y.reshape(y.shape[0], 256, self.reduced_len).transpose(1, 2).contiguous())
+
+    def tail(self, y: torch.Tensor) -> torch.Tensor:
+        """The three transposed convs from the pre-net's (B, max_notes/8,
+        256) output: fused or layered, as ``fuses`` says."""
         if self.fuses():
             return trim_or_pad_length(fused_decoder_tail(y, self.folded_stages()), self.max_notes)
         for conv_i, bn_i in ((0, 1), (3, 4)):
@@ -239,8 +245,8 @@ class Critic(nn.Module):
             layers += [Conv1d(cin, ch, 5, stride=2, padding=2, native=True), nn.LeakyReLU(0.2)]
             cin = ch
         self.conv = nn.Sequential(*layers)
-        self.fc = nn.Sequential(nn.Flatten(), nn.Linear(cin, emb_dim), nn.LeakyReLU(0.2))
-        self.real_fake = nn.Linear(emb_dim + numeric_embed_dim, 1)
+        self.fc = nn.Sequential(nn.Flatten(), Linear(cin, emb_dim), nn.LeakyReLU(0.2))
+        self.real_fake = Linear(emb_dim + numeric_embed_dim, 1)
 
     def forward(self, notes: torch.Tensor,
                 numeric_embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -264,7 +270,10 @@ class FeatureEncoder(nn.Module):
     """Numeric feature (6,) → conditioning embedding (out_dim,).
 
     In train mode each Dropout takes its keep mask from ``masks`` (one per
-    hidden layer, of shape (B, hidden)) or draws it from ``generator``."""
+    hidden layer, of shape (B, hidden)) or draws it from ``generator``.
+    ``use_sn``: the hidden layers are ``SpectralNormLinear`` (the output
+    layer stays a plain ``Linear``), as in the JAX encoder; their ``u``
+    advances in train mode only."""
 
     def __init__(
         self,
@@ -275,15 +284,13 @@ class FeatureEncoder(nn.Module):
         use_sn: bool = False,
     ):
         super().__init__()
-        if use_sn:
-            raise NotImplementedError(
-                "SpectralNormLinear is not ported yet (the shipped config has encoder_use_sn=False)")
         layers = [nn.LayerNorm(in_dim)]
         prev = in_dim
         for h in hidden_dims:
-            layers += [nn.Linear(prev, h), nn.GELU(), Dropout(dropout)]
+            hidden = SpectralNormLinear(prev, h) if use_sn else Linear(prev, h)
+            layers += [hidden, nn.GELU(), Dropout(dropout)]
             prev = h
-        layers.append(nn.Linear(prev, out_dim))
+        layers.append(Linear(prev, out_dim))
         self.net = nn.Sequential(*layers)
 
     @property

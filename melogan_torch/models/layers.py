@@ -2,9 +2,12 @@
 
 Ports of ``melogan_tpu/models/layers.py`` where the port needs its own code:
 the GAN init, the torch-default init drawn from a ``torch.Generator``,
-``Conv1d`` and ``ConvTranspose1d`` over channels-last inputs, ``Dropout``
-with explicit randomness,
-``trim_or_pad_length``, ``adaptive_avg_pool_1`` and the precision switch.
+``Linear`` and ``SpectralNormLinear``, ``Conv1d`` and ``ConvTranspose1d``
+over channels-last inputs, ``Dropout`` with explicit randomness,
+``trim_or_pad_length``, ``adaptive_avg_pool_1`` and the precision switch
+(``melogan_torch/precision.py``, re-exported here). Under the ``"fast"``
+precision every layer's products take bf16-rounded operands, forward and
+backward, and sum in f32.
 BatchNorm, LayerNorm, exact-erf GELU and LeakyReLU(0.2) are native
 ``nn.BatchNorm1d``, ``nn.LayerNorm``, ``nn.GELU()`` and ``nn.LeakyReLU``:
 the JAX layers copy their semantics. Layout at the model's convolutions is
@@ -13,7 +16,6 @@ the JAX layers copy their semantics. Layout at the model's convolutions is
 from __future__ import annotations
 
 import math
-import threading
 from typing import Optional
 
 import torch
@@ -21,25 +23,48 @@ from torch import nn
 import torch.nn.functional as F
 
 from melogan_torch.ops.conv import conv1d, conv_transpose1d
-
-PRECISIONS = ("f32", "fast")
-
-# per-thread, as in the JAX package: a server thread's switch must not flip
-# another thread's forward mid-run
-_PRECISION_TLS = threading.local()
-
-
-def set_default_precision(precision: str) -> None:
-    """``"f32"`` (IEEE float32 everywhere, the default) or ``"fast"`` (lower
-    precision allowed; the fused decoder kernel is f32 by construction, so the
-    decoder then takes the layered path)."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    _PRECISION_TLS.value = precision
+from melogan_torch.precision import (  # noqa: F401  (the JAX module's names)
+    bf16_products,
+    default_precision,
+    round_bf16,
+    set_default_precision,
+)
 
 
-def default_precision() -> str:
-    return getattr(_PRECISION_TLS, "value", "f32")
+class _RoundOperand(torch.autograd.Function):
+    """R: forward rounds to bf16; backward passes the gradient through as
+    ``_RoundGrad``, so that a derivative of that gradient is rounded in turn.
+    Each is the other's backward: differentiable to any order (the WGAN-GP
+    penalty differentiates the critic's input gradient again)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return round_bf16(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _RoundGrad.apply(g)
+
+
+class _RoundGrad(torch.autograd.Function):
+    """G: the identity forward; backward rounds the incoming gradient to bf16
+    (as ``_RoundOperand``), so a product's cotangent enters the backward
+    products rounded, as JAX's transposed dots and convs at DEFAULT take it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _RoundOperand.apply(g)
+
+
+def bf16_product(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """G(fn(R(x), R(w))): the product ``fn`` (a matmul or a conv, no bias)
+    on bf16-rounded operands, summed in f32, whose input and weight
+    gradients are the products r(g)·r(w) and r(g)ᵀ·r(x)."""
+    return _RoundGrad.apply(fn(_RoundOperand.apply(x), _RoundOperand.apply(w)))
 
 
 def gan_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -94,6 +119,61 @@ def trim_or_pad_length(x: torch.Tensor, target_len: int) -> torch.Tensor:
     return x
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` (names ``weight`` (out, in) and ``bias``, so state dicts
+    load strictly) that follows the precision switch: under ``"fast"`` it
+    computes G(R(x)·R(W)ᵀ) + b (``bf16_product``), the TPU's one bf16 pass
+    of the JAX ``TorchLinear`` at DEFAULT, in f32 otherwise."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x, self.weight)
+
+    def linear(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """x·wᵀ + bias at this thread's precision."""
+        if bf16_products():
+            y = bf16_product(F.linear, x, w)
+            return y if self.bias is None else y + self.bias
+        return F.linear(x, w, self.bias)
+
+
+class SpectralNormLinear(Linear):
+    """Linear with spectral normalization: the JAX ``SpectralNormLinear``
+    (reference ed_model.py:28-33, feature_encoder.py:22-29).
+
+    ``weight`` (out, in), ``bias`` and the buffer ``u`` (out,), the left
+    singular vector estimate. Every forward, in eval mode too, takes one
+    power-iteration step in f32, v = Wᵀu/(‖Wᵀu‖ + eps), u' = Wv/(‖Wv‖ + eps),
+    σ = v·(Wᵀu'), and computes x·(W/max(σ, eps))ᵀ + b with σ a constant
+    (no gradient), through ``Linear`` (so under ``"fast"`` the product is
+    bf16). ``u`` takes u' in train mode only. Not
+    ``torch.nn.utils.spectral_norm``: that one skips the iteration in eval
+    mode and lets σ carry a gradient. ``u`` starts as a standard normal draw
+    from a generator seeded 0, as the JAX layer draws it from
+    ``PRNGKey(0)`` (another stream: the weight bridge carries ``u`` across)."""
+
+    def __init__(self, in_features: int, out_features: int, eps: float = 1e-12):
+        super().__init__(in_features, out_features)
+        self.eps = float(eps)
+        self.register_buffer(
+            "u", torch.randn((out_features,), generator=torch.Generator().manual_seed(0)))
+
+    def sigma(self, update: bool = False) -> torch.Tensor:
+        """One power-iteration step: σ, and with ``update`` u ← u'."""
+        with torch.no_grad():
+            w = self.weight
+            v = w.t() @ self.u
+            v = v / (torch.linalg.vector_norm(v) + self.eps)
+            u_new = w @ v
+            u_new = u_new / (torch.linalg.vector_norm(u_new) + self.eps)
+            sigma = v @ (w.t() @ u_new)
+            if update:
+                self.u.copy_(u_new)
+        return sigma
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x, self.weight / torch.clamp(self.sigma(update=self.training), min=self.eps))
+
+
 class Conv1d(nn.Conv1d):
     """1-D convolution over (B, L, C) with torch Conv1d geometry and the
     torch ``(Cout, Cin, K)`` weight, so reference state dicts load strictly.
@@ -102,7 +182,10 @@ class Conv1d(nn.Conv1d):
     kernel on the card, its plain version on the CPU, both differentiable
     once). ``native=True`` pins it to ``F.conv1d`` with cuDNN in IEEE f32
     (TF32 off): the counterpart of the JAX layer's ``pallas=False``, for the
-    WGAN-GP critic, whose gradient penalty needs a second derivative.
+    WGAN-GP critic, whose gradient penalty needs a second derivative. Under
+    the ``"fast"`` precision the pinned conv is ``bf16_product`` around
+    ``F.conv1d``, then the bias: bf16 operands at every derivative order, as
+    XLA's conv at DEFAULT.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -115,7 +198,13 @@ class Conv1d(nn.Conv1d):
         s, p = self.stride[0], self.padding[0]
         if self.native:
             with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                y = F.conv1d(x.transpose(1, 2), self.weight, self.bias, s, p)
+                if bf16_products():
+                    y = bf16_product(lambda x_, w_: F.conv1d(x_, w_, None, s, p),
+                                     x.transpose(1, 2), self.weight)
+                    if self.bias is not None:
+                        y = y + self.bias[:, None]
+                else:
+                    y = F.conv1d(x.transpose(1, 2), self.weight, self.bias, s, p)
             return y.transpose(1, 2)
         return conv1d(x, self.weight.permute(2, 1, 0), s, p, bias=self.bias)
 

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from melogan_torch.config import AEConfig
-from melogan_torch.models.layers import Conv1d, ConvTranspose1d, batch_norm_lc, trim_or_pad_length
+from melogan_torch.models.layers import Conv1d, ConvTranspose1d, Linear, batch_norm_lc, trim_or_pad_length
 
 _CONV = dict(kernel_size=5, stride=2, padding=2)
 
@@ -55,7 +55,7 @@ class ConvEncoder(nn.Module):
             cin = ch
         self.conv = nn.Sequential(*layers)
         self._linear = nn.Sequential(
-            nn.Flatten(), nn.Linear(cin * encoded_len(max_notes, len(channels)), hidden_dim), nn.ReLU())
+            nn.Flatten(), Linear(cin * encoded_len(max_notes, len(channels)), hidden_dim), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(0, len(self.conv), 3):
@@ -72,8 +72,8 @@ class ConvDecoder(nn.Module):
         super().__init__()
         self.max_notes = max_notes
         self.reduced_len = max(1, max_notes // 8)
-        self.pre = nn.Sequential(nn.Linear(latent_dim, hidden_dim), nn.ReLU(),
-                                 nn.Linear(hidden_dim, 128 * self.reduced_len), nn.ReLU())
+        self.pre = nn.Sequential(Linear(latent_dim, hidden_dim), nn.ReLU(),
+                                 Linear(hidden_dim, 128 * self.reduced_len), nn.ReLU())
         convt = dict(_CONV, output_padding=1)
         self.deconv = nn.Sequential(
             ConvTranspose1d(128, 64, **convt), nn.BatchNorm1d(64), nn.ReLU(),
@@ -102,8 +102,8 @@ class VAE(nn.Module):
         super().__init__()
         self.latent_dim = latent_dim
         self.encoder = ConvEncoder(max_notes, hidden_dim)
-        self.fc_mu = nn.Linear(hidden_dim, latent_dim)
-        self.fc_log_var = nn.Linear(hidden_dim, latent_dim)
+        self.fc_mu = Linear(hidden_dim, latent_dim)
+        self.fc_log_var = Linear(hidden_dim, latent_dim)
         self.decoder = ConvDecoder(max_notes, latent_dim, hidden_dim)
 
     def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None,

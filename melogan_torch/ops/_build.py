@@ -122,11 +122,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, bf16: bool = False) -> None:
     """Add one to ``wrapper.launches``, the plain-int launch count that shows
-    a run went through the kernel (server threads launch concurrently)."""
+    a run went through the kernel (server threads launch concurrently), and
+    for a launch in the one-pass bf16 mode one to ``wrapper.launches_bf16``
+    beside it."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if bf16:
+            wrapper.launches_bf16 += 1
 
 
 def check(err: int, what: str) -> None:

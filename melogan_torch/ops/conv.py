@@ -20,6 +20,13 @@ wᵀ is w with Cin and Cout swapped, (K, Cout, Cin). The dw products are
 ``torch.matmul``s (the JAX package leaves both gradients to XLA convs outside
 any Pallas kernel). The backward is first-order only: the WGAN-GP critic,
 whose gradient penalty needs a second derivative, does not use these ops.
+
+Under the ``"fast"`` precision (``melogan_torch/precision.py``), read at
+forward time and kept for the backward, every product takes bf16-rounded
+operands and sums in f32, as the JAX package's convs and their transposes
+do at ``Precision.DEFAULT``: the forward and dx run the kernels' one-pass
+bf16 mode (which rounds x, w, g and wᵀ itself), and the dw tap products
+round both operands before their f32 matmuls.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from torch.autograd.function import once_differentiable
 
 from melogan_torch.ops.conv1d import conv1d_cuda, conv1d_plain
 from melogan_torch.ops.convt import convt1d_cuda, convt1d_plain
+from melogan_torch.precision import bf16_products, round_bf16
 
 
 def _check_device(x: torch.Tensor, op: str) -> None:
@@ -37,16 +45,16 @@ def _check_device(x: torch.Tensor, op: str) -> None:
         raise ValueError(f"{op}: unsupported device {x.device}")
 
 
-def _conv1d_forward(x, w, bias, stride, padding):
+def _conv1d_forward(x, w, bias, stride, padding, bf16):
     if x.device.type == "cuda":
-        return conv1d_cuda(x, w, bias, stride, padding)
-    return conv1d_plain(x, w, bias, stride, padding)
+        return conv1d_cuda(x, w, bias, stride, padding, bf16)
+    return conv1d_plain(x, w, bias, stride, padding, bf16)
 
 
-def _convt_forward(x, w, bias, stride, padding, output_padding):
+def _convt_forward(x, w, bias, stride, padding, output_padding, bf16):
     if x.device.type == "cuda":
-        return convt1d_cuda(x, w, bias, stride, padding, output_padding)
-    return convt1d_plain(x, w, bias, stride, padding, output_padding)
+        return convt1d_cuda(x, w, bias, stride, padding, output_padding, bf16)
+    return convt1d_plain(x, w, bias, stride, padding, output_padding, bf16)
 
 
 def _swap_io(w: torch.Tensor) -> torch.Tensor:
@@ -54,10 +62,13 @@ def _swap_io(w: torch.Tensor) -> torch.Tensor:
     return w.transpose(1, 2).contiguous()
 
 
-def _tap_products(inp, g, k: int, stride: int, padding: int):
+def _tap_products(inp, g, k: int, stride: int, padding: int, bf16: bool):
     """(K, C_inp, C_g) with [k] = Σ_{b,t} inp_pad[b, s·t + k]ᵀ · g[b, t], where
     inp_pad is ``inp`` with ``padding`` zero rows in front (and enough
-    behind): the weight gradient of conv1d(inp) → g, one matmul per tap."""
+    behind): the weight gradient of conv1d(inp) → g, one matmul per tap.
+    ``bf16``: both operands rounded to bf16 first."""
+    if bf16:
+        inp, g = round_bf16(inp), round_bf16(g)
     b, l, c = inp.shape
     t = g.shape[1]
     span = stride * (t - 1) + 1
@@ -75,7 +86,8 @@ class _Conv1d(torch.autograd.Function):
         x, w = x.contiguous(), w.contiguous()
         ctx.save_for_backward(x, w)
         ctx.geometry = (stride, padding)
-        return _conv1d_forward(x, w, bias, stride, padding)
+        ctx.bf16 = bf16_products()
+        return _conv1d_forward(x, w, bias, stride, padding, ctx.bf16)
 
     @staticmethod
     @once_differentiable
@@ -87,9 +99,9 @@ class _Conv1d(torch.autograd.Function):
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             output_padding = (x.shape[1] + 2 * padding - k) % stride
-            dx = _convt_forward(g, _swap_io(w), None, stride, padding, output_padding)
+            dx = _convt_forward(g, _swap_io(w), None, stride, padding, output_padding, ctx.bf16)
         if ctx.needs_input_grad[1]:
-            dw = _tap_products(x, g, k, stride, padding)
+            dw = _tap_products(x, g, k, stride, padding, ctx.bf16)
         if ctx.needs_input_grad[2]:
             db = g.sum(dim=(0, 1))
         return dx, dw, db, None, None
@@ -101,7 +113,8 @@ class _ConvTranspose1d(torch.autograd.Function):
         x, w = x.contiguous(), w.contiguous()
         ctx.save_for_backward(x, w)
         ctx.geometry = (stride, padding)
-        return _convt_forward(x, w, bias, stride, padding, output_padding)
+        ctx.bf16 = bf16_products()
+        return _convt_forward(x, w, bias, stride, padding, output_padding, ctx.bf16)
 
     @staticmethod
     @once_differentiable
@@ -111,9 +124,9 @@ class _ConvTranspose1d(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = _conv1d_forward(g, _swap_io(w), None, stride, padding)
+            dx = _conv1d_forward(g, _swap_io(w), None, stride, padding, ctx.bf16)
         if ctx.needs_input_grad[1]:
-            dw = _tap_products(g, x, w.shape[0], stride, padding).transpose(1, 2)
+            dw = _tap_products(g, x, w.shape[0], stride, padding, ctx.bf16).transpose(1, 2)
         if ctx.needs_input_grad[2]:
             db = g.sum(dim=(0, 1))
         return dx, dw, db, None, None, None

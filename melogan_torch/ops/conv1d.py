@@ -16,17 +16,21 @@ import torch
 
 from melogan_torch.ops import _build
 from melogan_torch.ops.igemm import MAX_K, MAX_STRIDE, conv1d_plan
+from melogan_torch.precision import round_bf16
 
 
 def conv_out_len(l: int, k: int, stride: int, padding: int) -> int:
     return (l + 2 * padding - k) // stride + 1
 
 
-def conv1d_plain(x, w, bias=None, stride: int = 1, padding: int = 0):
+def conv1d_plain(x, w, bias=None, stride: int = 1, padding: int = 0, bf16: bool = False):
     """The tap sum written out as the JAX kernel does it: the zero-padded
     input split into ``stride`` parity streams, then for each tap k one f32
     matmul of a contiguous slice of stream k mod s (offset k div s) with
-    w[k]."""
+    w[k]. ``bf16``: x and w rounded to bf16 first (the kernel's one-pass
+    mode; the products of bf16 values are exact in f32)."""
+    if bf16:
+        x, w = round_bf16(x), round_bf16(w)
     b, l, cin = x.shape
     k, _, cout = w.shape
     lout = conv_out_len(l, k, stride, padding)
@@ -60,16 +64,17 @@ def _lib():
     lib = _build.load("conv1d")
     if not getattr(lib, "_melogan_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.melogan_conv1d.argtypes = [p, p, p, p, p, i, p]
+        lib.melogan_conv1d.argtypes = [p, p, p, p, p, i, p, i]
         lib.melogan_conv1d.restype = ctypes.c_int
         lib._melogan_typed = True
     return lib
 
 
 def conv1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 1,
-                padding: int = 0):
+                padding: int = 0, bf16: bool = False):
     """Launch ``csrc/conv1d.cu`` (the implicit-GEMM core) on PyTorch's
-    current stream.
+    current stream; ``bf16``: in the core's one-pass bf16 mode (x and w
+    rounded to bf16 in the kernel, f32 sums), else 3xTF32.
 
     Takes CUDA float32 contiguous tensors only and raises on anything else
     (K ≤ 7, stride ≤ 16). Forward only: gradients come from
@@ -100,11 +105,12 @@ def conv1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 1,
     err = _lib().melogan_conv1d(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
         y.data_ptr(), ctypes.byref(conv1d_plan(b, l, cin, cout, k, stride, padding).c_struct()),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream, int(bf16),
     )
     _build.check(err, "conv1d launch")
-    _build.count_launch(conv1d_cuda)
+    _build.count_launch(conv1d_cuda, bf16)
     return y
 
 
 conv1d_cuda.launches = 0
+conv1d_cuda.launches_bf16 = 0

@@ -16,6 +16,7 @@ import torch
 
 from melogan_torch.ops import _build
 from melogan_torch.ops.igemm import check_limits, convt_plan, convt_taps
+from melogan_torch.precision import round_bf16
 
 
 def convt_out_len(l: int, k: int, stride: int, padding: int, output_padding: int) -> int:
@@ -23,10 +24,13 @@ def convt_out_len(l: int, k: int, stride: int, padding: int, output_padding: int
 
 
 def convt1d_plain(x, w, bias=None, stride: int = 2, padding: int = 0,
-                  output_padding: int = 0):
+                  output_padding: int = 0, bf16: bool = False):
     """The tap sum written out: for each parity class r, Σ over
     ``convt_taps`` of a contiguous shifted slice of x times one tap of the
-    flipped weight, then the classes interleaved. f32 matmuls."""
+    flipped weight, then the classes interleaved. f32 matmuls. ``bf16``: x
+    and w rounded to bf16 first (the kernel's one-pass mode)."""
+    if bf16:
+        x, w = round_bf16(x), round_bf16(w)
     b, l, cin = x.shape
     k, _, cout = w.shape
     lout = convt_out_len(l, k, stride, padding, output_padding)
@@ -66,16 +70,17 @@ def _lib():
     lib = _build.load("convt1d")
     if not getattr(lib, "_melogan_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.melogan_convt1d.argtypes = [p, p, p, p, p, i, p]
+        lib.melogan_convt1d.argtypes = [p, p, p, p, p, i, p, i]
         lib.melogan_convt1d.restype = ctypes.c_int
         lib._melogan_typed = True
     return lib
 
 
 def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
-                 padding: int = 0, output_padding: int = 0):
+                 padding: int = 0, output_padding: int = 0, bf16: bool = False):
     """Launch ``csrc/convt1d.cu`` (the implicit-GEMM core, every parity class
-    in one launch) on PyTorch's current stream.
+    in one launch) on PyTorch's current stream; ``bf16``: in the core's
+    one-pass bf16 mode, else 3xTF32.
 
     Takes CUDA float32 contiguous tensors only and raises on anything else
     (K ≤ 7, stride ≤ 16); forward only (no autograd), so it refuses inputs
@@ -108,11 +113,12 @@ def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
     err = _lib().melogan_convt1d(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
         y.data_ptr(), ctypes.byref(plan.c_struct()),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream, int(bf16),
     )
     _build.check(err, "convt1d launch")
-    _build.count_launch(convt1d_cuda)
+    _build.count_launch(convt1d_cuda, bf16)
     return y
 
 
 convt1d_cuda.launches = 0
+convt1d_cuda.launches_bf16 = 0

@@ -1,27 +1,33 @@
 """Where one ``Sampler.sample_notes`` call spends its time on the GPU.
 
-    python -m melogan_torch.profile_sample [--batch 4096] [--repeats 5]
+    python -m melogan_torch.profile_sample [--batch 4096] [--repeats 5] [--fast-math]
 
-Builds ``Sampler(GANConfig(), device="cuda")`` with seeded random weights,
+Builds ``Sampler(GANConfig(), device="cuda")`` with seeded random weights
+(``--fast-math``: ``Sampler(fast_math=True)``, the one-pass bf16 products),
 warms it up, then
 
 1. times the stages of the sample step with CUDA events, each over
-   ``--repeats`` runs of the same inputs: jitter and noise draws, the feature
-   encoder, NoiseToLatent plus the decoder pre-net, the decoder tail kernel
-   (the folded stages come from their cache), and the device→host copy of the notes
-   (through page-locked memory, as ``Sampler`` does);
+   ``--repeats`` runs of the same inputs, at the sampler's precision: jitter
+   and noise draws, the feature encoder, NoiseToLatent plus the decoder
+   pre-net, the decoder tail (the decoder-tail kernel, its folded stages from
+   their cache; with ``--fast-math`` the layered path, three ``convt1d``
+   launches in bf16 mode with BatchNorm and ReLU between), and the
+   device→host copy of the notes (through page-locked memory, as
+   ``Sampler`` does);
 2. wall-clocks whole ``sample_notes`` calls (host clock, ending in the copy);
 3. traces one ``sample_notes`` call with ``torch.profiler`` and lists device
    time by kernel name;
-4. times the decoder-tail stage with the folded BN stages from their cache
-   against folding them on every call, in turn over three rounds: CUDA-event
-   ms and host-clock ms a call, and the device kernels of one call.
+4. (f32 only) times the decoder-tail stage with the folded BN stages from
+   their cache against folding them on every call, in turn over three
+   rounds: CUDA-event ms and host-clock ms a call, and the device kernels of
+   one call.
 
 Prints one JSON object per part; needs CUDA.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -29,8 +35,8 @@ import torch
 
 from melogan_torch import EMOTIONS
 from melogan_torch.config import GANConfig
-from melogan_torch.models.layers import trim_or_pad_length
 from melogan_torch.ops.decoder import fused_decoder_tail
+from melogan_torch.precision import using
 from melogan_torch.sampling import FEATURE_JITTER_STD, Sampler, _to_numpy
 
 
@@ -51,14 +57,15 @@ def stage_times(sampler: Sampler, batch: int, repeats: int) -> dict:
     dec = gen.decoder
     idx = torch.arange(batch, device=dev) % len(EMOTIONS)
     rng = torch.Generator(device=dev).manual_seed(0)
-    with torch.inference_mode():
+    fast = using("fast") if sampler.fast_math else contextlib.nullcontext()
+    with fast, torch.inference_mode():
         base = sampler._base_features[idx]
         feats = base + FEATURE_JITTER_STD * torch.randn(base.shape, generator=rng, device=dev)
         noise = torch.randn((batch, sampler.cfg.noise_dim), generator=rng, device=dev)
         emb = fe(feats)
         latent = gen.noise_to_latent(torch.cat([noise, emb], dim=1))
         y = dec.pre(latent).reshape(batch, 256, dec.reduced_len).transpose(1, 2).contiguous()
-        notes = fused_decoder_tail(y, dec.folded_stages())
+        notes = dec.tail(y)
 
         def draws():
             b = sampler._base_features[idx]
@@ -73,9 +80,7 @@ def stage_times(sampler: Sampler, batch: int, repeats: int) -> dict:
             "draws_ms": _event_ms(draws, repeats),
             "feature_encoder_ms": _event_ms(lambda: fe(feats), repeats),
             "noise_to_latent_and_prenet_ms": _event_ms(prenet, repeats),
-            "decoder_tail_ms": _event_ms(
-                lambda: trim_or_pad_length(fused_decoder_tail(y, dec.folded_stages()),
-                                           dec.max_notes), repeats),
+            "decoder_tail_ms": _event_ms(lambda: dec.tail(y), repeats),
             "to_host_ms": _event_ms(lambda: _to_numpy(notes), repeats),
         }
     times["sum_ms"] = sum(times.values())
@@ -159,15 +164,19 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--fast-math", action="store_true",
+                    help="sample with the one-pass bf16 products (Sampler(fast_math=True))")
     args = ap.parse_args(argv)
-    sampler = Sampler(GANConfig(), seed=0, device="cuda")
+    sampler = Sampler(GANConfig(), seed=0, fast_math=args.fast_math, device="cuda")
     sampler.sample_notes(["happy"] * args.batch, seed=0)  # build and warm up
-    info = {"device": torch.cuda.get_device_name(sampler.device), "batch": args.batch}
+    info = {"device": torch.cuda.get_device_name(sampler.device), "batch": args.batch,
+            "fast_math": args.fast_math}
     print(json.dumps({**info, "stages": stage_times(sampler, args.batch, args.repeats)}))
     print(json.dumps({**info, "sample_notes_wall_ms": wall_times(sampler, args.batch, args.repeats)}))
     table = kernel_table(sampler, args.batch)
     print(json.dumps({**info, "profiler_top_kernels": table}))
-    print(json.dumps({**info, "decoder_tail_fold": fold_cost(sampler, args.batch, args.repeats)}))
+    if not args.fast_math:
+        print(json.dumps({**info, "decoder_tail_fold": fold_cost(sampler, args.batch, args.repeats)}))
 
 
 if __name__ == "__main__":

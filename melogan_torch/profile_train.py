@@ -1,10 +1,11 @@
 """Where one WGAN-GP group step spends its time on the GPU.
 
-    python -m melogan_torch.profile_train [--batch 32] [--repeats 10]
+    python -m melogan_torch.profile_train [--batch 32] [--repeats 10] [--bf16]
 
 Builds the shipped ``GANConfig()``/``EDConfig()`` training state on the card
-with seeded random weights and a seeded batch of random notes, warms it up,
-then
+with seeded random weights and a seeded batch of random notes (``--bf16``:
+the steps run at ``precision="bf16"``, as ``train(precision="bf16")`` runs
+them), warms it up, then
 
 1. wall-clocks group steps (host clock around steps that end in a
    synchronize) and, with CUDA events, the critic-only part (the same
@@ -28,7 +29,8 @@ import torch
 
 from melogan_torch.config import EDConfig, GANConfig
 from melogan_torch.train import gan_step
-from melogan_torch.utils.flops import group_step_flops
+from melogan_torch.train.gan_loop import precision_steps
+from melogan_torch.utils.flops import PEAK_F32_FLOPS, group_step_flops
 
 
 def _batches(cfg: GANConfig, dev, seed: int = 0):
@@ -94,15 +96,20 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--trace-steps", type=int, default=3)
+    ap.add_argument("--bf16", action="store_true",
+                    help="run the steps with the one-pass bf16 products (precision='bf16')")
     args = ap.parse_args(argv)
-    cfg, ed_cfg = dataclasses.replace(GANConfig(), batch_size=args.batch), EDConfig()
+    precision = "bf16" if args.bf16 else None
+    cfg = gan_step.precision_tuned_cfg(dataclasses.replace(GANConfig(), batch_size=args.batch), precision)
+    ed_cfg = EDConfig()
     state = gan_step.init_state(cfg, gan_step.build_models(cfg, ed_cfg), seed=0, device="cuda")
-    steps = gan_step.make_train_steps(cfg)
+    steps = precision_steps(gan_step.make_train_steps(cfg), precision)
     batches = _batches(cfg, state.device)
     for _ in range(3):  # build the kernels, warm up cuBLAS/cuDNN
         steps.group(state, batches)
     torch.cuda.synchronize()
-    info = {"device": torch.cuda.get_device_name(state.device), "batch": args.batch}
+    info = {"device": torch.cuda.get_device_name(state.device), "batch": args.batch,
+            "precision": precision or "f32"}
     walls = []
     for _ in range(args.repeats):
         t0 = time.perf_counter()
@@ -111,7 +118,7 @@ def main(argv=None) -> None:
         walls.append((time.perf_counter() - t0) * 1e3)
     flops = group_step_flops(cfg, ed_cfg)
     print(json.dumps({**info, "group_step_wall_ms": walls, "median_ms": float(np.median(walls)),
-                      "flops": flops, "bound_ms_f32": flops / 67e12 * 1e3}))
+                      "flops": flops, "bound_ms_f32": flops / PEAK_F32_FLOPS * 1e3}))
     group_ms = _event_ms(lambda: steps.group(state, batches), args.repeats)
     critic_ms = _event_ms(lambda: steps.tail(state, batches), args.repeats)
     print(json.dumps({**info, "events_ms": {

@@ -13,9 +13,12 @@ Jitter and noise come from a ``torch.Generator`` on the sampler's device,
 seeded per call: a seed gives the same notes on the same device every time,
 but not the JAX package's notes (another random stream). ``sample_from`` is
 the deterministic core that takes features and noise from the caller.
+``fast_math`` runs each forward under the ``"fast"`` precision: the
+one-pass bf16 products of the JAX package's fast-math sample step.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Mapping, Optional
 
@@ -29,6 +32,7 @@ from melogan_torch.device import resolve_device
 from melogan_torch.midi.codec import render_to_bytes, save_piano_roll_to_midi
 from melogan_torch.models.gan import FeatureEncoder, Generator
 from melogan_torch.models.layers import gan_init_
+from melogan_torch.precision import using
 from melogan_torch.utils.weights import load_state_dicts
 
 # Hand-tuned per-emotion numeric feature bases (reference app.py:55-61).
@@ -69,6 +73,14 @@ class Sampler:
 
     ``emotion_features``: optional (4, 6) conditioning centroids of the
     training corpus; the reference's hand-tuned map otherwise.
+
+    ``fast_math=True``: every forward runs under the ``"fast"`` precision
+    (bf16-rounded product operands, f32 sums; the decoder then takes its
+    layered path, three ``convt1d`` launches in bf16 mode instead of the
+    f32 decoder-tail kernel), set around each forward on the calling
+    thread, as the JAX sampler flips its precision around each call: the
+    sample pool's refill thread samples too. The notes differ from the f32
+    default's within bf16 rounding.
     """
 
     def __init__(
@@ -82,11 +94,10 @@ class Sampler:
         emotion_features=None,
         device="cuda",
     ):
-        if fast_math:
-            raise NotImplementedError("fast_math (bf16) sampling is not ported yet")
         if mesh is not None:
             raise NotImplementedError("data-parallel sampling over a mesh is not ported yet")
         self.cfg = cfg or GANConfig()
+        self.fast_math = bool(fast_math)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 parity with the JAX package (Precision.HIGHEST): cuBLAS
@@ -139,7 +150,7 @@ class Sampler:
 
     # ------------------------------------------------------------------
     def _forward(self, gen, fe, features: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with using("fast") if self.fast_math else contextlib.nullcontext(), torch.inference_mode():
             emb = fe(features)
             latent = None
             if self.cfg.integration_mode == "conditioning":

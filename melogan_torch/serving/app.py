@@ -518,6 +518,7 @@ def create_server(
     sample_pool: bool = True,
     pool_warm: bool = True,
     watch_ckpt: float = 0.0,
+    fast_math: bool = False,
 ) -> Tuple[WSGIServer, AppState]:
     """Build the sampler, warm it up, fill the sample pool, and bind a
     threaded WSGI server. The caller runs ``serve_forever`` and, at the
@@ -532,7 +533,9 @@ def create_server(
     generator (``G_ema``). ``sample_pool``: serve ``/generate`` from a
     ``SamplePool`` (prefilled here) and, with ``pool_warm``, run its refill
     ladder once in the background. ``watch_ckpt``: the watcher's poll
-    interval in seconds (0: off)."""
+    interval in seconds (0: off). ``fast_math``: the sampler's one-pass bf16
+    products (``Sampler(fast_math=True)``), kept across ``/reload`` and the
+    watcher's swaps."""
     from melogan_torch.utils.weights import load_gan_final_full
 
     cfg = _resolve_config(config)
@@ -555,7 +558,7 @@ def create_server(
     else:
         print(f"[WARN] GAN checkpoint not found at {ckpt_path}; serving random weights"
               + (" until it appears" if watch_ckpt > 0 else ""))
-    sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd,
+    sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd, fast_math=fast_math,
                       emotion_features=features, device=device)
     # warm up before accepting traffic: the first call builds the kernels
     sampler.sample_notes(["happy"], seed=0)
@@ -583,18 +586,21 @@ def create_server(
 
 def serve(host: str = "0.0.0.0", port: int = 5000, workdir: str = ".",
           config: Union[str, GANConfig, None] = DEFAULT_CONFIG, checkpoint: Optional[str] = None,
-          use_ema: bool = False, device="cuda", watch_ckpt: float = 0.0, dp: int = 0) -> None:
+          use_ema: bool = False, device="cuda", watch_ckpt: float = 0.0, dp: int = 0,
+          fast_math: bool = False) -> None:
     """Serve until interrupted, then wait up to ``DRAIN_SECS`` for the
     responses in flight. The sample pool is on unless
     ``MELOGAN_SAMPLE_POOL=0``, and warms its refill ladder unless
-    ``MELOGAN_POOL_WARM=0``, as for the JAX server. ``dp`` (data-parallel
-    sampling) is not ported yet and raises unless 0."""
+    ``MELOGAN_POOL_WARM=0``, as for the JAX server. ``fast_math``: sample
+    with the one-pass bf16 products (``create_server``). ``dp``
+    (data-parallel sampling) is not ported yet and raises unless 0."""
     if dp:
         raise NotImplementedError("data-parallel sampling over a mesh is not ported yet")
     httpd, state = create_server(
         host, port, workdir=workdir, config=config, checkpoint=checkpoint, use_ema=use_ema,
         device=device, sample_pool=os.environ.get("MELOGAN_SAMPLE_POOL", "1") != "0",
-        pool_warm=os.environ.get("MELOGAN_POOL_WARM", "1") != "0", watch_ckpt=watch_ckpt)
+        pool_warm=os.environ.get("MELOGAN_POOL_WARM", "1") != "0", watch_ckpt=watch_ckpt,
+        fast_math=fast_math)
     print(f"[INIT] serving on http://{host}:{httpd.server_address[1]} "
           f"({device_info(state.sampler.device)['kind']}, "
           f"{'checkpoint ' + state.ckpt_path if state.loaded else 'random weights'}"

@@ -50,7 +50,9 @@ from melogan_torch.train.harness import (
     EarlyStopping,
     ReduceLROnPlateau,
     batch_indices,
+    refuse_spectral_norm,
     sched_step,
+    with_precision,
 )
 from melogan_torch.utils import weights
 from melogan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -204,12 +206,18 @@ def train(
     ``resume=True`` restarts from the newest ``ed_epochNNNN.ckpt``,
     replaying one data-order draw for each finished epoch; the best then
     starts at the resumed state, with the stopper's best from the file. From
-    a JAX file the port's random stream goes on from its seed. ``mesh`` and
-    ``precision`` are not ported yet and raise unless None."""
+    a JAX file the port's random stream goes on from its seed.
+    ``precision="bf16"`` (or ``"default"``): the training and validation
+    steps run with bf16-rounded product operands and f32 sums
+    (``harness.with_precision``); None or ``"highest"`` is IEEE f32. A
+    spectral-norm classifier raises NotImplementedError, as the JAX trainer
+    cannot train one (ROADMAP C.5). ``mesh`` is not ported yet and raises
+    unless None."""
     if mesh is not None:
         raise NotImplementedError("data-parallel training over a mesh is not ported yet")
-    if precision is not None:
-        raise NotImplementedError("reduced-precision training is not ported yet")
+    step = with_precision(train_step, precision)
+    evaluate = with_precision(eval_step, precision)
+    refuse_spectral_norm("ed_loop.train", ["use_spectral_norm"] if cfg.use_spectral_norm else [])
     dev = resolve_device(device)
     state = init_state(cfg, seed=cfg.seed, device=dev)
 
@@ -261,8 +269,8 @@ def train(
         t0 = time.perf_counter()
         idx = torch.as_tensor(batch_indices(epoch_order(n, data_rng, class_weights), cfg.batch_size),
                               device=dev)
-        train_loss, train_acc = _means([train_step(state, x_train_dev[i], y_train_dev[i]) for i in idx])
-        val_loss, val_acc = _means([eval_step(state, x_val_dev[i], y_val_dev[i]) for i in val_idx])
+        train_loss, train_acc = _means([step(state, x_train_dev[i], y_train_dev[i]) for i in idx])
+        val_loss, val_acc = _means([evaluate(state, x_val_dev[i], y_val_dev[i]) for i in val_idx])
         state.model.train()  # the state returned trains on, as it left the last step
         lr, improved, done = sched_step(plateau, stopper, val_loss, state.opt.lr)
         state.opt.lr = lr

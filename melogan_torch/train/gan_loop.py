@@ -15,9 +15,10 @@ at the end ``gan_final.pth`` (reference layout) and ``gan_final.ckpt`` (JAX
 layout) with ``emotion_features`` and, when EMA is on, ``G_ema``.
 ``load_gan_final`` / ``load_gan_final_full`` read either file for sampling.
 ``run_epoch`` is one epoch's body, which the population sweep
-(``train/sweep.py``) runs for each member.
+(``train/sweep.py``) runs for each member. ``precision="bf16"`` runs every
+step under the one-pass bf16 products (``harness.with_precision``).
 
-bf16 training (``precision``) and the data-parallel mesh are not ported yet.
+The data-parallel mesh is not ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from melogan_torch.config import EDConfig, GANConfig
 from melogan_torch.data.datasets import SplitData, epoch_group_indices
 from melogan_torch.device import resolve_device
 from melogan_torch.train import gan_step
+from melogan_torch.train.harness import with_precision
 from melogan_torch.utils import weights
 from melogan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from melogan_torch.utils.metrics import MetricsWriter
@@ -73,6 +75,12 @@ def device_gather(arrays, dev: torch.device):
         return tuple(a[i] for a in data)
 
     return gather
+
+
+def precision_steps(steps: gan_step.TrainStepFns, precision) -> gan_step.TrainStepFns:
+    """The group and tail steps each run through ``with_precision``."""
+    return gan_step.TrainStepFns(group=with_precision(steps.group, precision),
+                                 tail=with_precision(steps.tail, precision))
 
 
 def run_epoch(steps: gan_step.TrainStepFns, state: gan_step.GANTrainState, gather, gi, ti):
@@ -172,11 +180,19 @@ def train(
     epoch (and the last), generate ``gate_samples_per_emotion`` pieces per
     emotion from the deployable weights (EMA when on), score them against
     the golden quality bands, and keep the best as ``gan_best.ckpt``.
-    ``mesh`` and ``precision`` are not ported yet and raise unless None."""
+
+    ``precision="bf16"`` (or ``"default"``): every group and tail step runs
+    with bf16-rounded product operands and f32 sums (the JAX package's
+    mixed-precision MXU training), and ``fused_critic_batch`` is off
+    (``gan_step.precision_tuned_cfg``); None or ``"highest"`` is IEEE f32.
+    The gates' sampling and the λ_fm targets stay f32, as in the JAX loop.
+    A spectral-norm feature encoder or ED raises NotImplementedError, as the
+    JAX loop cannot train one (ROADMAP C.5). ``mesh`` is not ported yet and
+    raises unless None."""
     if mesh is not None:
         raise NotImplementedError("data-parallel training over a mesh is not ported yet")
-    if precision is not None:
-        raise NotImplementedError("reduced-precision training is not ported yet")
+    cfg = gan_step.precision_tuned_cfg(cfg, precision)
+    gan_step.refuse_gan_spectral_norm(cfg, ed_cfg, "gan_loop.train")
     dev = resolve_device(device)
     models = gan_step.build_models(cfg, ed_cfg)
     state = gan_step.init_state(cfg, models, seed=cfg.seed, ed_variables=ed_variables, device=dev)
@@ -188,7 +204,8 @@ def train(
         fm_target = gan_step.fm_targets_from_data(notes, emotion_idx)
         if ed_variables is not None:
             fm_ed_target = gan_step.fm_ed_targets_from_data(state.ed, notes, emotion_idx)
-    steps = gan_step.make_train_steps(cfg, fm_target=fm_target, fm_ed_target=fm_ed_target)
+    steps = precision_steps(gan_step.make_train_steps(cfg, fm_target=fm_target,
+                                                      fm_ed_target=fm_ed_target), precision)
     emotion_features = emotion_centroids(numeric, emotion_idx)
 
     ckpt_dir = os.path.join(workdir, cfg.checkpoint_dir) if workdir else cfg.checkpoint_dir

@@ -28,6 +28,7 @@ port's kernels forward and backward; on the CPU their plain versions run.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -41,6 +42,8 @@ from melogan_torch.device import resolve_device
 from melogan_torch.models.ed import EmotionDiscriminator
 from melogan_torch.models.gan import Critic, FeatureEncoder, Generator
 from melogan_torch.models.layers import gan_init_, torch_default_init_
+from melogan_torch.precision import mode_of
+from melogan_torch.train.harness import refuse_spectral_norm
 from melogan_torch.utils.weights import to_tensors
 
 
@@ -101,6 +104,25 @@ def build_models(cfg: GANConfig, ed_cfg: Optional[EDConfig] = None) -> GANModels
         feature_encoder=FeatureEncoder.from_config(cfg),
         ed=EmotionDiscriminator.from_config((ed_cfg or EDConfig()).model_cfg()),
     )
+
+
+def precision_tuned_cfg(cfg: GANConfig, precision) -> GANConfig:
+    """The JAX package's per-precision dispatch policy: a bf16 run
+    (``precision`` "bf16" or "default") unfuses ``fused_critic_batch`` and
+    keeps the reference-structured critic passes, which the JAX package
+    measured faster under bf16 on its TPU; other runs keep ``cfg``."""
+    if mode_of(precision) == "fast" and cfg.fused_critic_batch:
+        return dataclasses.replace(cfg, fused_critic_batch=False)
+    return cfg
+
+
+def refuse_gan_spectral_norm(cfg: GANConfig, ed_cfg: Optional[EDConfig], trainer: str) -> None:
+    """``harness.refuse_spectral_norm`` for a GAN run: the feature encoder's
+    or the frozen ED's spectral norm."""
+    on = ["encoder_use_sn"] if cfg.encoder_use_sn else []
+    if ed_cfg is not None and ed_cfg.use_spectral_norm:
+        on.append("EDConfig.use_spectral_norm")
+    refuse_spectral_norm(trainer, on)
 
 
 class HyperParams(NamedTuple):

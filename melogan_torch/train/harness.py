@@ -1,7 +1,8 @@
 """Training harness: plateau learning-rate control, early stopping, the KL
-schedules, the port of ``melogan_tpu/train/harness.py:17-80, 200-216``, and
+schedules, the port of ``melogan_tpu/train/harness.py:17-125, 200-216``, and
 what the VAE and ED loops share besides: ``AdamW``, optax's injected AdamW
-written out, and ``batch_indices``, an epoch's full batches.
+written out, ``batch_indices``, an epoch's full batches, and
+``with_precision``, the counterpart of ``jit_with_precision``.
 
 ``ReduceLROnPlateau`` and ``EarlyStopping`` hold the two controllers'
 settings and resume state (torch semantics, mode 'min'), as the JAX
@@ -14,11 +15,14 @@ decisions on the same validation losses. (The JAX dataclasses' own host
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from melogan_torch.precision import mode_of, using
 
 
 def _f32(x: float) -> float:
@@ -195,3 +199,39 @@ def capacity_schedule(epoch: int, capacity: float, ramp_epochs: int) -> float:
     if ramp_epochs <= 0 or epoch >= ramp_epochs:
         return capacity
     return capacity * epoch / ramp_epochs
+
+
+def with_precision(fn, precision=None):
+    """``fn`` run under a precision, the counterpart of the JAX package's
+    ``jit_with_precision``: None or ``"highest"`` returns ``fn`` itself
+    (IEEE f32, the parity default); ``"bf16"`` or ``"default"`` returns a
+    wrapper that sets this thread's precision to ``"fast"`` around each call
+    and restores the one before, also when the call raises. ``"fast"`` is
+    the TPU's one bf16 pass (``melogan_torch/precision.py``): only the
+    products' operands are rounded; parameters, activations at rest,
+    gradients and optimizer state stay f32. Anything else raises
+    ValueError."""
+    if mode_of(precision) == "f32":
+        return fn
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with using("fast"):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def refuse_spectral_norm(trainer: str, what: Sequence[str]) -> None:
+    """Raise NotImplementedError when a model to train has spectral norm on
+    (``what``: the config fields that turn it on). The JAX trainers cannot
+    train such a model: the GAN step applies the feature encoder with its
+    ``params`` alone (``gan_step.py:474-477``) and the ED trainer with params
+    and batch_stats (``ed_loop.py:116-145``), so flax finds no ``spectral``
+    collection; the port refuses it in the same way (ROADMAP C.5). Sampling
+    and the weight bridge take spectral-norm models."""
+    if what:
+        raise NotImplementedError(
+            f"{trainer}: cannot train a spectral-norm model ({', '.join(what)}): the JAX "
+            "trainers apply it without its 'spectral' collection (flax raises "
+            "ScopeCollectionNotFound), so there is no reference run to port")

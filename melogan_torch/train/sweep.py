@@ -39,8 +39,8 @@ from melogan_torch.device import resolve_device
 from melogan_torch.diagnostics import quality
 from melogan_torch.sampling import Sampler
 from melogan_torch.train import gan_step
-from melogan_torch.train.gan_loop import (_epoch_scalars, device_gather, emotion_centroids, run_epoch,
-                                          save_gan_final)
+from melogan_torch.train.gan_loop import (_epoch_scalars, device_gather, emotion_centroids,
+                                          precision_steps, run_epoch, save_gan_final)
 from melogan_torch.utils import weights
 from melogan_torch.utils.atomic import atomic_write
 from melogan_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -163,11 +163,16 @@ def sweep_gan(
     As in the JAX sweep, feature matching uses the note-space targets
     only: with λ_fm > 0 and ``ed_variables`` a solo ``train`` also matches
     the ED's features, so such a member is not that solo run.
-    ``precision`` and ``mesh`` are not ported yet and raise unless None."""
+    ``precision="bf16"`` (or ``"default"``) runs every member's steps with
+    bf16-rounded product operands and f32 sums, with ``fused_critic_batch``
+    off (``gan_step.precision_tuned_cfg``); the gates sample in f32, as in
+    the JAX sweep. A spectral-norm feature encoder or ED raises
+    NotImplementedError (ROADMAP C.5). ``mesh`` is not ported yet and raises
+    unless None."""
     if mesh is not None:
         raise NotImplementedError("a population sharded over a mesh is not ported yet")
-    if precision is not None:
-        raise NotImplementedError("reduced-precision training is not ported yet")
+    cfg = gan_step.precision_tuned_cfg(cfg, precision)
+    gan_step.refuse_gan_spectral_norm(cfg, ed_cfg, "sweep_gan")
     seeds = [int(s) for s in seeds]
     if len(set(seeds)) != len(seeds) and hyper_grid is None:
         raise ValueError(f"duplicate seeds in {seeds}")
@@ -272,9 +277,11 @@ def sweep_gan(
     if cfg.lambda_fm or (hypers is not None and any(float(h.lambda_fm) for h in hypers)):
         fm_target = gan_step.fm_targets_from_data(notes, emotion_idx)
     if hypers is None:
-        member_steps = [gan_step.make_train_steps(cfg, fm_target=fm_target)] * len(seeds)
+        member_steps = [precision_steps(gan_step.make_train_steps(cfg, fm_target=fm_target),
+                                        precision)] * len(seeds)
     else:
-        member_steps = [gan_step.make_train_steps(cfg, hyper=h, fm_target=fm_target) for h in hypers]
+        member_steps = [precision_steps(gan_step.make_train_steps(cfg, hyper=h, fm_target=fm_target),
+                                        precision) for h in hypers]
     gather = device_gather((notes, emotion_idx, latents.astype(np.float32), numeric), dev)
 
     # each member's epoch shuffles (the solo convention: seed = cfg.seed),

@@ -52,6 +52,7 @@ from melogan_torch.train.harness import (
     beta_schedule,
     capacity_schedule,
     sched_step,
+    with_precision,
 )
 from melogan_torch.utils import weights
 from melogan_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -175,14 +176,19 @@ def train(
     to ``<workdir>/<cfg.log_dir>``, reconstruction dumps to
     ``<workdir>/<cfg.recon_dir>``. ``resume=True`` restarts from
     ``ae_best.ckpt``, replaying the data order of the epochs before it; from
-    a JAX file the port's random stream goes on from its seed. ``mesh`` and
-    ``precision`` are not ported yet and raise unless None."""
+    a JAX file the port's random stream goes on from its seed.
+    ``precision="bf16"`` (or ``"default"``): the training and validation
+    steps and the reconstruction forwards run with bf16-rounded product
+    operands and f32 sums (``harness.with_precision``), as the JAX loop's
+    fused epoch program does; None or ``"highest"`` is IEEE f32. ``mesh`` is
+    not ported yet and raises unless None."""
     if mesh is not None:
         raise NotImplementedError("data-parallel training over a mesh is not ported yet")
-    if precision is not None:
-        raise NotImplementedError("reduced-precision training is not ported yet")
+    step = with_precision(train_step, precision)
+    evaluate = with_precision(eval_step, precision)
     dev = resolve_device(device)
     state = init_state(cfg, seed=cfg.seed, device=dev)
+    reconstruct = with_precision(lambda x: state.model(x)[0], precision)
 
     def under(path):
         return os.path.join(workdir, path) if workdir else path
@@ -237,13 +243,13 @@ def train(
         cap = None
         if cfg.kl_capacity > 0.0:
             cap = _f32(capacity_schedule(ep, cfg.kl_capacity, cfg.kl_capacity_epochs or cfg.epochs))
-        rows = [train_step(state, x_train_dev[i], beta, cfg.free_bits, cap) for i in idx]
+        rows = [step(state, x_train_dev[i], beta, cfg.free_bits, cap) for i in idx]
         tm = _metrics(rows)
-        vm = _metrics([eval_step(state, x_val_dev[i]) for i in val_idx])
+        vm = _metrics([evaluate(state, x_val_dev[i]) for i in val_idx])
         recon = None
         if dumps and ep % cfg.recon_freq == 0:
             with torch.no_grad():
-                recon = state.model(fixed_dev)[0].cpu().numpy()
+                recon = reconstruct(fixed_dev).cpu().numpy()
         lr, improved, done = sched_step(plateau, stopper, vm["total"], state.opt.lr)
         state.opt.lr = lr
         if improved:

@@ -8,10 +8,26 @@ the generator update, since its weights take no gradient; the JAX count
 takes it at 3×. The counts give the group step's bound on the card:
 operations over the f32 peak. ``vae_flops``, ``vae_step_flops`` and
 ``ed_step_flops`` have no JAX counterpart.
+
+The peaks of an H100 SXM (NVIDIA data sheet, dense, at 700 W) that the
+bounds divide by: IEEE f32 outside the tensor cores; the conv kernels'
+3xTF32 mode, three TF32 products per step, a third of the dense TF32 rate;
+and their one-pass bf16 mode, one TF32 product of bf16-rounded operands per
+step, the dense TF32 rate (``kernel_peak_flops``).
 """
 from __future__ import annotations
 
 from melogan_torch.config import AEConfig, GANConfig
+
+PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+
+
+def kernel_peak_flops(bf16: bool) -> float:
+    """The peak rate of the conv kernels' f32 work: 495 TFLOP/s in the
+    one-pass bf16 mode, 165 in 3xTF32."""
+    return PEAK_TF32_FLOPS if bf16 else PEAK_3XTF32_FLOPS
 
 
 def _linear(d_in: int, d_out: int) -> int:

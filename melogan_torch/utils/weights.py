@@ -12,6 +12,12 @@ modules carry, and ``convert_*`` is its inverse. Mapping:
 - ConvTranspose1d: HIO ``kernel`` (k, in, out) ↔ torch ``weight`` (in, out, k)
 - BatchNorm1d: scale/bias + batch_stats {mean, var} ↔ weight/bias/running_*
 - LayerNorm: scale/bias ↔ weight/bias
+- SpectralNormLinear (``SpectralNormLinear_i``, the feature encoder's and
+  the ED classifier's hidden layers with spectral norm on): as Linear, and
+  its ``spectral`` collection's ``u`` ↔ the buffer ``u``; the output layer
+  after them is then ``TorchLinear_0``. (The reference torch layout of
+  ``spectral_norm``, ``weight_orig``/``weight_u``/``weight_v``, is not
+  converted, as the JAX package's ``torch_interop`` does not convert it.)
 
 A tree or state dict without BatchNorm statistics maps its parameters
 alone: that is how Adam's moments, which follow their parameters' layouts,
@@ -82,6 +88,47 @@ def _exp_bn(p: Dict, s: Optional[Dict], prefix: str, sd: Dict) -> None:
     sd[f"{prefix}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
 
 
+def _sn_count(p: Mapping[str, Any]) -> int:
+    """How many ``SpectralNormLinear_i`` a flax parameter subtree holds."""
+    return sum(1 for k in p if k.startswith("SpectralNormLinear_"))
+
+
+def _exp_mlp(p: Mapping[str, Any], spectral: Optional[Mapping[str, Any]], hidden: int,
+             hidden_prefix, out_prefix: str, sd: Dict) -> None:
+    """An MLP's hidden Linears then its output Linear: ``TorchLinear_0..hidden``
+    without spectral norm; ``SpectralNormLinear_0..hidden-1`` (with ``u`` from
+    ``spectral`` where given) and ``TorchLinear_0`` with it."""
+    sn = _sn_count(p) > 0
+    for i in range(hidden):
+        name = f"SpectralNormLinear_{i}" if sn else f"TorchLinear_{i}"
+        _exp_linear(p[name], hidden_prefix(i), sd)
+        if sn and spectral is not None:
+            sd[f"{hidden_prefix(i)}.u"] = _np(spectral[name]["u"])
+    _exp_linear(p["TorchLinear_0" if sn else f"TorchLinear_{hidden}"], out_prefix, sd)
+
+
+def _mlp_hidden(p: Mapping[str, Any]) -> int:
+    """The hidden Linear count of a flax MLP subtree, with or without
+    spectral norm."""
+    return _sn_count(p) or sum(1 for k in p if k.startswith("TorchLinear_")) - 1
+
+
+def _conv_mlp(sd: Mapping, hidden: int, hidden_prefix, out_prefix: str
+              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Inverse of ``_exp_mlp``: (params, spectral) of an MLP's Linears;
+    spectral norm when the state dict carries the hidden layers' ``u``."""
+    params: Dict[str, Any] = {}
+    spectral: Dict[str, Any] = {}
+    sn = hidden > 0 and f"{hidden_prefix(0)}.u" in sd
+    for i in range(hidden):
+        name = f"SpectralNormLinear_{i}" if sn else f"TorchLinear_{i}"
+        params[name] = _linear(sd, hidden_prefix(i))
+        if sn:
+            spectral[name] = {"u": _np(sd[f"{hidden_prefix(i)}.u"])}
+    params["TorchLinear_0" if sn else f"TorchLinear_{hidden}"] = _linear(sd, out_prefix)
+    return params, spectral
+
+
 def _exp_ln(p: Dict, prefix: str, sd: Dict) -> None:
     sd[f"{prefix}.weight"] = _np(p["scale"])
     sd[f"{prefix}.bias"] = _np(p["bias"])
@@ -147,11 +194,12 @@ def export_ed(
     """ED variables → torch state_dict keyed per ed_model.py module names.
 
     Layer counts default to what the tree itself contains. A tree without
-    ``batch_stats`` maps its parameters alone (Adam's moments)."""
+    ``batch_stats`` maps its parameters alone (Adam's moments); with spectral
+    norm, ``spectral`` gives the classifier's ``u`` buffers."""
     p = variables["params"]
     st = variables.get("batch_stats", {})
     if mlp_hidden is None:
-        mlp_hidden = sum(1 for k in p["classifier"] if k.startswith("TorchLinear_")) - 1
+        mlp_hidden = _mlp_hidden(p["classifier"])
     sd: Dict[str, np.ndarray] = {}
     if "encoder" in p:
         if notes_blocks is None:
@@ -166,9 +214,9 @@ def export_ed(
                 sd,
             )
         _exp_linear(p["encoder"]["TorchLinear_0"], "encoder.project", sd)
-    for i in range(mlp_hidden):
-        _exp_linear(p["classifier"][f"TorchLinear_{i}"], f"classifier.net.{i * 3}", sd)
-    _exp_linear(p["classifier"][f"TorchLinear_{mlp_hidden}"], "classifier.head", sd)
+    spectral = variables.get("spectral")
+    _exp_mlp(p["classifier"], None if spectral is None else spectral["classifier"], mlp_hidden,
+             lambda i: f"classifier.net.{i * 3}", "classifier.head", sd)
     return sd
 
 
@@ -186,15 +234,15 @@ def export_critic(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 def export_feature_encoder(
     variables: Mapping[str, Any], hidden_layers: int | None = None
 ) -> Dict[str, np.ndarray]:
-    """JAX FeatureEncoder variables → torch state_dict (feature_encoder.py:5-45)."""
+    """JAX FeatureEncoder variables → torch state_dict (feature_encoder.py:5-45);
+    with spectral norm, ``spectral`` gives the hidden layers' ``u`` buffers."""
     p = variables["params"]
     if hidden_layers is None:
-        hidden_layers = sum(1 for k in p if k.startswith("TorchLinear_")) - 1
+        hidden_layers = _mlp_hidden(p)
     sd: Dict[str, np.ndarray] = {}
     _exp_ln(p["TorchLayerNorm_0"], "net.0", sd)
-    for i in range(hidden_layers):
-        _exp_linear(p[f"TorchLinear_{i}"], f"net.{1 + i * 3}", sd)
-    _exp_linear(p[f"TorchLinear_{hidden_layers}"], f"net.{1 + hidden_layers * 3}", sd)
+    _exp_mlp(p, variables.get("spectral"), hidden_layers, lambda i: f"net.{1 + i * 3}",
+             f"net.{1 + hidden_layers * 3}", sd)
     return sd
 
 
@@ -266,7 +314,8 @@ def convert_vae(sd: Mapping) -> Dict[str, Any]:
 
 
 def convert_ed(sd: Mapping, notes_blocks: int = 4, mlp_hidden: int = 2) -> Dict[str, Any]:
-    """ED state_dict (ed_model.py names) → {'params'[, 'batch_stats']}."""
+    """ED state_dict (ed_model.py names) → {'params'[, 'batch_stats'][,
+    'spectral']}."""
     params: Dict[str, Any] = {"classifier": {}}
     stats: Dict[str, Any] = {}
     if any(k.startswith("encoder.") for k in sd):
@@ -280,12 +329,13 @@ def convert_ed(sd: Mapping, notes_blocks: int = 4, mlp_hidden: int = 2) -> Dict[
         enc["TorchLinear_0"] = _linear(sd, "encoder.project")
         params["encoder"] = enc
         stats["encoder"] = enc_stats
-    for i in range(mlp_hidden):
-        params["classifier"][f"TorchLinear_{i}"] = _linear(sd, f"classifier.net.{i * 3}")
-    params["classifier"][f"TorchLinear_{mlp_hidden}"] = _linear(sd, "classifier.head")
+    params["classifier"], spectral = _conv_mlp(sd, mlp_hidden, lambda i: f"classifier.net.{i * 3}",
+                                               "classifier.head")
     out = {"params": params}
     if stats:
         out["batch_stats"] = stats
+    if spectral:
+        out["spectral"] = {"classifier": spectral}
     return out
 
 
@@ -329,12 +379,14 @@ def _fe_hidden_layers(sd: Mapping) -> int:
 
 
 def convert_feature_encoder(sd: Mapping, hidden_layers: int = 2) -> Dict[str, Any]:
-    params: Dict[str, Any] = {"TorchLayerNorm_0": _ln(sd, "net.0")}
+    """Feature-encoder state_dict → {'params'[, 'spectral']}."""
     # net: [LayerNorm, (Linear, GELU, Dropout) × hidden, Linear]
-    for i in range(hidden_layers):
-        params[f"TorchLinear_{i}"] = _linear(sd, f"net.{1 + i * 3}")
-    params[f"TorchLinear_{hidden_layers}"] = _linear(sd, f"net.{1 + hidden_layers * 3}")
-    return {"params": params}
+    mlp, spectral = _conv_mlp(sd, hidden_layers, lambda i: f"net.{1 + i * 3}",
+                              f"net.{1 + hidden_layers * 3}")
+    out: Dict[str, Any] = {"params": {"TorchLayerNorm_0": _ln(sd, "net.0"), **mlp}}
+    if spectral:
+        out["spectral"] = spectral
+    return out
 
 
 def convert_gan_final(ckpt: Mapping) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -842,9 +894,11 @@ def write_gan_final(path: str, final: Mapping[str, Any]) -> str:
     ``.ckpt`` (``G``/``G_ema`` as params and batch_stats, ``E_num``,
     ``emotion_features``), else with ``torch.save``."""
     if _is_ckpt(path):
+        fe_sd = final["E_num"]
         tree: Dict[str, Any] = {
             "G": convert_generator(final["G"]),
-            "E_num": {"params": _fe_params(final["E_num"])},
+            # {"params"}, and "spectral" for an encoder with spectral norm
+            "E_num": convert_feature_encoder(fe_sd, _fe_hidden_layers(fe_sd)),
         }
         if final.get("emotion_features") is not None:
             tree["emotion_features"] = _np(final["emotion_features"]).astype(np.float32)

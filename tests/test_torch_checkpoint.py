@@ -478,7 +478,13 @@ def test_track_best_writes_and_keeps_gan_best(rng, tmp_path, monkeypatch):
 def test_unported_train_options_raise(tmp_path):
     raw, emotions, numeric = _corpus(np.random.default_rng(0), 8)
     data = SplitData(raw, emotions, numeric, [])
-    for kw, what in (({"mesh": object()}, "mesh"), ({"precision": "bf16"}, "precision")):
-        with pytest.raises(NotImplementedError, match=what):
-            gan_loop.train(GANConfig(**TINY), EDConfig(**TINY_ED), data, workdir=str(tmp_path),
+    # bf16 precision is ported (tests/test_torch_precision.py); a spectral-norm
+    # model is refused, as the JAX loop cannot train one (ROADMAP C.5)
+    cases = (({"mesh": object()}, NotImplementedError, "mesh"),
+             ({"precision": "fp16"}, ValueError, "precision"),
+             ({"cfg": GANConfig(**dict(TINY, encoder_use_sn=True))}, NotImplementedError, "spectral"))
+    for kw, err, what in cases:
+        cfg = kw.pop("cfg", GANConfig(**TINY))
+        with pytest.raises(err, match=what):
+            gan_loop.train(cfg, EDConfig(**TINY_ED), data, workdir=str(tmp_path),
                            epochs=1, verbose=False, device="cpu", **kw)

@@ -15,6 +15,12 @@ tests/test_torch_igemm.py); the plain versions sum in IEEE f32 (TF32 off),
 all in different orders over at most 5·Cin products per output. 1e-4
 absolute and relative on O(1) outputs is about 100× that rounding; one-pass
 TF32 would miss it.
+
+The one-pass bf16 mode rounds x and w (and, as an input gradient, g and wᵀ)
+to bf16 as its plain version does (``bf16=True``: ``.to(torch.bfloat16)``),
+and a product of bf16 values is exact in f32: only the summation order
+differs, so the same 1e-4 holds. Its results must differ from the f32
+mode's, and the f32 mode's must not move after bf16 launches (bit for bit).
 """
 import numpy as np
 import pytest
@@ -25,6 +31,7 @@ from melogan_torch.ops import conv as conv_ops
 from melogan_torch.ops.conv1d import conv1d_cuda, conv1d_plain
 from melogan_torch.ops.convt import convt1d_cuda, convt1d_plain
 from melogan_torch.ops.decoder import decoder_tail_cuda, decoder_tail_plain, fused_decoder_tail
+from melogan_torch.precision import using
 from melogan_torch.sampling import Sampler
 
 pytestmark = pytest.mark.cuda
@@ -157,6 +164,117 @@ def test_conv_backward_runs_the_other_kernel(cuda, rng, b, l, cin, cout, k, s, p
     assert other.launches == before + 1
     for a, e in zip(got, _grads(plain, x, w, bias, g)):
         torch.testing.assert_close(a, e, atol=1e-4 * float(e.abs().max()), rtol=1e-4)
+
+
+def _bf16_mode_check(wrapper, cuda_fn, plain_fn, x, w, bias):
+    """The bf16 mode (``cuda_fn``, a call of ``wrapper``) against its plain
+    version; the f32 mode bit for bit the same before and after the bf16
+    launches; one counted bf16 launch each."""
+    f32_before = cuda_fn(x, w, bias)
+    before = (wrapper.launches, wrapper.launches_bf16)
+    out = cuda_fn(x, w, bias, bf16=True)
+    out_nobias = cuda_fn(x, w, None, bf16=True)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_bf16) == (before[0] + 2, before[1] + 2)
+    for got, b in ((out, bias), (out_nobias, None)):
+        want = plain_fn(x, w, b, bf16=True)
+        torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=1e-4)
+    assert torch.equal(cuda_fn(x, w, bias), f32_before)
+    assert not torch.equal(out, f32_before)
+
+
+@pytest.mark.parametrize("b,l,cin,cout,k,s,p,op", CONVT_SHAPES)
+def test_convt1d_bf16_mode_matches_plain(cuda, rng, b, l, cin, cout, k, s, p, op):
+    x = _t(rng.normal(size=(b, l, cin)), cuda)
+    w = _t(rng.normal(size=(k, cin, cout)) * 0.1, cuda)
+    bias = _t(rng.normal(size=(cout,)) * 0.1, cuda)
+
+    def ours(x_, w_, b_, bf16=False):
+        return convt1d_cuda(x_, w_, b_, s, p, op, bf16=bf16)
+
+    def plain(x_, w_, b_, bf16=False):
+        return convt1d_plain(x_, w_, b_, s, p, op, bf16=bf16)
+
+    _bf16_mode_check(convt1d_cuda, ours, plain, x, w, bias)
+
+
+@pytest.mark.parametrize("b,l,cin,cout,k,s,p", CONV1D_SHAPES)
+def test_conv1d_bf16_mode_matches_plain(cuda, rng, b, l, cin, cout, k, s, p):
+    x = _t(rng.normal(size=(b, l, cin)), cuda)
+    w = _t(rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin), cuda)
+    bias = _t(rng.normal(size=(cout,)) * 0.1, cuda)
+
+    def ours(x_, w_, b_, bf16=False):
+        return conv1d_cuda(x_, w_, b_, s, p, bf16=bf16)
+
+    def plain(x_, w_, b_, bf16=False):
+        return conv1d_plain(x_, w_, b_, s, p, bf16=bf16)
+
+    _bf16_mode_check(conv1d_cuda, ours, plain, x, w, bias)
+
+
+@pytest.mark.parametrize("b,l,cin,cout,k,s,p,op,transposed", [
+    (4, 512, 4, 64, 5, 1, 2, 0, False),
+    (32, 512, 64, 128, 3, 1, 1, 0, False),
+    (3, 511, 8, 16, 5, 2, 2, 0, False),
+    (32, 512, 256, 256, 3, 1, 1, 0, False),
+    (4, 64, 256, 128, 5, 2, 2, 1, True),
+    (4, 128, 128, 64, 5, 2, 2, 1, True),
+    (4, 256, 64, 4, 5, 2, 2, 1, True),
+])
+def test_conv_backward_at_bf16_runs_the_other_kernel_in_bf16(cuda, rng, b, l, cin, cout, k, s, p, op,
+                                                             transposed):
+    """Under "fast" each Function's forward and input gradient launch the
+    kernels' bf16 mode (one each, counted per mode), and its dx, dw and dbias
+    match the same Function on the CPU, where the plain versions and the dw
+    tap products round the same operands."""
+    x = _t(rng.normal(size=(b, l, cin)), cuda)
+    w = _t(rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin), cuda)
+    bias = _t(rng.normal(size=(cout,)) * 0.1, cuda)
+    if transposed:
+        ours = lambda x, w, bias: conv_ops.conv_transpose1d(x, w, s, p, op, bias)  # noqa: E731
+        own, other = convt1d_cuda, conv1d_cuda
+    else:
+        ours = lambda x, w, bias: conv_ops.conv1d(x, w, s, p, bias)  # noqa: E731
+        own, other = conv1d_cuda, convt1d_cuda
+    with torch.no_grad():
+        shape = tuple(ours(x, w, bias).shape)
+    g = _t(rng.normal(size=shape), cuda)
+    before = (own.launches_bf16, other.launches_bf16)
+    with using("fast"):
+        got = _grads(ours, x, w, bias, g)
+        torch.cuda.synchronize()
+        want = _grads(ours, *(t.cpu() for t in (x, w, bias, g)))
+    assert (own.launches_bf16, other.launches_bf16) == (before[0] + 1, before[1] + 1)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a.cpu(), e, atol=1e-4 * float(e.abs().max()), rtol=1e-4)
+    f32 = _grads(ours, x, w, bias, g)
+    assert not torch.equal(got[0], f32[0]) and not torch.equal(got[1], f32[1])
+
+
+def test_fast_sampler_on_card_runs_bf16_convt_and_no_tail(cuda, rng):
+    """``Sampler(fast_math=True)``: three ``convt1d`` launches in bf16 mode a
+    call and no decoder-tail launch; its notes match the CPU port's fast
+    path within 2⁻⁸ of their scale (the same roundings, sums in another
+    order: where an f32 sum and its CPU twin round to neighbouring bf16
+    values in the next layer, that operand moves by one bf16 step) and
+    differ from the card's f32 sampler's."""
+    cfg = GANConfig()
+    gpu = Sampler(cfg, seed=0, fast_math=True, device="cuda")
+    f32 = Sampler(cfg, gen_variables=gpu.generator.state_dict(),
+                  fe_variables=gpu.feature_encoder.state_dict(), device="cuda")
+    cpu = Sampler(cfg, gen_variables=gpu.generator.state_dict(),
+                  fe_variables=gpu.feature_encoder.state_dict(), fast_math=True, device="cpu")
+    feats = rng.normal(size=(8, 6)).astype(np.float32)
+    noise = rng.normal(size=(8, cfg.noise_dim)).astype(np.float32)
+    before = (convt1d_cuda.launches_bf16, convt1d_cuda.launches, decoder_tail_cuda.launches)
+    ours = gpu.sample_from(feats, noise)
+    assert (convt1d_cuda.launches_bf16 - before[0], convt1d_cuda.launches - before[1],
+            decoder_tail_cuda.launches - before[2]) == (3, 3, 0)
+    theirs = cpu.sample_from(feats, noise)
+    scale = float(np.abs(theirs).max())
+    assert float(np.abs(ours - theirs).max()) <= 2.0 ** -8 * scale
+    assert not np.array_equal(ours, f32.sample_from(feats, noise))
 
 
 def _decoder_stages(rng, widths, dev):

@@ -23,7 +23,7 @@ from melogan_tpu.utils import torch_interop
 from melogan_torch.config import EDConfig, GANConfig
 from melogan_torch.models import ed as ted
 from melogan_torch.models import gan as tgan
-from melogan_torch.models.layers import Dropout, gan_init_, torch_default_init_
+from melogan_torch.models.layers import Dropout, SpectralNormLinear, gan_init_, torch_default_init_
 from melogan_torch.utils import weights
 
 REL = 1e-4
@@ -192,8 +192,10 @@ def test_inits_draw_from_the_generator_only():
 
 
 def test_unported_ed_options_raise():
-    with pytest.raises(NotImplementedError, match="SpectralNorm"):
-        ted.EmotionDiscriminator.from_config(dict(SMALL, use_spectral_norm=True))
+    # spectral norm is ported: the classifier's hidden layers, not its head
+    sn = ted.EmotionDiscriminator.from_config(dict(SMALL, use_spectral_norm=True))
+    assert isinstance(sn.classifier.net[0], SpectralNormLinear)
+    assert not isinstance(sn.classifier.head, SpectralNormLinear)
     with pytest.raises(ValueError, match="input_mode"):
         ted.EmotionDiscriminator(input_mode="audio")
     with pytest.raises(ValueError, match="expected"):

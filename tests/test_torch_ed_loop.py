@@ -570,9 +570,14 @@ def test_latent_mode_trains_and_evaluates(tmp_path):
 def test_unported_train_options_raise(tmp_path):
     cfg = EDConfig(**dict(SMALL, num_epochs=1))
     d = _split(51, 9)
-    for kw in ({"mesh": object()}, {"precision": "bf16"}):
-        with pytest.raises(NotImplementedError):
-            ed_loop.train(cfg, d, d, workdir=str(tmp_path), device="cpu", **kw)
+    # bf16 precision is ported (tests/test_torch_precision.py); a spectral-norm
+    # classifier is refused, as the JAX trainer cannot train one (ROADMAP C.5)
+    sn_cfg = EDConfig(**dict(SMALL, num_epochs=1, use_spectral_norm=True))
+    for c, kw, err in ((cfg, {"mesh": object()}, NotImplementedError),
+                       (cfg, {"precision": "fp16"}, ValueError),
+                       (sn_cfg, {}, NotImplementedError)):
+        with pytest.raises(err):
+            ed_loop.train(c, d, d, workdir=str(tmp_path), device="cpu", **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ed_loop.train(cfg, d, d, workdir=str(tmp_path))

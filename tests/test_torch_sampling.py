@@ -141,8 +141,8 @@ def test_swap_variables_and_emotion_features(rng):
 
 
 def test_unported_sampler_options_raise():
-    with pytest.raises(NotImplementedError, match="fast_math"):
-        Sampler(GANConfig(**SMALL), fast_math=True, device="cpu")
+    # fast_math is ported (tests/test_torch_precision.py)
+    assert Sampler(GANConfig(**SMALL), fast_math=True, device="cpu").fast_math
     with pytest.raises(NotImplementedError, match="mesh"):
         Sampler(GANConfig(**SMALL), mesh=object(), device="cpu")
 

@@ -599,5 +599,9 @@ def test_validation_raises_as_jax(corpus, tmp_path, case):
 def test_unported_options_raise(corpus, tmp_path):
     with pytest.raises(NotImplementedError, match="mesh"):
         _sweep(_cfg(), corpus, tmp_path, [1, 2], mesh=object())
-    with pytest.raises(NotImplementedError, match="precision"):
-        _sweep(_cfg(), corpus, tmp_path, [1, 2], precision="bf16")
+    # bf16 precision is ported (tests/test_torch_precision.py); a spectral-norm
+    # model is refused, as the JAX sweep cannot train one (ROADMAP C.5)
+    with pytest.raises(ValueError, match="precision"):
+        _sweep(_cfg(), corpus, tmp_path, [1, 2], precision="fp16")
+    with pytest.raises(NotImplementedError, match="spectral"):
+        _sweep(dataclasses.replace(_cfg(), encoder_use_sn=True), corpus, tmp_path, [1, 2])
