@@ -120,10 +120,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     counted windows, ``fast_vs_f32`` (the fast notes against the card's f32
     sampler and the CPU's fast path; the f32 walls) and ``bf16_steps``
     (group, VAE and ED steps at f32 and bf16 in turns);
-15. prints the per-mode launch counts (``launches_by_mode``), the
-    ``kernels`` JSON line (launches summed over every driven path; the
-    bf16 mode of each conv kernel as an entry of its own), the nvidia-smi
-    line, and last ``{"ok": true, "device": {...}}``.
+15. the command line, each path with the counts set to 0 first and held
+    to ``cli_counts``' prediction from the split sizes: ``cli_pipeline``
+    (``melogan_torch.cli.main(["pipeline", ...])`` in this process at the
+    shipped widths, ``configs/ae_freebits.yaml``, ``ed.yaml`` and
+    ``gan.yaml``, 96 synthetic songs an emotion, 6 epochs of each trainer,
+    ``--gan-fm 10 --gan-track-best``; every stage's wall from
+    ``pipeline_timings.json``), ``cli_resume`` (the same argv with
+    ``--resume``: every stage skips and nothing launches; then, with
+    train-gan's completion marker deleted, train-gan resumes from
+    ``gan_epoch0005.ckpt`` and the sample stage runs again),
+    ``cli_commands`` (``sample``, ``eval-gen`` with JAX's report keys,
+    ``quality-gate --no-strict`` at both tiers, ``export-checkpoint`` then
+    ``import-checkpoint`` giving back the G and E_num leaves, ``profile``
+    and ``doctor`` reporting the card OK) and ``cli_module`` (``python -m
+    melogan_torch sample`` and ``serve`` as child processes: ``/healthz``
+    on the gpu platform, one ``POST /generate``, SIGINT, exit 0; the
+    children's launches are not counted here);
+16. prints the per-mode launch counts (``launches_by_mode``), the
+    script's wall, the ``kernels`` JSON line (launches summed over every
+    driven path; the bf16 mode of each conv kernel as an entry of its own),
+    the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing a result.
@@ -1246,12 +1263,10 @@ def _ed_cfg():
 
 
 def ed_counts(data):
-    """The launches ``ed_train`` must show: per epoch 4 ``conv1d`` and 3
-    ``convt1d`` a step, 4 ``conv1d`` a validation batch."""
-    steps = data["train"].n // ED_BATCH
-    val_batches = max(1, data["val"].n // min(ED_BATCH, data["val"].n))
-    return {"conv1d": ED_EPOCHS * 4 * (steps + val_batches), "convt1d": ED_EPOCHS * 3 * steps,
-            "steps_per_epoch": steps, "val_batches": val_batches}
+    """The launches ``ed_train`` must show (``ed_launches``)."""
+    n_train, n_val = data["train"].n, data["val"].n
+    return {**ed_launches(ED_BATCH, n_train, n_val, ED_EPOCHS),
+            "steps_per_epoch": _batches(n_train, ED_BATCH), "val_batches": _batches(n_val, ED_BATCH)}
 
 
 def drive_ed_train(torch, np, data, results):
@@ -1591,19 +1606,9 @@ def state_differences(torch, a, b):
 def sweep_counts(cfg, member_epochs, gates):
     """The launches a sweep phase must show, from the code: a member's epoch
     is ``gan_loop.run_epoch`` over the training corpus (2 group steps and a
-    2-batch tail at 384 rows, batch 32). A group step launches ``convt1d``
-    22 times (the generator's 3 transposed convs in each of 5 critic
-    updates and in the generator update, then the input gradients of the
-    frozen ED's 4 convs) and ``conv1d`` 7 times (the ED's 4 convs, the input
-    gradients of the decoder's 3); a tail batch 3 ``convt1d`` (the
-    generator's forward); a gate one ``decoder_tail`` (one
-    ``sample_notes`` of 4 × 2 pieces)."""
-    n_batches = CORPUS_ROWS // cfg.batch_size
-    groups = n_batches // cfg.critic_iters
-    tail = n_batches - groups * cfg.critic_iters
-    per_epoch = {"convt1d": groups * (3 * cfg.critic_iters + 3 + 4) + 3 * tail, "conv1d": groups * (4 + 3)}
-    return {"conv1d": member_epochs * per_epoch["conv1d"], "convt1d": member_epochs * per_epoch["convt1d"],
-            "decoder_tail": gates}
+    2-batch tail at 384 rows, batch 32; ``gan_launches``, no λ_fm); a gate
+    one ``decoder_tail`` (one ``sample_notes`` of 4 × 2 pieces)."""
+    return {**gan_launches(cfg, CORPUS_ROWS, member_epochs, 0), "decoder_tail": gates}
 
 
 class _Timed:
@@ -2165,7 +2170,347 @@ def drive_spectral(torch, np, results):
           "sigma": [float(m.sigma()) for m in s.feature_encoder.net if hasattr(m, "sigma")]}, results)
 
 
+# ---------------------------------------------------------------------------
+# the command line: python -m melogan_torch, in this process and in children
+# ---------------------------------------------------------------------------
+
+CLI_PER_EMOTION = 96  # 384 songs: about 268 train rows, a full group of 5 batches every GAN epoch
+CLI_EPOCHS = 6  # SAVE_FREQ 5: gan_epoch0005.ckpt, gates at epochs 5 and 6
+CLI_SAMPLES = 2
+CLI_JUDGE_EPOCHS = 2
+PROFILE_STEPS = 5
+CLI_DIR = os.path.join(WORK_DIR, "cli")
+CLI_CONFIGS = {k: os.path.join(ROOT, "configs", f) for k, f in
+               (("ae", "ae_freebits.yaml"), ("ed", "ed.yaml"), ("gan", "gan.yaml"))}
+EVAL_GEN_KEYS = {"n", "accuracy", "chance", "per_emotion", "confusion", "n_per_emotion", "seed",
+                 "judge_real"}  # melogan_tpu/cli.py:1210-1220 with diagnostics/judge.py
+
+
+def cli_pipeline_argv(work, resume=False):
+    return (["pipeline", "--workdir", work, "--synthetic", "--per-emotion", str(CLI_PER_EMOTION),
+             "--epochs", str(CLI_EPOCHS), "--ae-config", CLI_CONFIGS["ae"], "--ed-config", CLI_CONFIGS["ed"],
+             "--gan-config", CLI_CONFIGS["gan"], "--gan-fm", "10", "--gan-track-best",
+             # the gate stage exits 1 on a failing gate, which 6 epochs give;
+             # cli_commands runs quality-gate --no-strict at both tiers
+             "--skip-quality-gate"]
+            + (["--resume"] if resume else []))
+
+
+def run_cli(argv, name):
+    """``melogan_torch.cli.main(argv)`` in this process (the launches count),
+    its standard output into ``<CLI_DIR>/<name>.log`` and returned; on an
+    error the log's tail goes to stderr before the error propagates."""
+    import contextlib
+
+    from melogan_torch.cli import main as cli_main
+
+    os.makedirs(CLI_DIR, exist_ok=True)
+    log = os.path.join(CLI_DIR, f"{name}.log")
+    try:
+        with open(log, "w") as f, contextlib.redirect_stdout(f):
+            cli_main(argv)
+    except BaseException:
+        with open(log) as f:
+            print(f"cli {name} failed; the tail of {log}:\n" + "".join(f.readlines()[-40:]),
+                  file=sys.stderr, flush=True)
+        raise
+    with open(log) as f:
+        return f.read()
+
+
+def _rows(work):
+    import numpy as np
+
+    return {s: int(np.load(os.path.join(work, "data", "splits", s, "notes.npy"), mmap_mode="r").shape[0])
+            for s in ("train", "val", "test")}
+
+
+def _batches(n, batch):
+    """``train.harness.batch_indices``: full batches, a split smaller than
+    the batch one whole-split batch."""
+    return max(1, n // min(batch, n))
+
+
+def vae_launches(cfg, n_train, n_val, epochs):
+    """``vae_loop.train``: a step runs the encoder's 3 convs (``conv1d``)
+    and the decoder's 3 transposed convs (``convt1d``) forward, their input
+    gradients backward (3 ``conv1d``; 2 ``convt1d``, the input's own not
+    being needed); a validation batch and the reconstruction dump of every
+    epoch one forward each."""
+    steps, val = _batches(n_train, cfg.batch_size), _batches(n_val, cfg.batch_size)
+    dumps = epochs // cfg.recon_freq if cfg.recon_save_count > 0 else 0
+    return {"conv1d": epochs * (6 * steps + 3 * val) + 3 * dumps,
+            "convt1d": epochs * (5 * steps + 3 * val) + 3 * dumps}
+
+
+def ed_launches(batch, n_train, n_val, epochs):
+    """``ed_loop.train``: a step 4 ``conv1d`` forward and 3 ``convt1d`` (the
+    input gradients of the upper 3 convs), a validation batch 4 ``conv1d``."""
+    steps, val = _batches(n_train, batch), _batches(n_val, batch)
+    return {"conv1d": epochs * 4 * (steps + val), "convt1d": epochs * 3 * steps}
+
+
+def gan_launches(cfg, n_train, epochs, fm_ed_rows):
+    """``gan_loop.train``: a group step launches ``convt1d`` 22 times (the
+    generator's 3 transposed convs in each of 5 critic updates and in the
+    generator update, then the input gradients of the frozen ED's 4 convs)
+    and ``conv1d`` 7 times (the ED's 4 convs, the input gradients of the
+    decoder's 3); a tail batch 3 ``convt1d`` (the generator's forward); with
+    λ_fm and an ED, the 4 ``conv1d`` of each 128-row chunk of the
+    ``fm_ed_rows`` that the ED's feature targets take."""
+    n_batches = n_train // cfg.batch_size
+    groups = n_batches // cfg.critic_iters
+    tail = n_batches - groups * cfg.critic_iters
+    chunks = -(-fm_ed_rows // 128)
+    return {"conv1d": epochs * groups * 7 + 4 * chunks,
+            "convt1d": epochs * (groups * (3 * cfg.critic_iters + 7) + 3 * tail)}
+
+
+def cli_counts(rows, gan_epochs, gates_and_samples, vae_epochs=0, ed_epochs=0, encode=False):
+    """The launches of a pipeline run from its split sizes: the stages that
+    ran, each by the code's count above; one ``decoder_tail`` a gate and a
+    ``sample`` stage."""
+    from melogan_torch.config import AEConfig, EDConfig, GANConfig
+
+    ae, ed, gan = (c.from_yaml(CLI_CONFIGS[k]) for c, k in ((AEConfig, "ae"), (EDConfig, "ed"),
+                                                            (GANConfig, "gan")))
+    parts = [vae_launches(ae, rows["train"], rows["val"], vae_epochs),
+             ed_launches(ed.batch_size, rows["train"], rows["val"], ed_epochs),
+             gan_launches(gan, rows["train"], gan_epochs, rows["train"])]
+    if encode:
+        parts.append({"conv1d": 3 * sum(-(-n // 256) for n in rows.values()), "convt1d": 0})
+    return {"conv1d": sum(p["conv1d"] for p in parts), "convt1d": sum(p["convt1d"] for p in parts),
+            "decoder_tail": gates_and_samples}
+
+
+def _count_mids(d):
+    from melogan_torch.midi.midifile import read_midi
+
+    mids = sorted(f for f in os.listdir(d) if f.endswith(".mid"))
+    for f in mids:
+        if len(read_midi(os.path.join(d, f)).note_array()) == 0:
+            raise SystemExit(f"{d}/{f} holds no notes")
+    return mids
+
+
+def drive_cli_pipeline(np, results):
+    """``cli_pipeline``: ``python -m melogan_torch pipeline`` in this process
+    at the shipped widths (``configs/ae_freebits.yaml``, ``ed.yaml``,
+    ``gan.yaml``), a synthetic corpus of 96 songs an emotion, 6 epochs of
+    each trainer, λ_fm = 10 and the gate-tracked best, without the final
+    gate stage (it exits 1 on a failing gate; ``cli_commands`` runs the
+    gate); each stage's wall from ``pipeline_timings.json``."""
+    import shutil
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    work = os.path.join(CLI_DIR, "work")
+    t0 = time.perf_counter()
+    out = run_cli(cli_pipeline_argv(work), "pipeline")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(work, "pipeline_timings.json")) as f:
+        timings = json.load(f)
+    stages = [s["name"] for s in timings["stages"]]
+    want = ["synth-data", "preprocess", "make-splits", "split-arrays", "train-ae", "encode", "train-ed",
+            "train-gan", "sample"]
+    if stages != want or timings["resumed"] or "pipeline complete" not in out:
+        raise SystemExit(f"cli_pipeline: stages {stages}, resumed {timings['resumed']}")
+    ckpts = sorted(os.listdir(os.path.join(work, "experiments", "gan", "checkpoints")))
+    for f in ("gan_best.ckpt", "gan_epoch0005.ckpt", "gan_final.ckpt", "gan_final.pth"):
+        if f not in ckpts:
+            raise SystemExit(f"cli_pipeline: {f} missing from {ckpts}")
+    mids = _count_mids(os.path.join(work, "generated_tests"))
+    best = os.path.join(work, "experiments", "gan", "checkpoints", "gan_best.ckpt")
+    if len(mids) != 8 or f"loaded generator from {best}" not in out:
+        raise SystemExit(f"cli_pipeline: {len(mids)} .mid files, the sample stage did not load {best}")
+    rows = _rows(work)
+    emit({"phase": "cli_pipeline", "wall_s": wall, "rows": rows,
+          "stage_seconds": {s["name"]: s["seconds"] for s in timings["stages"]},
+          "total_seconds": timings["total_seconds"], "checkpoints": ckpts}, results)
+    return {"work": work, "rows": rows}
+
+
+def drive_cli_resume(piped, results):
+    """``cli_resume``: the same argv with ``--resume`` (every stage skips,
+    no launch), then with train-gan's marker deleted: train-gan resumes
+    from ``gan_epoch0005.ckpt`` for the last epoch and the sample stage runs
+    again."""
+    work = piped["work"]
+    from melogan_torch.ops import conv1d, convt, decoder
+
+    wrappers = (conv1d.conv1d_cuda, convt.convt1d_cuda, decoder.decoder_tail_cuda)
+    out = run_cli(cli_pipeline_argv(work, resume=True), "resume_done")
+    skipped = ["synth-data", "preprocess", "make-splits", "split-arrays"]
+    done = ["train-ae", "encode", "train-ed", "train-gan", "sample"]
+    missing = ([s for s in skipped if f"--resume: skipping {s} (outputs exist)" not in out]
+               + [s for s in done if f"--resume: skipping {s} (completed in a previous run)" not in out])
+    first = {w.__name__: w.launches for w in wrappers}
+    if missing or any(first.values()):
+        raise SystemExit(f"cli_resume: no skip for {missing}; launches {first}")
+    os.unlink(os.path.join(work, ".pipeline_done", "train-gan.json"))
+    t0 = time.perf_counter()
+    out = run_cli(cli_pipeline_argv(work, resume=True), "resume_gan")
+    wall = time.perf_counter() - t0
+    periodic = os.path.join(work, "experiments", "gan", "checkpoints", "gan_epoch0005.ckpt")
+    with open(os.path.join(work, "pipeline_timings.json")) as f:
+        timings = json.load(f)
+    ran = {s["name"]: s["seconds"] for s in timings["stages"] if s["seconds"] > 0}
+    if (f"resumed from {periodic} at epoch {CLI_EPOCHS}" not in out
+            or "--resume: skipping train-ed (completed in a previous run)" not in out
+            or sorted(ran) != ["sample", "train-gan"] or not timings["resumed"]):
+        raise SystemExit(f"cli_resume: stages run {ran}; the train-gan resume from {periodic} not seen")
+    if len(_count_mids(os.path.join(work, "generated_tests"))) != 8:
+        raise SystemExit("cli_resume: the sample stage wrote no 8 files")
+    emit({"phase": "cli_resume", "done_run_launches": first, "resumed_wall_s": wall,
+          "stage_seconds": ran}, results)
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def drive_cli_commands(np, piped, results):
+    """``cli_commands``: ``sample``, ``eval-gen``, ``quality-gate`` at both
+    tiers, ``export-checkpoint`` then ``import-checkpoint`` of the
+    pipeline's ``gan_final.ckpt``, ``profile`` and ``doctor``, each by its
+    own argv in this process."""
+    import torch
+
+    from melogan_torch.utils.checkpoint import load_checkpoint
+
+    work = piped["work"]
+    dirs = ["--splits-dir", os.path.join(work, "data", "splits"),
+            "--processed-dir", os.path.join(work, "data", "processed")]
+    rec = {"phase": "cli_commands"}
+    out_dir = os.path.join(CLI_DIR, "sample")
+    run_cli(["sample", "--emotion", "all", "--samples", str(CLI_SAMPLES), "--workdir", work,
+             "--config", CLI_CONFIGS["gan"], "--out", out_dir], "sample")
+    rec["sample_files"] = _count_mids(out_dir)
+    if len(rec["sample_files"]) != 4 * CLI_SAMPLES:
+        raise SystemExit(f"cli sample wrote {rec['sample_files']}")
+
+    run_cli(["eval-gen", "--workdir", work, "--config", CLI_CONFIGS["gan"], "--ed-config", CLI_CONFIGS["ed"],
+             *dirs, "--samples", str(CLI_SAMPLES), "--judge-epochs", str(CLI_JUDGE_EPOCHS)], "eval_gen")
+    with open(os.path.join(work, "eval_gen.json")) as f:
+        report = json.load(f)
+    if set(report) != EVAL_GEN_KEYS or report["n"] != 4 * CLI_SAMPLES or report["judge_real"] is None:
+        raise SystemExit(f"cli eval-gen: eval_gen.json {report}")
+    rec["eval_gen"] = {k: report[k] for k in ("accuracy", "n")}
+    rec["eval_gen"]["judge_real"] = report["judge_real"]["accuracy"]
+
+    gen = os.path.join(work, "generated_tests")
+    for tier in ("default", "strict"):
+        out = run_cli(["quality-gate", gen, "--tier", tier, "--no-strict"], f"gate_{tier}")
+        rec[f"gate_{tier}"] = [ln for ln in out.splitlines() if "quality gate" in ln]
+        if not rec[f"gate_{tier}"]:
+            raise SystemExit(f"cli quality-gate --tier {tier}: no verdict")
+
+    final = os.path.join(work, "experiments", "gan", "checkpoints", "gan_final.ckpt")
+    pth, back = os.path.join(CLI_DIR, "exported.pth"), os.path.join(CLI_DIR, "imported.ckpt")
+    run_cli(["export-checkpoint", final, pth, "--kind", "gan"], "export")
+    run_cli(["import-checkpoint", pth, back, "--kind", "gan"], "import")
+    a, b = load_checkpoint(final), load_checkpoint(back)
+    for key in ("G", "E_num"):
+        la, lb = _leaves(a[key]), _leaves(b[key])
+        if sorted(la) != sorted(lb) or not all(np.array_equal(la[k], lb[k]) for k in la):
+            raise SystemExit(f"cli export/import: the {key} leaves differ from the original's")
+    rec["roundtrip_leaves"] = sum(len(_leaves(a[k])) for k in ("G", "E_num"))
+
+    out = run_cli(["profile", "--steps", str(PROFILE_STEPS), "--config", CLI_CONFIGS["gan"]], "profile")
+    rec["profile"] = json.loads(out.strip().splitlines()[-1])
+    if rec["profile"]["steps"] != PROFILE_STEPS:
+        raise SystemExit(f"cli profile: {rec['profile']}")
+
+    out = run_cli(["doctor", "--workdir", work], "doctor")
+    if f"[OK] device: {torch.cuda.get_device_name(0)}" not in out or "[OK] doctor:" not in out:
+        raise SystemExit(f"cli doctor:\n{out}")
+    rec["doctor"] = [ln for ln in out.splitlines() if ln.startswith("[")]
+    emit(rec, results)
+
+
+def cli_commands_counts(rows):
+    """``sample`` 1 ``decoder_tail``; ``eval-gen`` the judge's training on
+    val (test as its validation; ``ed_launches``), its pass over the real
+    test rows and over the generated ones (4 ``conv1d`` each) and one
+    ``sample_notes``; ``profile`` 1 + PROFILE_STEPS ``sample_notes``."""
+    from melogan_torch.config import EDConfig
+
+    ed = EDConfig.from_yaml(CLI_CONFIGS["ed"])
+    judge = ed_launches(ed.batch_size, rows["val"], rows["test"], CLI_JUDGE_EPOCHS)
+    return {"conv1d": judge["conv1d"] + 8, "convt1d": judge["convt1d"],
+            "decoder_tail": 1 + 1 + 1 + PROFILE_STEPS}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def drive_cli_module(piped, results):
+    """``cli_module``: ``python -m melogan_torch sample`` in a child process,
+    then ``python -m melogan_torch serve`` on the pipeline's
+    ``gan_final.ckpt``: ``/healthz`` says platform gpu, one ``POST
+    /generate`` gives MIDI bytes, SIGINT stops it and it exits 0. The
+    children's launches are their own (not counted here)."""
+    import signal
+
+    work = piped["work"]
+    env = dict(os.environ, MELOGAN_POOL_WARM="0")
+    out_dir = os.path.join(CLI_DIR, "module_sample")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "melogan_torch", "sample", "--emotion", "calm", "--samples", "2",
+                        "--seed", "7", "--workdir", work, "--config", CLI_CONFIGS["gan"], "--out", out_dir],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    sample_s = time.perf_counter() - t0
+    if r.returncode != 0 or _count_mids(out_dir) != ["test_calm_1.mid", "test_calm_2.mid"]:
+        raise SystemExit(f"python -m melogan_torch sample: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+
+    port = _free_port()
+    final = os.path.join(work, "experiments", "gan", "checkpoints", "gan_final.ckpt")
+    log_path = os.path.join(CLI_DIR, "serve.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "melogan_torch", "serve", "--host", "127.0.0.1",
+                                 "--port", str(port), "--checkpoint", final, "--config", CLI_CONFIGS["gan"]],
+                                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            base = f"http://127.0.0.1:{port}"
+            t0 = time.perf_counter()
+            health = None
+            while health is None:
+                if proc.poll() is not None or time.perf_counter() - t0 > 240:
+                    raise SystemExit(f"python -m melogan_torch serve did not come up (rc {proc.poll()})")
+                try:
+                    health = json.loads(http(base, "/healthz")[1])
+                except OSError:
+                    time.sleep(0.5)
+            up_s = time.perf_counter() - t0
+            status, body = http(base, "/generate", json.dumps({"emotion": "angry"}).encode())
+            if (status != 200 or body[:4] != b"MThd" or health["device"]["platform"] != "gpu"
+                    or health["generator"] != "checkpoint"):
+                raise SystemExit(f"python -m melogan_torch serve: /generate {status}, /healthz {health}")
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc != 0:
+        with open(log_path) as f:
+            raise SystemExit(f"python -m melogan_torch serve exited {rc} on SIGINT:\n{f.read()[-2000:]}")
+    emit({"phase": "cli_module", "sample_s": sample_s, "serve_up_s": up_s, "generate_bytes": len(body),
+          "healthz": health, "serve_rc": rc}, results)
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2325,12 +2670,31 @@ def main() -> int:
                          f"predicted {want_bf16}, all bf16, no decoder_tail")
     bf16_steps = time_bf16_steps(torch, np, data, vae, results)
     _, spectral = drive("spectral", lambda: drive_spectral(torch, np, results), ("decoder_tail",))
+    # the command line, python -m melogan_torch: the pipeline at the shipped
+    # widths, its resume, the subcommands one by one, and children processes
+    all3 = ("conv1d", "convt1d", "decoder_tail")
+    piped, cli_pipeline = drive("cli_pipeline", lambda: drive_cli_pipeline(np, results), all3)
+    _, cli_resume = drive("cli_resume", lambda: drive_cli_resume(piped, results), all3)
+    _, cli_commands = drive("cli_commands", lambda: drive_cli_commands(np, piped, results), all3)
+    _, cli_module = drive("cli_module", lambda: drive_cli_module(piped, results), ())
+    rows = piped["rows"]
+    cli_want = {"cli_pipeline": (cli_pipeline, cli_counts(rows, CLI_EPOCHS, 3, vae_epochs=CLI_EPOCHS,
+                                                          ed_epochs=CLI_EPOCHS, encode=True)),
+                "cli_resume": (cli_resume, cli_counts(rows, 1, 2)),
+                "cli_commands": (cli_commands, cli_commands_counts(rows)),
+                "cli_module": (cli_module, {k: 0 for k in wrappers})}
+    for name, (got, predicted) in cli_want.items():
+        if got != predicted or any(bf16_by_path[name].values()):
+            raise SystemExit(f"{name} launches {got} / bf16 {bf16_by_path[name]}, predicted {predicted}, "
+                             f"no bf16")
     path_names = ("sampling", "training", "resume", "serve_ckpt", "data", "vae_train", "vae_resume", "encode",
                   "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload",
-                  "sweep", "sweep_resume", "sweep_halving", "sampling_fast", "training_bf16", "spectral")
+                  "sweep", "sweep_resume", "sweep_halving", "sampling_fast", "training_bf16", "spectral",
+                  "cli_pipeline", "cli_resume", "cli_commands", "cli_module")
     paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
              conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading,
-             sweeping, sweep_resuming, sweep_halving, sampling_fast, training_bf16, spectral)
+             sweeping, sweep_resuming, sweep_halving, sampling_fast, training_bf16, spectral,
+             cli_pipeline, cli_resume, cli_commands, cli_module)
     launches = {k: sum(p[k] for p in paths) for k in wrappers}
     launches_bf16 = {k: sum(bf16_by_path[p][k] for p in path_names) for k in moded}
 
@@ -2406,8 +2770,10 @@ def main() -> int:
           "bf16_steps_median_ms": {k: {p: bf16_steps[k][f"{p}_median_ms"] for p in ("f32", "bf16")}
                                    for k in ("group", "vae", "ed")},
           "training_bf16_predicted_launches": want_bf16,
+          "cli_rows": rows, "cli_predicted_launches": {name: predicted for name, (_, predicted) in cli_want.items()},
           "launches_by_path": dict(zip(path_names, paths)), "launches_bf16_by_path": bf16_by_path},
          results)
+    emit({"phase": "script", "wall_s": time.perf_counter() - t_script}, results)
     line = {"kernels": kernels}
     results.append(line)
     os.makedirs(WORK_DIR, exist_ok=True)

@@ -221,7 +221,10 @@ def test_port_imports_nothing_of_jax():
         "        'melogan_torch.utils.yaml_subset', 'melogan_torch.data.npz', 'melogan_torch.data.scaler',\n"
         "        'melogan_torch.data.splits', 'melogan_torch.data.synthetic', 'melogan_torch.data.augment',\n"
         "        'melogan_torch.train.ed_loop', 'melogan_torch.diagnostics.judge',\n"
-        "        'melogan_torch.serving.pool', 'melogan_torch.serving.metrics', 'melogan_torch.train.sweep'}\n"
+        "        'melogan_torch.serving.pool', 'melogan_torch.serving.metrics', 'melogan_torch.train.sweep',\n"
+        "        'melogan_torch.cli', 'melogan_torch.__main__', 'melogan_torch.utils.profiling',\n"
+        "        'melogan_torch.utils.cleaner', 'melogan_torch.diagnostics.diagnose',\n"
+        "        'melogan_torch.diagnostics.tsne'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "assert len(mods) >= 50, mods\n"
         "assert not bad, bad\n"
