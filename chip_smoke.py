@@ -137,7 +137,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     melogan_torch sample`` and ``serve`` as child processes: ``/healthz``
     on the gpu platform, one ``POST /generate``, SIGINT, exit 0; the
     children's launches are not counted here);
-16. prints the per-mode launch counts (``launches_by_mode``), the
+16. the text path, each phase with the counts set to 0 first: ``text_mlp``
+    (the shipped recipe, 150 epochs of 106 AdamW steps, trained on the
+    card; its accuracy against the lexicon's on the 1,620 eval sentences,
+    which must beat it on overall and macro accuracy and equal
+    ``MEASURED_EVAL_ACCURACY`` to 3 decimals; two 2-epoch trainings
+    bitwise equal; the host/device split of one request), ``roberta`` (a
+    random roberta-base-width checkpoint written as ``model.safetensors``
+    and ``pytorch_model.bin`` and loaded both ways, equal; the card's
+    logits against the CPU's; one ``__call__`` at B=1 in the 16, 64 and
+    512 buckets; the forward at B=64, T=128 beside its bound),
+    ``text_route`` (the server with the text-mlp backend, then the
+    roberta one: ``POST /get_text_emotion`` then ``POST /generate`` with the
+    answer for one text an emotion, valid MIDI each time, 9
+    ``decoder_tail`` launches; /healthz's text fields) and
+    ``cli_text_eval`` (``python -m melogan_torch text-eval --json
+    --ceiling`` in a child process: JAX's report keys);
+17. prints the per-mode launch counts (``launches_by_mode``), the
     script's wall, the ``kernels`` JSON line (launches summed over every
     driven path; the bf16 mode of each conv kernel as an entry of its own),
     the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -2509,6 +2525,345 @@ def drive_cli_module(piped, results):
           "healthz": health, "serve_rc": rc}, results)
 
 
+# ---------------------------------------------------------------------------
+# The text path: text → emotion on the card, then /generate
+# ---------------------------------------------------------------------------
+
+TEXT_DIR = os.path.join(WORK_DIR, "text")
+TEXT_REPEAT_EPOCHS = 2  # the bitwise repeat of training on the card
+TEXT_SPLIT_TEXTS = 200  # eval sentences whose host and device times are split
+# roberta-base's widths (SamLowe/roberta-base-go_emotions), random N(0, 0.02) weights
+ROBERTA_BASE = dict(vocab_size=50265, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                    intermediate_size=3072, max_position_embeddings=514, num_labels=28)
+ROBERTA_BUCKETS = (16, 64, 512)  # one __call__ at B=1 timed in each
+ROBERTA_BATCH, ROBERTA_SEQ = 64, 128  # the timed forward
+ROBERTA_CALLS = 20
+GO_EMOTIONS = ("admiration", "amusement", "anger", "annoyance", "approval", "caring", "confusion",
+               "curiosity", "desire", "disappointment", "disapproval", "disgust", "embarrassment",
+               "excitement", "fear", "gratitude", "grief", "joy", "love", "nervousness", "optimism",
+               "pride", "realization", "relief", "remorse", "sadness", "surprise", "neutral")
+# one text an emotion, each with a unique keyword hit in its emotion's categories
+TEXT_PROBES = {"happy": "i am so happy today", "sad": "i feel so sad and heartbroken",
+               "angry": "i am furious and livid about this", "calm": "i am relieved that it is finally over"}
+
+
+def drive_text_mlp(torch, np, results):
+    """``text_mlp``: the shipped recipe (150 epochs of 106 AdamW steps)
+    trained on the card, evaluated against the lexicon on the 1,620 eval
+    sentences, and two 2-epoch runs that must be bitwise equal. Its file is
+    the cache of the later phases. The pin check comes last."""
+    from melogan_torch.diagnostics.text_eval import evaluate_text_backend, macro_accuracy
+    from melogan_torch.models import text_mlp
+    from melogan_torch.models.text_emotion import MEASURED_EVAL_ACCURACY, LexiconClassifier
+
+    stats = {}
+    t0 = time.perf_counter()
+    clf = text_mlp.train_text_classifier(device="cuda", stats=stats)
+    wall = time.perf_counter() - t0
+    if next(clf.model.parameters()).device.type != "cuda":
+        raise SystemExit("text_mlp: the classifier is not on the card")
+    t0 = time.perf_counter()
+    own = evaluate_text_backend(clf)
+    eval_s = time.perf_counter() - t0
+    lex = evaluate_text_backend(LexiconClassifier())
+    # where one request's time goes: the host's features, then the forward
+    # on the card ending in the device→host copy of the logits
+    from melogan_torch.data.text_corpus import generate_text_corpus
+
+    host_ms, device_ms = [], []
+    for t in generate_text_corpus("eval", seed=0)[0][:TEXT_SPLIT_TEXTS]:
+        t0 = time.perf_counter()
+        feats = clf.features([t])
+        t1 = time.perf_counter()
+        clf._logits(feats)
+        host_ms.append((t1 - t0) * 1e3)
+        device_ms.append((time.perf_counter() - t1) * 1e3)
+    measured = {"text-mlp": {"overall": own["accuracy"], "macro": macro_accuracy(own)},
+                "lexicon": {"overall": lex["accuracy"], "macro": macro_accuracy(lex)}}
+    runs = [text_mlp.train_text_classifier(epochs=TEXT_REPEAT_EPOCHS, device="cuda").state_dict()
+            for _ in range(2)]
+    bitwise = all(np.array_equal(runs[0][k], runs[1][k]) for k in runs[0])
+    os.makedirs(TEXT_DIR, exist_ok=True)
+    cache = os.path.join(TEXT_DIR, "text_mlp.ckpt")
+    clf.save(cache)
+    losses = stats["epoch_losses"]
+    emit({"phase": "text_mlp", "steps": stats["steps"], "wall_s": wall, "data_s": stats["data_s"],
+          "loop_s": stats["loop_s"], "steps_per_s": stats["steps"] / stats["loop_s"],
+          "loss_first_epoch": float(losses[0]), "loss_last_epoch": float(losses[-1]),
+          "eval_n": own["n"], "eval_s": eval_s, "measured": measured,
+          "request_features_median_ms": float(np.median(host_ms)),
+          "request_forward_median_ms": float(np.median(device_ms)),
+          "per_emotion": {k: {e: v["accuracy"] for e, v in r["per_emotion"].items()}
+                          for k, r in (("text-mlp", own), ("lexicon", lex))},
+          "repeat_epochs": TEXT_REPEAT_EPOCHS, "repeat_bitwise": bitwise, "pinned": MEASURED_EVAL_ACCURACY},
+         results)
+    if not (measured["text-mlp"]["overall"] > measured["lexicon"]["overall"]
+            and measured["text-mlp"]["macro"] > measured["lexicon"]["macro"]):
+        raise SystemExit(f"text_mlp does not beat the lexicon: {measured}")
+    if not bitwise:
+        raise SystemExit("text_mlp: two trainings on the card differ")
+    off = {k: v for k, v in measured.items()
+           if {m: round(x, 3) for m, x in v.items()} != MEASURED_EVAL_ACCURACY[k]}
+    if off:
+        raise SystemExit(f"text_mlp: measured {off} differ from MEASURED_EVAL_ACCURACY "
+                         f"{MEASURED_EVAL_ACCURACY} to 3 decimals")
+    return {"cache": cache, "measured": measured, "clf": clf}
+
+
+def write_safetensors(sd, path):
+    """A ``.safetensors`` file of float32 tensors: an 8-byte little-endian
+    header length, the JSON header, then the raw buffers."""
+    import struct
+
+    header, offset, blobs = {}, 0, []
+    for name, t in sd.items():
+        raw = t.detach().float().cpu().contiguous().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset, offset + len(raw)]}
+        offset += len(raw)
+        blobs.append(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def write_roberta_base(torch, np):
+    """Two directories of one random roberta-base-width checkpoint, N(0,
+    0.02) weights (LayerNorm 1 and 0, biases 0) from a seeded generator:
+    ``st`` holds ``model.safetensors``, ``bin`` ``pytorch_model.bin``; both
+    a ``config.json`` with the 28 go_emotions labels and a hand-written
+    WordLevel ``tokenizer.json`` over the text corpus's words."""
+    from melogan_torch.data.text_corpus import generate_text_corpus
+    from melogan_torch.models.roberta import RobertaConfig, RobertaForSequenceClassification
+
+    cfg = RobertaConfig(**ROBERTA_BASE)
+    gen = torch.Generator().manual_seed(0)
+    sd = {}
+    for name, p in RobertaForSequenceClassification(cfg).state_dict().items():
+        if name.endswith("LayerNorm.weight"):
+            sd[name] = torch.ones_like(p)
+        elif name.endswith("bias"):
+            sd[name] = torch.zeros_like(p)
+        else:
+            sd[name] = torch.empty_like(p).normal_(0.0, 0.02, generator=gen)
+    texts, _ = generate_text_corpus("train", seed=0)
+    words = sorted({w for t in texts for w in t.split() if w.isalpha()})
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, **{w: 4 + i for i, w in enumerate(words)}}
+    config = {"architectures": ["RobertaForSequenceClassification"], "model_type": "roberta",
+              **ROBERTA_BASE, "type_vocab_size": 1, "layer_norm_eps": 1e-5, "pad_token_id": 1,
+              "bos_token_id": 0, "eos_token_id": 2, "id2label": {str(i): l for i, l in enumerate(GO_EMOTIONS)},
+              "label2id": {l: i for i, l in enumerate(GO_EMOTIONS)}}
+    tokenizer = {"version": "1.0", "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"},
+                 "pre_tokenizer": {"type": "Whitespace"},
+                 "post_processor": {"type": "TemplateProcessing", "single": [
+                     {"SpecialToken": {"id": "<s>", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}}]}}
+    dirs = {k: os.path.join(TEXT_DIR, f"roberta_base_{k}") for k in ("st", "bin")}
+    t0 = time.perf_counter()
+    for kind, d in dirs.items():
+        os.makedirs(d, exist_ok=True)
+        for fname, obj in (("config.json", config), ("tokenizer.json", tokenizer)):
+            with open(os.path.join(d, fname), "w") as f:
+                json.dump(obj, f)
+        if kind == "st":
+            write_safetensors(sd, os.path.join(d, "model.safetensors"))
+        else:
+            torch.save(sd, os.path.join(d, "pytorch_model.bin"))
+    return cfg, sd, dirs, words, time.perf_counter() - t0
+
+
+def drive_roberta(torch, np, results):
+    """``roberta``: the random roberta-base checkpoint written both ways and
+    loaded both ways (equal parameters); the card's logits against the same
+    module on the CPU; one ``__call__`` at B=1 in the 16, 64 and 512
+    buckets, and the forward at B=64, T=128 beside its bound (operations
+    over 67 TFLOP/s: f32 with TF32 off)."""
+    from melogan_torch.models.roberta import (
+        RobertaForSequenceClassification,
+        RobertaTextClassifier,
+        load_hf_checkpoint,
+    )
+
+    cfg, sd, dirs, words, write_s = write_roberta_base(torch, np)
+    t0 = time.perf_counter()
+    loaded = {k: load_hf_checkpoint(d) for k, d in dirs.items()}
+    load_s = time.perf_counter() - t0
+    if sorted(loaded["st"]) != sorted(sd) or any(
+            not torch.equal(loaded["st"][k], sd[k]) or not torch.equal(loaded["bin"][k], sd[k]) for k in sd):
+        raise SystemExit("roberta: model.safetensors and pytorch_model.bin load different parameters")
+    t0 = time.perf_counter()
+    clf = RobertaTextClassifier(dirs["st"], device="cuda")
+    init_s = time.perf_counter() - t0
+    if next(clf.model.parameters()).device.type != "cuda":
+        raise SystemExit("roberta: the classifier is not on the card")
+    n_params = sum(p.numel() for p in clf.model.parameters())
+
+    cpu = RobertaForSequenceClassification(cfg)
+    cpu.load_state_dict(sd, strict=True)
+    cpu.eval()
+    texts = list(TEXT_PROBES.values()) + [" ".join(words[:40])]
+    ids, mask = clf.encode(texts)
+    with torch.inference_mode():
+        card = clf.model(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()).cpu()
+        ref = cpu(torch.from_numpy(ids), torch.from_numpy(mask))
+    err, rel = compare(card, ref, "roberta logits card vs CPU")
+
+    calls = {}
+    for bucket in ROBERTA_BUCKETS:
+        text = " ".join(words[i % len(words)] for i in range(bucket - 2))  # + <s> </s>: the bucket
+        if clf.encode([text])[0].shape[1] != bucket:
+            raise SystemExit(f"roberta: a {bucket - 2}-word text did not land in the {bucket} bucket")
+        clf(text)
+        walls = []
+        for _ in range(ROBERTA_CALLS):
+            t0 = time.perf_counter()
+            out = clf(text)  # ends in a device→host copy of the logits
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if out[0][0]["label"] not in GO_EMOTIONS:
+            raise SystemExit(f"roberta: label {out}")
+        enc_ms, fwd_ms = [], []
+        for _ in range(ROBERTA_CALLS):
+            t0 = time.perf_counter()
+            ids, mask = clf.encode([text])
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                clf.model(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()).cpu()
+            enc_ms.append((t1 - t0) * 1e3)
+            fwd_ms.append((time.perf_counter() - t1) * 1e3)
+        calls[bucket] = {"median_ms": float(np.median(walls)), "min_ms": min(walls),
+                         "tokenize_median_ms": float(np.median(enc_ms)),
+                         "forward_median_ms": float(np.median(fwd_ms))}
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    big_ids = torch.randint(4, cfg.vocab_size, (ROBERTA_BATCH, ROBERTA_SEQ), device="cuda", generator=gen)
+    big_mask = torch.ones_like(big_ids)
+    with torch.inference_mode():
+        ms = time_ms(torch, lambda: clf.model(big_ids, big_mask), 10)
+    h, inter, layers, t = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers, ROBERTA_SEQ
+    macs_per_token = layers * (4 * h * h + 2 * h * inter + 2 * t * h)
+    flops = 2 * macs_per_token * ROBERTA_BATCH * t
+    nbytes = 4 * n_params + 8 * 2 * ROBERTA_BATCH * t + 4 * ROBERTA_BATCH * cfg.num_labels
+    fwd = {"batch": ROBERTA_BATCH, "seq": t, "ms": ms, "tflop": flops / 1e12,
+           **bound(flops, nbytes, PEAK_F32_FLOPS)}
+    emit({"phase": "roberta", "params": n_params, "write_s": write_s, "load_both_s": load_s,
+          "classifier_init_s": init_s, "max_abs_err": err, "max_rel_err": rel,
+          "call_b1": calls, "forward": fwd}, results)
+    return {"dirs": dirs, "forward": fwd}
+
+
+def drive_text_route(torch, np, text, roberta, results):
+    """``text_route``: the port's server on the card with the text-mlp
+    backend (its cache from ``text_mlp``), then with MELOGAN_TEXT_MODEL_DIR
+    at the random roberta-base directory: for each emotion's probe text
+    ``POST /get_text_emotion``, then ``POST /generate`` with the answer,
+    which must be MIDI at that emotion's tempo; /healthz's text fields.
+    Counted: the server's warm-up ``sample_notes`` and 8 ``/generate``."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.constants import EMOTION_BPM
+    from melogan_torch.midi.midifile import read_midi
+    from melogan_torch.models import text_emotion
+    from melogan_torch.serving.app import create_server
+
+    saved = {k: os.environ.get(k) for k in ("MELOGAN_TEXT_MLP_CACHE", "MELOGAN_TEXT_BACKEND",
+                                            "MELOGAN_TEXT_MODEL_DIR")}
+    os.environ["MELOGAN_TEXT_MLP_CACHE"] = text["cache"]
+    os.environ.pop("MELOGAN_TEXT_BACKEND", None)
+    os.environ.pop("MELOGAN_TEXT_MODEL_DIR", None)
+    text_emotion.reset_backend()
+    httpd, state = create_server("127.0.0.1", 0, workdir=os.path.join(WORK_DIR, "no_checkpoint"),
+                                 device="cuda", sample_pool=False)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    rec = {"phase": "text_route"}
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        for backend in ("text-mlp", "torch-roberta"):
+            if backend == "torch-roberta":
+                os.environ["MELOGAN_TEXT_MODEL_DIR"] = roberta["dirs"]["st"]
+            health = json.loads(http(base, "/healthz")[1])
+            if health["text_backend"] != backend or not health["text_backend_note"] or (
+                    backend == "text-mlp" and health["text_backend_accuracy"]
+                    != text_emotion.MEASURED_EVAL_ACCURACY["text-mlp"]):
+                raise SystemExit(f"text_route /healthz for {backend}: {health}")
+            out = {"answers": {}, "text_ms": [], "generate_ms": []}
+            for want, sentence in TEXT_PROBES.items():
+                t0 = time.perf_counter()
+                status, body = http(base, "/get_text_emotion", json.dumps({"text": sentence}).encode())
+                out["text_ms"].append((time.perf_counter() - t0) * 1e3)
+                emotion = json.loads(body).get("emotion")
+                if status != 200 or emotion not in EMOTIONS or (backend == "text-mlp" and emotion != want):
+                    raise SystemExit(f"text_route {backend}: {sentence!r} -> {status} {body[:200]!r}")
+                t0 = time.perf_counter()
+                status, midi = http(base, "/generate", json.dumps({"emotion": emotion}).encode())
+                out["generate_ms"].append((time.perf_counter() - t0) * 1e3)
+                song = read_midi(midi) if status == 200 and midi[:4] == b"MThd" else None
+                if song is None or abs(song.initial_tempo - EMOTION_BPM[emotion]) > 0.01:
+                    raise SystemExit(f"text_route {backend}: /generate {emotion} gave no valid MIDI")
+                out["answers"][sentence] = emotion
+            clf = text_emotion.load_classifier("cuda")
+            if next(clf.model.parameters()).device.type != "cuda":
+                raise SystemExit(f"text_route: the {backend} classifier is not on the card")
+            out["first_text_ms"] = out["text_ms"][0]  # the first request loads the classifier
+            out["text_median_ms"] = float(np.median(out["text_ms"][1:]))
+            out["generate_median_ms"] = float(np.median(out["generate_ms"]))
+            out["healthz"] = {k: health[k] for k in ("text_backend", "text_backend_accuracy",
+                                                     "text_backend_note")}
+            rec[backend] = out
+        emit(rec, results)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        state.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        text_emotion.reset_backend()
+    return rec
+
+
+TEXT_REPORT_KEYS = {"n", "accuracy", "chance", "per_emotion", "confusion"}
+CEILING_KEYS = {"eval", "knn_ngram_ceiling", "train_self_accuracy", "misclassified_examples"}
+
+
+def drive_cli_text_eval(text, results):
+    """``cli_text_eval``: ``python -m melogan_torch text-eval --json
+    --ceiling`` in a child process on the text_mlp phase's cache; JAX's
+    report keys, and the text-mlp accuracy that phase measured."""
+    env = dict(os.environ, MELOGAN_TEXT_MLP_CACHE=text["cache"])
+    env.pop("MELOGAN_TEXT_BACKEND", None)
+    env.pop("MELOGAN_TEXT_MODEL_DIR", None)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "melogan_torch", "text-eval", "--json", "--ceiling"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    os.makedirs(CLI_DIR, exist_ok=True)
+    with open(os.path.join(CLI_DIR, "text_eval.log"), "w") as f:
+        f.write(r.stdout + r.stderr)
+    if r.returncode != 0:
+        raise SystemExit(f"python -m melogan_torch text-eval: rc {r.returncode}\n{r.stderr[-2000:]}")
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    if (set(report) != {"lexicon", "text-mlp", "ceiling"} or set(report["ceiling"]) != CEILING_KEYS
+            or any(set(report[k]) != TEXT_REPORT_KEYS for k in ("lexicon", "text-mlp"))
+            or "retraining" in r.stdout):
+        raise SystemExit(f"text-eval report keys {_keys_of(report)}")
+    if report["text-mlp"]["accuracy"] != text["measured"]["text-mlp"]["overall"]:
+        raise SystemExit(f"text-eval text-mlp accuracy {report['text-mlp']['accuracy']} != the text_mlp "
+                         f"phase's {text['measured']['text-mlp']['overall']}")
+    emit({"phase": "cli_text_eval", "wall_s": wall, "accuracy": {k: report[k]["accuracy"]
+                                                                 for k in ("lexicon", "text-mlp")},
+          "knn_ngram_ceiling": report["ceiling"]["knn_ngram_ceiling"],
+          "train_self_accuracy": report["ceiling"]["train_self_accuracy"]}, results)
+
+
+def _keys_of(tree):
+    return {k: _keys_of(v) for k, v in tree.items()} if isinstance(tree, dict) else type(tree).__name__
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -2687,14 +3042,32 @@ def main() -> int:
         if got != predicted or any(bf16_by_path[name].values()):
             raise SystemExit(f"{name} launches {got} / bf16 {bf16_by_path[name]}, predicted {predicted}, "
                              f"no bf16")
+    # the text path: the text MLP trained on the card, the roberta-base-width
+    # backend, text → emotion → /generate through the server, and text-eval
+    text, text_mlp_counts = drive("text_mlp", lambda: drive_text_mlp(torch, np, results), ())
+    roberta, roberta_counts = drive("roberta", lambda: drive_roberta(torch, np, results), ())
+    _, text_route = drive("text_route", lambda: drive_text_route(torch, np, text, roberta, results),
+                          ("decoder_tail",))
+    _, cli_text_eval = drive("cli_text_eval", lambda: drive_cli_text_eval(text, results), ())
+    none = {k: 0 for k in wrappers}
+    text_want = {"text_mlp": (text_mlp_counts, none), "roberta": (roberta_counts, none),
+                 # the server's warm-up sample_notes, then one /generate a probe and backend
+                 "text_route": (text_route, dict(none, decoder_tail=1 + 2 * len(TEXT_PROBES))),
+                 "cli_text_eval": (cli_text_eval, none)}
+    for name, (got, predicted) in text_want.items():
+        if got != predicted or any(bf16_by_path[name].values()):
+            raise SystemExit(f"{name} launches {got} / bf16 {bf16_by_path[name]}, predicted {predicted}, "
+                             f"no bf16")
     path_names = ("sampling", "training", "resume", "serve_ckpt", "data", "vae_train", "vae_resume", "encode",
                   "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload",
                   "sweep", "sweep_resume", "sweep_halving", "sampling_fast", "training_bf16", "spectral",
-                  "cli_pipeline", "cli_resume", "cli_commands", "cli_module")
+                  "cli_pipeline", "cli_resume", "cli_commands", "cli_module",
+                  "text_mlp", "roberta", "text_route", "cli_text_eval")
     paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
              conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading,
              sweeping, sweep_resuming, sweep_halving, sampling_fast, training_bf16, spectral,
-             cli_pipeline, cli_resume, cli_commands, cli_module)
+             cli_pipeline, cli_resume, cli_commands, cli_module,
+             text_mlp_counts, roberta_counts, text_route, cli_text_eval)
     launches = {k: sum(p[k] for p in paths) for k in wrappers}
     launches_bf16 = {k: sum(bf16_by_path[p][k] for p in path_names) for k in moded}
 
@@ -2771,6 +3144,9 @@ def main() -> int:
                                    for k in ("group", "vae", "ed")},
           "training_bf16_predicted_launches": want_bf16,
           "cli_rows": rows, "cli_predicted_launches": {name: predicted for name, (_, predicted) in cli_want.items()},
+          "text_mlp_measured": text["measured"], "roberta_forward_ms": roberta["forward"]["ms"],
+          "roberta_forward_bound_ms": roberta["forward"]["bound_ms"],
+          "text_predicted_launches": {name: predicted for name, (_, predicted) in text_want.items()},
           "launches_by_path": dict(zip(path_names, paths)), "launches_bf16_by_path": bf16_by_path},
          results)
     emit({"phase": "script", "wall_s": time.perf_counter() - t_script}, results)

@@ -30,6 +30,7 @@ subcommands of one program, run with ``python -m melogan_torch`` (or the
   clean             delete generated artifacts
   logs              tfevents training curves
   profile           time (and trace) the sampling hot path
+  text-eval         measured accuracy of the offline text-emotion backends
   doctor            bounded environment diagnostic
 
 Every subcommand that touches the device runs on the GPU unless the
@@ -38,9 +39,9 @@ pipeline ...``); asking for the GPU where there is none raises, and nothing
 falls back to the CPU. The handlers in ``_HOST_ONLY_FNS`` never touch the
 device and never initialize CUDA. ``--dp N`` is parsed where the JAX CLI
 takes it and exits for any N > 0: data parallelism is not ported yet
-(ROADMAP A.9). The JAX CLI's ``precompile`` (it warms a JAX compile cache),
-``text-eval`` (the text path is not ported yet) and ``bench`` (it runs the
-JAX package's benchmark) have no counterpart here.
+(ROADMAP A.9). The JAX CLI's ``precompile`` (it warms a JAX compile cache)
+and ``bench`` (it runs the JAX package's benchmark) have no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -455,8 +456,10 @@ def cmd_doctor(args):
     diagnostic tool hanging on the very condition it diagnoses would be
     useless, and the doctor itself never initializes CUDA. Exits nonzero if
     any check FAILs (WARNs don't fail the run). The JAX doctor's checks of
-    the native codecs and of the text backend are left out: the port has no
-    native MIDI or JPEG codec and no text path yet."""
+    the native codecs are left out: the port has no native MIDI or JPEG
+    codec. The text backend is checked by its configuration (loading it
+    would touch the device): its name and, for ``torch-roberta``, that the
+    checkpoint directory holds a config and weights."""
     import subprocess
     import time
 
@@ -552,6 +555,23 @@ def cmd_doctor(args):
           f"{n_golden} reference .mid files under {golden}" if n_golden
           else f"none under {golden or '$MELOGAN_REFERENCE_DIR (unset)'} "
                "(the quality gate's bands are built in)")
+
+    # the text backend, by its configuration
+    from melogan_torch.models.text_emotion import backend_name
+
+    try:
+        name = backend_name()
+    except ValueError as e:
+        check("FAIL", "text-backend", str(e))
+    else:
+        if name == "torch-roberta":
+            d = os.environ["MELOGAN_TEXT_MODEL_DIR"]
+            ok = os.path.exists(os.path.join(d, "config.json")) and any(
+                os.path.exists(os.path.join(d, f)) for f in ("model.safetensors", "pytorch_model.bin"))
+            check("OK" if ok else "FAIL", "text-backend",
+                  f"{name} from {d}" + ("" if ok else " (no config.json, or no weights file)"))
+        else:
+            check("OK", "text-backend", name)
 
     fails = [n for lv, n, _ in results if lv == "FAIL"]
     print(f"[{'FAIL' if fails else 'OK'}] doctor: "
@@ -979,6 +999,20 @@ def cmd_eval_gen(args):
     return report
 
 
+def cmd_text_eval(args):
+    """Measured accuracy of the offline text-emotion backends on the
+    held-out eval split (the lexicon and the text MLP, trained or loaded
+    from its cache on the device); ``--ceiling`` adds the ceiling study."""
+    from melogan_torch.diagnostics.text_eval import ceiling_study, compare_offline_backends
+
+    report = compare_offline_backends(seed=args.seed, verbose=True, device=args.device)
+    if args.ceiling:
+        report["ceiling"] = ceiling_study(seed=args.seed, verbose=True, device=args.device)
+    if args.json:
+        print(json.dumps(report))
+    return report
+
+
 def cmd_tsne(args):
     from melogan_torch.diagnostics.tsne import visualize_latents
 
@@ -1362,6 +1396,18 @@ def build_parser():
                    help="exit nonzero when overall judge accuracy is below "
                         "this (optional gate)")
     s.set_defaults(fn=cmd_eval_gen)
+
+    s = sub.add_parser(
+        "text-eval",
+        help="measured accuracy of the offline text-emotion backends",
+    )
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--json", action="store_true")
+    s.add_argument("--ceiling", action="store_true",
+                   help="add the ceiling study: 1-NN surface baseline, "
+                        "train-self capacity check, confusion matrix, "
+                        "misclassified examples")
+    s.set_defaults(fn=cmd_text_eval)
 
     s = sub.add_parser("tsne", help="latent-space t-SNE visualization")
     s.add_argument("--split", default="train")

@@ -1,12 +1,17 @@
-"""HTTP serving on the port: the generation part of
+"""HTTP serving on the port: the generation and text parts of
 ``melogan_tpu/serving/app.py`` on a stdlib WSGI stack.
 
 - ``GET  /``          the web UI (the JAX package's page, byte for byte)
+- ``POST /get_text_emotion``  {"text": ...} → {"emotion": ...}, by the
+  configured text backend (``models/text_emotion.py``), loaded at the first
+  request on the server's device; 413 for a body over ``MAX_JSON_BODY``, 500
+  when the backend fails to load or to run (no fallback to another backend)
 - ``POST /generate``  {"emotion": ...} → audio/midi download; 400 for an
   unknown emotion, 413 for a body over ``MAX_JSON_BODY``, 503 when the
   sample pool cannot produce a sample in time
-- ``GET  /healthz``   liveness, weight provenance, the sample pool's stats
-  and the device that serves
+- ``GET  /healthz``   liveness, the text backend with its measured accuracy
+  and note, weight provenance, the sample pool's stats and the device that
+  serves
 - ``GET  /metrics``   Prometheus text: requests by route, method and status,
   handler latency by route, pool gauges, reloads
 - ``POST /reload``    hot-swap a checkpoint into the running sampler (the
@@ -22,8 +27,8 @@ unless a checkpoint (``.ckpt`` or ``.pth``) is named, with random weights
 and a warning when the file is absent, and ``use_ema`` serves the file's EMA
 generator; ``watch_ckpt`` polls the file and hot-swaps it when it changes.
 The config is a YAML path (``configs/gan.yaml`` by default; ``GANConfig()``
-when the file does not exist) or a ``GANConfig``. The text and camera
-routes and ``/video_feed`` come with a later slice. The JAX server's
+when the file does not exist) or a ``GANConfig``. The camera routes and
+``/video_feed`` come with a later slice (ROADMAP A.8b). The JAX server's
 device-init watchdog is not ported: it guards a TPU backend that can hang
 while it initializes, and CUDA's initialization either returns or raises.
 
@@ -40,6 +45,7 @@ import json
 import os
 import threading
 import time
+import traceback
 from socketserver import ThreadingMixIn
 from typing import Dict, Optional, Tuple, Union
 from wsgiref.simple_server import WSGIServer, make_server
@@ -48,11 +54,12 @@ from melogan_torch.config import GANConfig
 from melogan_torch.constants import EMOTION_BPM
 from melogan_torch.device import device_info
 from melogan_torch.midi.codec import render_to_bytes
+from melogan_torch.models.text_emotion import backend_info, backend_name, predict_emotion
 from melogan_torch.sampling import Sampler, emotion_scale
 from melogan_torch.serving.metrics import Registry
 from melogan_torch.serving.pool import PoolTimeout, SamplePool
 
-# JSON request bodies are tiny ({"emotion": ...}); cap reads so an oversized
+# JSON request bodies are tiny ({"emotion": ...} / {"text": ...}); cap reads so an oversized
 # body cannot balloon per-request memory
 MAX_JSON_BODY = 1 << 20
 # how much of an over-limit body is drained (in chunks) so the connection
@@ -151,7 +158,7 @@ class AppState:
 
 
 _KNOWN_METHODS = {"GET", "POST", "HEAD", "PUT", "DELETE", "OPTIONS", "PATCH"}
-_ROUTES = {"/", "/healthz", "/generate", "/metrics", "/reload"}
+_ROUTES = {"/", "/healthz", "/get_text_emotion", "/generate", "/metrics", "/reload"}
 
 
 def _method_label(method: str) -> str:
@@ -318,10 +325,14 @@ def build_app(state: AppState):
             return [body]
 
         if method == "GET" and path == "/healthz":
+            text = backend_info()
             return _json_response(
                 start_response,
                 {
                     "status": "ok",
+                    "text_backend": text["backend"],
+                    "text_backend_accuracy": text.get("measured_eval_accuracy"),
+                    "text_backend_note": text["note"],
                     # weight provenance: random weights until a checkpoint is
                     # served (at startup, by /reload or by the watcher)
                     "generator": "checkpoint" if state.loaded else "random-weights",
@@ -331,6 +342,19 @@ def build_app(state: AppState):
                     "device": device_info(state.sampler.device),
                 },
             )
+
+        if method == "POST" and path == "/get_text_emotion":
+            payload = _read_json(environ)
+            if payload is None:
+                return _too_large(start_response)
+            try:
+                emotion = predict_emotion(payload.get("text", ""), device=state.sampler.device)
+            except Exception as e:  # noqa: BLE001 — a failing backend is a 500, never another answer
+                traceback.print_exc()
+                return _json_response(start_response,
+                                      {"error": f"text backend failed: {type(e).__name__}: {e}"},
+                                      status="500 Internal Server Error")
+            return _json_response(start_response, {"emotion": emotion})
 
         if method == "POST" and path == "/generate":
             payload = _read_json(environ)
@@ -538,6 +562,7 @@ def create_server(
     watcher's swaps."""
     from melogan_torch.utils.weights import load_gan_final_full
 
+    backend_name()  # a misconfigured text backend fails here, not at a request
     cfg = _resolve_config(config)
     gen_sd = fe_sd = features = None
     loaded_version = None
@@ -602,7 +627,7 @@ def serve(host: str = "0.0.0.0", port: int = 5000, workdir: str = ".",
         pool_warm=os.environ.get("MELOGAN_POOL_WARM", "1") != "0", watch_ckpt=watch_ckpt,
         fast_math=fast_math)
     print(f"[INIT] serving on http://{host}:{httpd.server_address[1]} "
-          f"({device_info(state.sampler.device)['kind']}, "
+          f"({device_info(state.sampler.device)['kind']}, text backend {backend_name()}, "
           f"{'checkpoint ' + state.ckpt_path if state.loaded else 'random weights'}"
           f"{', sample pool ' + str(state.pool.depth()) if state.pool else ''})")
     try:

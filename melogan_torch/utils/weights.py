@@ -37,6 +37,11 @@ VAE loop's ``ae_best.ckpt`` (``melogan_tpu/train/vae_loop.py:556-578``), and
 either format, by suffix: ``.pth`` (the reference layout) or ``.ckpt`` (the
 JAX layout). Convert one into the other with
 ``python -m melogan_torch.utils.weights convert SRC DST``.
+
+The text path: ``text_mlp_state_from_flax`` / ``text_mlp_flax_from_state``
+map the JAX text MLP's flax tree (the cache file of both packages) to and
+from ``TextEmotionMLP``'s state dict, and ``roberta_state_from_jax`` the
+JAX RoBERTa's layer-stacked tree to the HF names of ``models/roberta.py``.
 """
 from __future__ import annotations
 
@@ -942,6 +947,73 @@ def load_gan_final(path: str, ema: bool = False) -> Tuple[Dict[str, torch.Tensor
     """(generator state dict, feature-encoder state dict) of a ``gan_final``."""
     gen_sd, fe_sd, _ = load_gan_final_full(path, ema=ema)
     return gen_sd, fe_sd
+
+
+# ---------------------------------------------------------------------------
+# The text path: the text MLP's flax tree and the JAX RoBERTa's stacked tree
+# ---------------------------------------------------------------------------
+
+_TEXT_MLP_DENSE = ("ngram_proj", "fc1", "head")
+
+
+def text_mlp_state_from_flax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX text MLP's flax ``params`` (``embed.embedding``; ``kernel``
+    (in, out) and ``bias`` of each Dense) → ``TextEmotionMLP``'s state dict
+    (``nn.Linear.weight`` is (out, in))."""
+    sd = {"embed.weight": _np(params["embed"]["embedding"]).astype(np.float32)}
+    for name in _TEXT_MLP_DENSE:
+        sd[f"{name}.weight"] = np.ascontiguousarray(_np(params[name]["kernel"]).T, np.float32)
+        sd[f"{name}.bias"] = _np(params[name]["bias"]).astype(np.float32)
+    return sd
+
+
+def text_mlp_flax_from_state(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``text_mlp_state_from_flax``."""
+    params: Dict[str, Any] = {"embed": {"embedding": _np(sd["embed.weight"]).astype(np.float32)}}
+    for name in _TEXT_MLP_DENSE:
+        params[name] = {"kernel": np.ascontiguousarray(_np(sd[f"{name}.weight"]).T, np.float32),
+                        "bias": _np(sd[f"{name}.bias"]).astype(np.float32)}
+    return params
+
+
+# (JAX leaf of params["layers"], HF name under roberta.encoder.layer.{i}., transposed)
+_ROBERTA_LAYER = (
+    ("q_w", "attention.self.query.weight", True), ("q_b", "attention.self.query.bias", False),
+    ("k_w", "attention.self.key.weight", True), ("k_b", "attention.self.key.bias", False),
+    ("v_w", "attention.self.value.weight", True), ("v_b", "attention.self.value.bias", False),
+    ("attn_out_w", "attention.output.dense.weight", True),
+    ("attn_out_b", "attention.output.dense.bias", False),
+    ("attn_ln_scale", "attention.output.LayerNorm.weight", False),
+    ("attn_ln_bias", "attention.output.LayerNorm.bias", False),
+    ("inter_w", "intermediate.dense.weight", True), ("inter_b", "intermediate.dense.bias", False),
+    ("out_w", "output.dense.weight", True), ("out_b", "output.dense.bias", False),
+    ("out_ln_scale", "output.LayerNorm.weight", False), ("out_ln_bias", "output.LayerNorm.bias", False),
+)
+
+
+def roberta_state_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX RoBERTa's tree (``melogan_tpu/models/roberta.py``: matrices
+    (in, out), each encoder leaf stacked over layers on a leading axis) →
+    the HF ``RobertaForSequenceClassification`` state dict that
+    ``models/roberta.py`` loads (Linear weights (out, in))."""
+    emb, head = params["embeddings"], params["head"]
+    sd = {
+        "roberta.embeddings.word_embeddings.weight": _np(emb["word"]),
+        "roberta.embeddings.position_embeddings.weight": _np(emb["position"]),
+        "roberta.embeddings.token_type_embeddings.weight": _np(emb["token_type"]),
+        "roberta.embeddings.LayerNorm.weight": _np(emb["ln_scale"]),
+        "roberta.embeddings.LayerNorm.bias": _np(emb["ln_bias"]),
+        "classifier.dense.weight": _np(head["dense_w"]).T,
+        "classifier.dense.bias": _np(head["dense_b"]),
+        "classifier.out_proj.weight": _np(head["out_w"]).T,
+        "classifier.out_proj.bias": _np(head["out_b"]),
+    }
+    layers = {k: _np(v) for k, v in params["layers"].items()}
+    for i in range(layers["q_w"].shape[0]):
+        for leaf, name, transposed in _ROBERTA_LAYER:
+            a = layers[leaf][i]
+            sd[f"roberta.encoder.layer.{i}.{name}"] = a.T if transposed else a
+    return {k: np.array(v, np.float32, order="C") for k, v in sd.items()}
 
 
 def main(argv=None) -> None:

@@ -1,7 +1,7 @@
 """The port's command line (``melogan_torch/cli.py``) against the JAX CLI
 (``melogan_tpu/cli.py``) on the same inputs, on the CPU.
 
-- the parsers: every JAX subcommand but three has the same option strings,
+- the parsers: every JAX subcommand but two has the same option strings,
   dests, defaults, choices and actions; the port adds only the top-level
   ``--device``;
 - the data subcommands write the same CSV, MIDI and manifest bytes and the
@@ -11,6 +11,8 @@
 - ``encode`` and ``eval-ed`` on a VAE and an ED the port trained here agree
   with JAX's within 1e-5 of scale;
 - ``sample`` with one seed writes the same file names at the same tempos;
+- ``text-eval --json --ceiling`` on one cached classifier prints JAX's
+  report;
 - ``doctor`` is bounded and fails without a card, ``--dp N`` exits naming
   ROADMAP A.9, and ``python -m melogan_torch`` imports no JAX.
 """
@@ -33,7 +35,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # JAX subcommands the port does not have, and why
 EXCLUDED = {
     "precompile": "it warms the JAX compile cache; the port compiles nothing ahead",
-    "text-eval": "the text path is not ported yet (ROADMAP A.8a)",
     "bench": "it runs the JAX package's root bench.py; the port's benchmark is not defined yet",
 }
 
@@ -73,6 +74,7 @@ JAX_SUBCOMMANDS = sorted(_choices(jcli.build_parser()))
 
 
 def test_port_has_every_jax_subcommand_but_three():
+    """Every JAX subcommand but those in EXCLUDED."""
     jax_subs = set(_choices(jcli.build_parser()))
     port_subs = set(_choices(pcli.build_parser()))
     assert set(EXCLUDED) <= jax_subs
@@ -101,7 +103,7 @@ def test_host_only_fns_exist():
     assert {"cmd_diagnose", "cmd_roll_to_midi"} <= pcli._HOST_ONLY_FNS
     device_fns = {"cmd_train_ae", "cmd_encode", "cmd_train_ed", "cmd_eval_ed", "cmd_train_gan",
                   "cmd_sweep", "cmd_sample", "cmd_eval_gen", "cmd_pipeline", "cmd_serve",
-                  "cmd_profile"}
+                  "cmd_profile", "cmd_text_eval"}
     assert not device_fns & pcli._HOST_ONLY_FNS
     handlers = {a.get_default("fn").__name__ for a in _choices(pcli.build_parser()).values()}
     assert handlers == pcli._HOST_ONLY_FNS | device_fns
@@ -548,7 +550,8 @@ def test_doctor_on_the_cpu_is_bounded_and_fails(tmp_path, capsys, monkeypatch, p
     assert time.perf_counter() - t0 < float(probe_secs) * 2 + 30
     out = capsys.readouterr().out
     for frag in ("device:", "nvcc:", "kernel-cache:", "ae-config:", "ed-config:", "gan-config:",
-                 "splits:", "ae-ckpt:", "ed-ckpt:", "gan-ckpt:", "golden-artifacts:", "doctor:"):
+                 "splits:", "ae-ckpt:", "ed-ckpt:", "gan-ckpt:", "golden-artifacts:", "text-backend:",
+                 "doctor:"):
         assert frag in out, out
     assert "[FAIL] device:" in out
     assert ("hung" in out) == (probe_secs == "0.001")
@@ -602,6 +605,51 @@ def test_profile_prints_jax_keys_and_a_trace(corpus, tmp_path, capsys):
         assert json.load(f)["traceEvents"]
 
 
+def _keys(tree):
+    if isinstance(tree, dict):
+        return {k: _keys(v) for k, v in tree.items()}
+    if isinstance(tree, list) and tree and isinstance(tree[0], dict):
+        return [_keys(tree[0])]
+    return type(tree).__name__
+
+
+def test_text_eval_prints_the_jax_report(tmp_path, capsys, monkeypatch):
+    """`text-eval --json --ceiling` of both CLIs on one cache file: a
+    1-epoch classifier saved under the shipped recipe's fingerprint, which
+    both packages load rather than train. The same keys, the same lexicon
+    report and the same text-mlp predictions (equal accuracy and
+    confusion; labels may differ only where two scores tie within
+    rounding, so at most 2 of 1,620)."""
+    from melogan_torch.models import text_emotion, text_mlp
+
+    cache = str(tmp_path / "text_mlp.ckpt")
+    clf = text_mlp.train_text_classifier(epochs=1, device="cpu")
+    clf.fingerprint = text_mlp.training_fingerprint()
+    clf.save(cache)
+    with open(cache, "rb") as f:
+        saved = f.read()
+    monkeypatch.setenv("MELOGAN_TEXT_MLP_CACHE", cache)
+    monkeypatch.delenv("MELOGAN_TEXT_BACKEND", raising=False)
+    monkeypatch.delenv("MELOGAN_TEXT_MODEL_DIR", raising=False)
+    text_emotion.reset_backend()
+
+    def report(main, argv):
+        main(argv)
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    ours = report(pcli.main, ["--device", "cpu", "text-eval", "--json", "--ceiling"])
+    theirs = report(jcli.main, ["text-eval", "--json", "--ceiling"])
+    assert _keys(ours) == _keys(theirs)
+    assert set(ours) == {"lexicon", "text-mlp", "ceiling"}
+    assert ours["lexicon"] == theirs["lexicon"]
+    assert ours["ceiling"]["knn_ngram_ceiling"] == theirs["ceiling"]["knn_ngram_ceiling"]
+    a, b = ours["text-mlp"], theirs["text-mlp"]
+    assert abs(a["accuracy"] - b["accuracy"]) * a["n"] <= 2
+    assert np.abs(np.asarray(a["confusion"]) - np.asarray(b["confusion"])).sum() <= 4
+    with open(cache, "rb") as f:  # loaded, not retrained over
+        assert f.read() == saved
+
+
 @pytest.mark.parametrize("module", ["melogan_torch", "melogan_torch.cli"])
 def test_module_entry_point_imports_no_jax(module):
     """`python -m melogan_torch --help` in a fresh interpreter lists the
@@ -611,7 +659,7 @@ def test_module_entry_point_imports_no_jax(module):
     r = subprocess.run([sys.executable, "-X", "importtime", "-m", module, "--help"], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    for name in ("pipeline", "train-gan", "eval-gen", "doctor", "--device"):
+    for name in ("pipeline", "train-gan", "eval-gen", "text-eval", "doctor", "--device"):
         assert name in r.stdout
     imported = {ln.split("|")[-1].strip().split(".")[0] for ln in r.stderr.splitlines()
                 if ln.startswith("import time:")}

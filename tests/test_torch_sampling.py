@@ -196,12 +196,14 @@ def test_generate_midi_and_many_end_to_end(tmp_path):
 
 def test_port_imports_nothing_of_jax():
     """Every module of melogan_torch imports, in a fresh interpreter, without
-    pulling in jax, flax, optax, msgpack, yaml or melogan_tpu; with msgpack,
-    flax and yaml blocked, the checkpoint codec still writes and reads a
+    pulling in jax, flax, optax, msgpack, yaml, melogan_tpu, transformers,
+    safetensors or tokenizers (the card's machine has none of the last
+    three); with them blocked, the checkpoint codec still writes and reads a
     file and the typed configs read the shipped YAML files."""
     code = (
         "import importlib, os, pkgutil, sys, tempfile\n"
-        "for blocked in ('msgpack', 'flax', 'jax', 'optax', 'yaml', 'melogan_tpu'):\n"
+        "for blocked in ('msgpack', 'flax', 'jax', 'optax', 'yaml', 'melogan_tpu', 'transformers',\n"
+        "                'safetensors', 'tokenizers'):\n"
         "    sys.modules[blocked] = None  # an import of it raises ImportError\n"
         "import numpy as np\n"
         "import melogan_torch\n"
@@ -216,7 +218,8 @@ def test_port_imports_nothing_of_jax():
         "assert EDConfig.from_yaml('configs/ed.yaml').labels == ('happy', 'sad', 'angry', 'calm')\n"
         "assert GANConfig.from_yaml('configs/gan_conditioning.yaml').latent_dim == 8\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None and m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'yaml', 'melogan_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'yaml', 'melogan_tpu', 'transformers',\n"
+        "                                  'safetensors', 'tokenizers'))\n"
         "need = {'melogan_torch.models.vae', 'melogan_torch.train.vae_loop', 'melogan_torch.train.harness',\n"
         "        'melogan_torch.utils.yaml_subset', 'melogan_torch.data.npz', 'melogan_torch.data.scaler',\n"
         "        'melogan_torch.data.splits', 'melogan_torch.data.synthetic', 'melogan_torch.data.augment',\n"
@@ -224,7 +227,10 @@ def test_port_imports_nothing_of_jax():
         "        'melogan_torch.serving.pool', 'melogan_torch.serving.metrics', 'melogan_torch.train.sweep',\n"
         "        'melogan_torch.cli', 'melogan_torch.__main__', 'melogan_torch.utils.profiling',\n"
         "        'melogan_torch.utils.cleaner', 'melogan_torch.diagnostics.diagnose',\n"
-        "        'melogan_torch.diagnostics.tsne'}\n"
+        "        'melogan_torch.diagnostics.tsne', 'melogan_torch.data.text_corpus',\n"
+        "        'melogan_torch.models.tokenizer', 'melogan_torch.models.text_emotion',\n"
+        "        'melogan_torch.models.text_mlp', 'melogan_torch.models.roberta',\n"
+        "        'melogan_torch.diagnostics.text_eval', 'melogan_torch.utils.safetensors'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "assert len(mods) >= 50, mods\n"
         "assert not bad, bad\n"

@@ -459,3 +459,78 @@ def test_watch_checkpoint_picks_up_a_replaced_file(two_checkpoints, tmp_path):
 def test_unported_server_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         serve("127.0.0.1", 0, workdir=str(tmp_path), config=GANConfig(**SMALL), device="cpu", dp=2)
+
+
+# ---------------------------------------------------------------------------
+# POST /get_text_emotion and the text fields of /healthz
+# ---------------------------------------------------------------------------
+
+TEXTS = ["i am so happy today", "this is infuriating", "i miss her so much, i keep crying",
+         "i'm terrified of what comes next", "the meeting starts at nine", "", "   ",
+         "thanks, that was a wonderful surprise", "ugh, so annoying", "i regret everything"]
+
+
+@pytest.fixture
+def lexicon_backend(monkeypatch):
+    from melogan_torch.models import text_emotion as tte
+    from melogan_tpu.models import text_emotion as jte
+
+    monkeypatch.delenv("MELOGAN_TEXT_MODEL_DIR", raising=False)
+    monkeypatch.setenv("MELOGAN_TEXT_BACKEND", "lexicon")
+    tte.reset_backend()
+    jte.reset_backend()
+    yield monkeypatch
+    tte.reset_backend()
+    jte.reset_backend()
+
+
+def test_text_emotion_matches_the_jax_server(state, lexicon_backend):
+    """The same bodies to the port's app and to the JAX package's, the
+    lexicon forced on both: the same statuses and answers, malformed JSON
+    and a non-object body included; 413 for an oversized body on both."""
+    from melogan_tpu.config import GANConfig as JaxGANConfig
+    from melogan_tpu.serving import app as japp
+
+    ours = build_app(AppState(state.cfg, state.sampler))
+    theirs = japp.build_app(japp.AppState(JaxGANConfig(**SMALL), sampler=None))
+    bodies = [json.dumps({"text": t}).encode() for t in TEXTS] + [
+        b"{not json", b"", b"{}", json.dumps({"text": 12}).encode()]
+    for body in bodies:
+        a, b = call(ours, "POST", "/get_text_emotion", body), call(theirs, "POST", "/get_text_emotion", body)
+        assert (a[0], json.loads(a[2])) == (b[0], json.loads(b[2])), body
+        assert a[0] == 200
+    big = b" " * (MAX_JSON_BODY + 10)
+    a, b = call(ours, "POST", "/get_text_emotion", big), call(theirs, "POST", "/get_text_emotion", big)
+    assert a[0] == b[0] == 413 and json.loads(a[2]) == json.loads(b[2])
+
+
+def test_healthz_carries_the_text_backend(state, lexicon_backend):
+    from melogan_torch.models.text_emotion import MEASURED_EVAL_ACCURACY
+
+    status, _, body = call(build_app(state), "GET", "/healthz")
+    payload = json.loads(body)
+    assert status == 200 and payload["text_backend"] == "lexicon"
+    assert payload["text_backend_accuracy"] == MEASURED_EVAL_ACCURACY["lexicon"]
+    assert "lexicon" in payload["text_backend_note"]
+    lexicon_backend.setenv("MELOGAN_TEXT_BACKEND", "text-mlp")
+    payload = json.loads(call(build_app(state), "GET", "/healthz")[2])
+    assert payload["text_backend"] == "text-mlp"
+    assert payload["text_backend_accuracy"] == MEASURED_EVAL_ACCURACY["text-mlp"]
+
+
+def test_broken_text_model_dir_answers_500_not_the_lexicon(state, lexicon_backend, tmp_path):
+    """No fallback: a checkpoint directory that cannot be loaded makes the
+    route answer 500 with the error, where the JAX chain would have served
+    another backend's answer."""
+    lexicon_backend.delenv("MELOGAN_TEXT_BACKEND")
+    lexicon_backend.setenv("MELOGAN_TEXT_MODEL_DIR", str(tmp_path))
+    app = build_app(AppState(state.cfg, state.sampler))
+    status, _, body = call(app, "POST", "/get_text_emotion", json.dumps({"text": "i am so happy"}).encode())
+    assert status == 500 and "FileNotFoundError" in json.loads(body)["error"]
+    assert json.loads(call(app, "GET", "/healthz")[2])["text_backend"] == "torch-roberta"
+    # empty text never reaches the backend, as in JAX
+    status, _, body = call(app, "POST", "/get_text_emotion", json.dumps({"text": ""}).encode())
+    assert status == 200 and json.loads(body) == {"emotion": "calm"}
+    lexicon_backend.setenv("MELOGAN_TEXT_BACKEND", "no-such-backend")
+    with pytest.raises(ValueError, match="MELOGAN_TEXT_BACKEND"):
+        create_server("127.0.0.1", 0, workdir=str(tmp_path), device="cpu", sample_pool=False)

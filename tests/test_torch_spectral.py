@@ -110,12 +110,19 @@ def test_spectral_norm_linear_under_bf16(rng):
 
 def test_spectral_norm_bounds_singular_value(rng):
     """The mirror of ``tests/test_models.py::test_spectral_norm_bounds_singular_value``:
+    from that test's initial variables (``PRNGKey(0)``, the kernel ×25),
     30 train-mode forwards converge the power iteration, and W/σ has top
-    singular value 1."""
-    x = torch.from_numpy(rng.normal(size=(4, 32)).astype(np.float32))
+    singular value 1. (A draw of torch's global generator would make the
+    start depend on the tests run before in the process: 30 steps do not
+    converge to 1e-3 for every random 32×16 matrix.)"""
+    xn = rng.normal(size=(4, 32)).astype(np.float32)
+    x = torch.from_numpy(xn)
+    jvars = JaxSpectralNormLinear(features=16).init(jax.random.PRNGKey(0), jnp.asarray(xn))
     layer = SpectralNormLinear(32, 16).train()
     with torch.no_grad():
-        layer.weight.mul_(25.0)
+        layer.weight.copy_(torch.from_numpy(_np(jvars["params"]["kernel"]).T * 25.0))
+        layer.bias.copy_(torch.from_numpy(_np(jvars["params"]["bias"])))
+        layer.u.copy_(torch.from_numpy(_np(jvars["spectral"]["u"])))
     for _ in range(30):
         layer(x)
     kernel = layer.weight.detach().numpy().T  # (in, out), as the JAX test reads it
