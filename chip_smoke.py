@@ -153,7 +153,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ``decoder_tail`` launches; /healthz's text fields) and
     ``cli_text_eval`` (``python -m melogan_torch text-eval --json
     --ceiling`` in a child process: JAX's report keys);
-17. prints the per-mode launch counts (``launches_by_mode``), the
+17. the camera path, each phase with the counts set to 0 first:
+    ``camera_models`` (the res10 SSD at 300×300 on the card against the
+    CPU within 1e-5 of scale, with seeded weights and with the crafted
+    brightness detector written as a ``.caffemodel`` by the port's writer
+    and read back, which must find the bright square of a 240×320 frame;
+    ``detect()``'s median split into resize + forward, device→host copy and
+    host NMS, and a ``torch.profiler`` trace of it; the SSD forward at B=1
+    and 8 beside its bound, 2.249 GFLOP a frame at 67 TFLOP/s; the
+    mini-Xception FER at B=1 and 64 against the CPU, timed; ``CameraEmotion``
+    with both on the card against the CPU; the native JPEG encoder built
+    with g++, byte-equal to the Python encoder, both timed on a 320×240
+    frame; no kernel of the port launches) and ``camera_route``
+    (``create_server(camera_source="synthetic")`` with a random FER
+    injected: ``POST /camera_frame`` of a 96×96 frame, ``GET
+    /get_camera_emotion`` equal to its answer, ``POST /generate`` with it,
+    whose MIDI must parse, 8 times; ``GET /video_feed`` read for 10 parts
+    (SOI…EOI each, frames/s under the 20 fps cap, the camera emotion set);
+    ``/healthz``'s camera fields on the gpu platform; a second server on a
+    ``.y4m`` file written by ``write_y4m``, read past the clip's end; 10
+    ``decoder_tail`` launches, the two warm-ups and the 8 ``/generate``,
+    and no ``conv1d`` or ``convt1d``);
+18. prints the per-mode launch counts (``launches_by_mode``), the
     script's wall, the ``kernels`` JSON line (launches summed over every
     driven path; the bf16 mode of each conv kernel as an entry of its own),
     the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -270,11 +291,11 @@ def bound(flops, nbytes, peak_flops):
             "ops_ms": t_ops, "bytes_ms": t_bytes, "peak_flops": peak_flops}
 
 
-def compare(out, ref, what):
+def compare(out, ref, what, tol=TOL_REL):
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
-    if not (err <= TOL_REL * max(scale, 1e-30)) or not bool(out.isfinite().all()):
-        raise SystemExit(f"{what}: max abs err {err:.3e} exceeds {TOL_REL} x scale {scale:.3e}")
+    if not (err <= tol * max(scale, 1e-30)) or not bool(out.isfinite().all()):
+        raise SystemExit(f"{what}: max abs err {err:.3e} exceeds {tol} x scale {scale:.3e}")
     return err, err / scale if scale else 0.0
 
 
@@ -2864,6 +2885,453 @@ def _keys_of(tree):
     return {k: _keys_of(v) for k, v in tree.items()} if isinstance(tree, dict) else type(tree).__name__
 
 
+# ---------------------------------------------------------------------------
+# the camera path: the res10 SSD, the mini-Xception FER, CameraEmotion, the
+# native JPEG encoder, and the camera routes of the server
+# ---------------------------------------------------------------------------
+
+CAMERA_DIR = os.path.join(WORK_DIR, "camera")
+# card against CPU for the camera models: both IEEE f32 (cuDNN with TF32 off),
+# summed in other orders, about 1e-6 of scale; a wrong pad, tap or layout is O(1)
+CAMERA_TOL_REL = 1e-5
+CAMERA_SEED = 0
+SSD_FLOPS = 2.249e9  # one 300x300 forward (XLA cost_analysis of the JAX SSD on the CPU)
+SSD_BATCHES = (1, 8)
+FER_BATCHES = (1, 64)
+FER_FLOPS_B1 = 20.8e6  # one 64x64 crop (XLA cost_analysis of the JAX FER on the CPU)
+CAMERA_CALLS = 30  # timed calls after a first
+CAMERA_FRAME_HW = (240, 320)  # SyntheticFrameSource's and the crafted face frame's size
+CAMERA_POST_HW = (96, 96)  # what the web page posts to /camera_frame
+CAMERA_ROUTE_FRAMES = 8  # /camera_frame then /generate, each
+JPEG_QUALITY = 80  # mjpeg_parts' default
+JPEG_PY_CALLS = 3  # the Python encoder takes a tenth of a second or more a frame
+VIDEO_PARTS = 10  # /video_feed parts read before the client closes
+VIDEO_MAX_FPS = 20.0  # MELOGAN_VIDEO_MAX_FPS's default
+Y4M_FRAMES = 4
+
+
+def crafted_ssd_params():
+    """Hand-crafted res10-SSD weights in the JAX package's tree (numpy,
+    conv weights HWIO) that detect bright regions: the input scale maps BGR
+    to a positive brightness, every residual stage passes the per-pixel mean
+    brightness through its expand/identity path (centre-tap averaging
+    kernels, every other conv zero), the fc7 conf head turns brightness v
+    into a face logit 6v − 3 for its first prior only, and the loc heads are
+    zero, so a detection is the prior centred on the brightest 19×19 cell.
+    The construction of ``tests/test_emotion_models.py``'s crafted detector
+    (held equal to it by ``tests/test_torch_camera.py``)."""
+    import numpy as np
+
+    from melogan_torch.models import ssd
+
+    params = {}
+    for name, cin, cout, k, _s, _p, _d, bias in ssd.CONV_SPECS:
+        params[name] = {"w": np.zeros((k, k, cin, cout), np.float32)}
+        if bias:
+            params[name]["b"] = np.zeros((cout,), np.float32)
+    for bn, sc, ch in ssd.BN_SPECS:
+        params[bn] = {"mean": np.zeros(ch, np.float32), "var": np.ones(ch, np.float32)}
+        params[sc] = {"gamma": np.ones(ch, np.float32), "beta": np.zeros(ch, np.float32)}
+    params["conv4_3_norm"] = {"scale": np.full((128,), 20.0, np.float32)}
+    params["data_scale"]["gamma"][:] = 1.0 / 255.0  # brightness (x − mean)/255 + 0.7
+    params["data_scale"]["beta"][:] = 0.7
+    params["conv1_h"]["w"][3, 3, :, :] = 1.0 / 3.0
+    params["layer_64_1_conv1_h"]["w"][1, 1, :, :] = 1.0 / 32.0
+    params["layer_128_1_conv_expand_h"]["w"][0, 0, :, :] = 1.0 / 32.0
+    params["layer_256_1_conv_expand"]["w"][0, 0, :, :] = 1.0 / 128.0
+    params["layer_512_1_conv_expand_h"]["w"][0, 0, :, :] = 1.0 / 256.0
+    conf = params["fc7_mbox_conf"]
+    conf["w"][1, 1, :, 1] = 6.0 / 256.0
+    conf["b"][1] = -3.0
+    for c in range(3, conf["b"].shape[0], 2):
+        conf["b"][c] = -10.0  # the other priors' face channels never fire
+    for head in ("conv4_3_norm", "conv6_2", "conv7_2", "conv8_2", "conv9_2"):
+        params[f"{head}_mbox_conf"]["b"][1::2] = -10.0
+    return params
+
+
+def face_frame():
+    """A dark 240×320 BGR frame with a bright 120×120 square at rows 60–180,
+    columns 100–220 (relative x 0.3125–0.6875, y 0.25–0.75)."""
+    import numpy as np
+
+    frame = np.full((*CAMERA_FRAME_HW, 3), 20.0, np.float32)
+    frame[60:180, 100:220, :] = 255.0
+    return frame
+
+
+def random_keras_weights(seed=0):
+    """Random mini-Xception weights under the Keras names that
+    ``load_mini_xception_weights`` gives (He-normal kernels, BN statistics
+    away from the identity), so the probabilities are not degenerate."""
+    import numpy as np
+
+    from melogan_torch.models import xception
+
+    rng = np.random.default_rng(seed)
+    w = {}
+
+    def kernel(name, shape):
+        # a depthwise kernel (H, W, Cin, 1) sums H·W taps, any other all but its last axis
+        fan_in = shape[0] * shape[1] * (1 if name.endswith("depthwise_kernel") else shape[2])
+        w[name] = rng.normal(0.0, (2.0 / fan_in) ** 0.5, shape).astype(np.float32)
+
+    def bn(i, c):
+        w[f"batch_normalization_{i}/gamma"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        w[f"batch_normalization_{i}/beta"] = rng.normal(0.0, 0.1, c).astype(np.float32)
+        w[f"batch_normalization_{i}/moving_mean"] = rng.normal(0.0, 0.1, c).astype(np.float32)
+        w[f"batch_normalization_{i}/moving_variance"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+
+    kernel("conv2d_1/kernel", (3, 3, 1, 8))
+    bn(1, 8)
+    kernel("conv2d_2/kernel", (3, 3, 8, 8))
+    bn(2, 8)
+    cin = 8
+    for i, f in xception._BLOCKS:
+        kernel(f"conv2d_{i + 2}/kernel", (1, 1, cin, f))
+        bn(3 * i, f)
+        kernel(f"separable_conv2d_{2 * i - 1}/depthwise_kernel", (3, 3, cin, 1))
+        kernel(f"separable_conv2d_{2 * i - 1}/pointwise_kernel", (1, 1, cin, f))
+        bn(3 * i + 1, f)
+        kernel(f"separable_conv2d_{2 * i}/depthwise_kernel", (3, 3, f, 1))
+        kernel(f"separable_conv2d_{2 * i}/pointwise_kernel", (1, 1, f, f))
+        bn(3 * i + 2, f)
+        cin = f
+    kernel("conv2d_7/kernel", (3, 3, cin, 7))
+    w["conv2d_7/kernel"] *= 0.1  # a head at a tenth of He's scale: probabilities short of one-hot
+    w["conv2d_7/bias"] = rng.normal(0.0, 0.1, 7).astype(np.float32)
+    return w
+
+
+def _median_ms(fn, calls=CAMERA_CALLS):
+    """Host-clock median (ms) of ``calls`` calls after a first; ``fn`` ends
+    in a device→host copy or a synchronize."""
+    import numpy as np
+
+    fn()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def drive_camera_models(torch, np, results):
+    """``camera_models``: the SSD at 300×300 on the card against the same
+    weights on the CPU (seeded, then the crafted detector written as a
+    ``.caffemodel`` by the port's writer and read back); the crafted
+    detector finding the bright square of a 240×320 frame; ``detect()``'s
+    median split into resize + forward, device→host copy and host NMS, with
+    a trace of one call; the forward at B=1 and 8 beside its bound; the FER
+    at B=1 and 64 against the CPU, timed; ``CameraEmotion`` over both on the
+    card against the CPU; the native JPEG encoder built, byte-equal to the
+    Python one, both timed on a 320×240 frame. No kernel of the port runs."""
+    from melogan_torch.camera import CameraEmotion
+    from melogan_torch.imaging import jpeg, native
+    from melogan_torch.models import caffe, ssd, xception
+    from melogan_torch.profile_train import kernel_table
+    from melogan_torch.serving.video import SyntheticFrameSource
+
+    os.makedirs(CAMERA_DIR, exist_ok=True)
+    rec = {"phase": "camera_models", "tol_rel": CAMERA_TOL_REL}
+    rng = np.random.default_rng(CAMERA_SEED)
+    x = torch.from_numpy(rng.uniform(-128, 128, (1, 300, 300, 3)).astype(np.float32))
+    crafted_path = os.path.join(CAMERA_DIR, "crafted.caffemodel")
+    caffe.write_caffemodel(crafted_path, ssd.to_caffe_layers(crafted_ssd_params()))
+    dets = {}
+    for name, make in (("seeded", lambda dev: ssd.FaceDetector(seed=CAMERA_SEED, device=dev)),
+                       ("crafted", lambda dev: ssd.FaceDetector.from_caffemodel(crafted_path, device=dev))):
+        card, cpu = make("cuda"), make("cpu")
+        if next(card.net.parameters()).device.type != "cuda":
+            raise SystemExit(f"camera_models: the {name} SSD is not on the card")
+        with torch.inference_mode():
+            got, want = card.net(x.cuda()), cpu.net(x)
+        errs = [compare(g.cpu(), w, f"SSD {name} {k} card vs CPU", CAMERA_TOL_REL)
+                for g, w, k in zip(got, want, ("loc", "conf"))]
+        rec[f"ssd_{name}_max_rel_err"] = max(r for _e, r in errs)
+        rec[f"ssd_{name}_max_abs_err"] = max(e for e, _r in errs)
+        dets[name] = (card, cpu)
+
+    det, det_cpu = dets["crafted"]
+    frame = face_frame()
+    rows = det.detect(frame, conf_threshold=0.5)
+    if rows.shape[0] < 1:
+        raise SystemExit("camera_models: the crafted detector found nothing on the card")
+    best = rows[np.argmax(rows[:, 2])]
+    cx, cy = (best[3] + best[5]) / 2, (best[4] + best[6]) / 2
+    if not (best[2] > 0.85 and 0.3125 < cx < 0.6875 and 0.25 < cy < 0.75):
+        raise SystemExit(f"camera_models: the crafted detector's best row {best} is not the bright square")
+    cpu_rows = det_cpu.detect(frame, conf_threshold=0.5)
+    if cpu_rows.shape != rows.shape or np.abs(cpu_rows - rows).max() > 1e-5:
+        raise SystemExit(f"camera_models: detect rows card {rows} vs CPU {cpu_rows}")
+    if det.detect(np.full_like(frame, 20.0), conf_threshold=0.5).shape[0]:
+        raise SystemExit("camera_models: the crafted detector fired on a dark frame")
+    rec["detect_rows"] = rows.tolist()
+
+    # one detect() on a camera frame, split; each part ends where the next
+    # one needs its result
+    cam_frame = next(iter(SyntheticFrameSource(n_frames=1)))
+    box = {}
+
+    def device_part():
+        box["dev"] = det.candidates(cam_frame)
+        torch.cuda.synchronize()
+
+    def copy_part():
+        box["host"] = [t.cpu().numpy() for t in box["dev"]]
+
+    def nms_part():
+        det.rows(*box["host"])
+
+    split = {"resize_forward_ms": _median_ms(device_part)}
+    split["copy_ms"] = _median_ms(copy_part)
+    split["nms_ms"] = _median_ms(nms_part)
+    split["detect_ms"] = _median_ms(lambda: det.detect(cam_frame))
+    trace = kernel_table(lambda: det.detect(cam_frame), 10, top=8)
+    split["trace"] = {k: trace[k] for k in ("wall_ms_per_step", "device_ms_per_step", "kernels_per_step",
+                                            "device_busy_share", "top")}
+    rec["detect"] = split
+
+    forward = {}
+    for b in SSD_BATCHES:
+        xb = torch.from_numpy(rng.uniform(-128, 128, (b, 300, 300, 3)).astype(np.float32)).cuda()
+        with torch.inference_mode():
+            out = det.net(xb)
+            ms = time_ms(torch, lambda: det.net(xb), CAMERA_CALLS)
+        nbytes = _nbytes(xb, *out, *det.net.state_dict().values())
+        forward[b] = {"ms": ms, **bound(SSD_FLOPS * b, nbytes, PEAK_F32_FLOPS),
+                      "device_kernels_per_call": _device_kernels(torch, lambda: det.net(xb))}
+    rec["ssd_forward"] = forward
+
+    keras = random_keras_weights(seed=CAMERA_SEED)
+    fer, fer_cpu = xception.FERClassifier(keras, device="cuda"), xception.FERClassifier(keras, device="cpu")
+    fer_rec = {}
+    for b in FER_BATCHES:
+        crops = rng.uniform(0, 255, (b, 64, 64, 1)).astype(np.float32)
+        xc = torch.from_numpy(crops).cuda()
+        err, rel = compare(fer.run(xc).cpu(), fer_cpu.run(torch.from_numpy(crops)), f"FER B={b} card vs CPU",
+                           CAMERA_TOL_REL)
+        fer_rec[b] = {"max_abs_err": err, "max_rel_err": rel, "ms": time_ms(torch, lambda: fer.run(xc), CAMERA_CALLS),
+                      "device_kernels_per_call": _device_kernels(torch, lambda: fer.run(xc)),
+                      "predict_proba_ms": _median_ms(lambda: fer.predict_proba(crops[..., 0])),
+                      **bound(FER_FLOPS_B1 * b, _nbytes(xc, *fer.net.state_dict().values()) + 4 * 7 * b,
+                              PEAK_F32_FLOPS)}
+    rec["fer"] = fer_rec
+
+    cam, cam_cpu = CameraEmotion(fer=fer, face_detector=det), CameraEmotion(fer=fer_cpu, face_detector=det_cpu)
+    emotion = cam.process_frame(frame)
+    if emotion != cam_cpu.process_frame(frame) or cam.last_box != cam_cpu.last_box:
+        raise SystemExit(f"CameraEmotion card {emotion} {cam.last_box} vs CPU {cam_cpu.current_emotion} "
+                         f"{cam_cpu.last_box}")
+    x1, y1, x2, y2 = cam.last_box
+    if not (100 <= (x1 + x2) / 2 <= 220 and 60 <= (y1 + y2) / 2 <= 180):
+        raise SystemExit(f"CameraEmotion's box {cam.last_box} is not on the bright square")
+    rec["camera_emotion"] = {"emotion": emotion, "box": list(cam.last_box),
+                             "process_frame_ms": _median_ms(lambda: cam.process_frame(cam_frame))}
+
+    # the first call on a fresh thread (as each request of the stdlib server
+    # is): straight to the device, and through the model's worker thread
+    crop = rng.uniform(0, 255, CAMERA_POST_HW).astype(np.float32)
+    xcrop = torch.from_numpy(xception._host_resize_bilinear(crop[None, ..., None], 64))
+    rec["fresh_thread_ms"] = {
+        "fer_direct": _fresh_thread_ms(lambda: fer.run(xcrop.cuda()).cpu()),
+        "fer_worker": _fresh_thread_ms(lambda: fer.predict_proba(crop[None])),
+        "ssd_direct": _fresh_thread_ms(lambda: [t.cpu() for t in det.candidates(cam_frame)]),
+        "ssd_worker": _fresh_thread_ms(lambda: det.detect(cam_frame))}
+
+    lib = native.build()  # raises with g++'s output; the card's machine has g++ (nvcc needs it)
+    if native.get_lib() is None:
+        raise SystemExit(f"native JPEG: {lib} does not load: {native.load_error()}")
+    native_bytes = native.encode_jpeg_native(cam_frame, JPEG_QUALITY)
+    if native_bytes != jpeg._encode_jpeg_py(cam_frame, JPEG_QUALITY) or jpeg.encode_jpeg(
+            cam_frame, JPEG_QUALITY) != native_bytes:
+        raise SystemExit("native JPEG: bytes differ from the Python encoder's")
+    rec["jpeg"] = {"library": os.path.relpath(lib, ROOT), "bytes": len(native_bytes),
+                   "native_ms": _median_ms(lambda: native.encode_jpeg_native(cam_frame, JPEG_QUALITY)),
+                   "python_ms": _median_ms(lambda: jpeg._encode_jpeg_py(cam_frame, JPEG_QUALITY),
+                                           calls=JPEG_PY_CALLS)}
+    for model in (fer, fer_cpu, *dets["seeded"], det, det_cpu):
+        model.close()
+    emit(rec, results)
+    return {"keras": keras, "record": rec}
+
+
+def _fresh_thread_ms(fn, threads=5):
+    """The median ms of ``fn``'s first call on each of ``threads`` new threads."""
+    import numpy as np
+
+    walls = []
+    for _ in range(threads):
+        box = {}
+
+        def run():
+            t0 = time.perf_counter()
+            fn()
+            box["ms"] = (time.perf_counter() - t0) * 1e3
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join(timeout=120)
+        walls.append(box["ms"])
+    return float(np.median(walls))
+
+
+def _device_kernels(torch, fn):
+    from melogan_torch.profile_sample import device_kernels_per_call
+
+    with torch.inference_mode():
+        return device_kernels_per_call(fn)
+
+
+def _handler_mean_ms(text):
+    """Mean handler ms by route from the server's /metrics text."""
+    sums, counts = {}, {}
+    for line in text.splitlines():
+        for suffix, into in (("_sum", sums), ("_count", counts)):
+            head = f"melogan_http_request_duration_seconds{suffix}{{route=\""
+            if line.startswith(head):
+                route, value = line[len(head):].split("\"} ")
+                into[route] = float(value)
+    return {r: 1e3 * sums[r] / counts[r] for r in sums if counts.get(r)}
+
+
+def _read_parts(resp, n):
+    """``n`` multipart parts of an MJPEG stream, with the client's clock at
+    each; every part must be one JPEG, SOI to EOI."""
+    parts = []
+    for _ in range(n):
+        if resp.readline() != b"--frame\r\n":
+            raise SystemExit("/video_feed: no boundary where a part should start")
+        headers = {}
+        while True:
+            line = resp.readline()
+            if line in (b"\r\n", b""):
+                break
+            k, _, v = line.decode().partition(":")
+            headers[k.strip().lower()] = v.strip()
+        data = resp.read(int(headers["content-length"]))
+        resp.readline()  # the CRLF after the payload
+        if headers.get("content-type") != "image/jpeg" or data[:2] != b"\xff\xd8" or data[-2:] != b"\xff\xd9":
+            raise SystemExit(f"/video_feed: part {len(parts)} is not one JPEG ({headers})")
+        parts.append((time.perf_counter(), data))
+    return parts
+
+
+def drive_camera_route(torch, np, camera, results):
+    """``camera_route``: ``create_server(camera_source="synthetic")`` on the
+    card with a random FER injected; for each of 8 frames of the web page's
+    size, ``POST /camera_frame``, ``GET /get_camera_emotion`` (the same
+    answer) and ``POST /generate`` with it (MIDI at that emotion's tempo);
+    ``GET /video_feed`` read for 10 parts, then closed (frames/s against the
+    20 fps cap; the camera emotion set); ``/healthz``'s camera fields. Then
+    a second server on a ``.y4m`` file written by ``write_y4m``, its
+    stream read past the clip's end. Counted: the two servers' warm-up
+    ``sample_notes`` and the 8 ``/generate``."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.camera import CameraEmotion
+    from melogan_torch.constants import EMOTION_BPM
+    from melogan_torch.imaging.y4m import write_y4m
+    from melogan_torch.midi.midifile import read_midi
+    from melogan_torch.models import xception
+    from melogan_torch.serving.app import create_server
+    from melogan_torch.serving.video import SyntheticFrameSource
+
+    clip = os.path.join(CAMERA_DIR, "synthetic.y4m")
+    with open(clip, "wb") as f:
+        write_y4m(f, list(SyntheticFrameSource(n_frames=Y4M_FRAMES)), colorspace="420")
+    fer_cpu = xception.FERClassifier(camera["keras"], device="cpu")
+    rng = np.random.default_rng(CAMERA_SEED + 1)
+    rec = {"phase": "camera_route"}
+    for source in ("synthetic", clip):
+        httpd, state = create_server("127.0.0.1", 0, workdir=os.path.join(WORK_DIR, "no_checkpoint"),
+                                     device="cuda", sample_pool=False, camera_source=source)
+        state.camera = xception.FERClassifier(camera["keras"], device="cuda")
+        state.camera_pipeline = CameraEmotion(fer=state.camera)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            out = {}
+            health = json.loads(http(base, "/healthz")[1])
+            if (health["camera_backend"] != "xception" or health["video_feed"] is not True
+                    or health["device"]["platform"] != "gpu"):
+                raise SystemExit(f"camera_route /healthz: {health}")
+            if source == "synthetic":
+                out.update(frame_ms=[], generate_ms=[], answers=[])
+                for _ in range(CAMERA_ROUTE_FRAMES):
+                    frame = rng.uniform(0, 255, CAMERA_POST_HW)
+                    payload = json.dumps({"frame": frame.tolist()}).encode()  # the page's work
+                    t0 = time.perf_counter()
+                    status, body = http(base, "/camera_frame", payload)
+                    out["frame_ms"].append((time.perf_counter() - t0) * 1e3)
+                    emotion = json.loads(body).get("emotion")
+                    if status != 200 or emotion != fer_cpu.predict_emotion(frame.astype(np.float32)):
+                        raise SystemExit(f"/camera_frame: {status} {body[:200]!r}, the CPU FER says "
+                                         f"{fer_cpu.predict_emotion(frame.astype(np.float32))}")
+                    if json.loads(http(base, "/get_camera_emotion")[1]) != {"emotion": emotion}:
+                        raise SystemExit("/get_camera_emotion differs from /camera_frame's answer")
+                    t0 = time.perf_counter()
+                    status, midi = http(base, "/generate", json.dumps({"emotion": emotion}).encode())
+                    out["generate_ms"].append((time.perf_counter() - t0) * 1e3)
+                    song = read_midi(midi) if status == 200 and midi[:4] == b"MThd" else None
+                    if song is None or abs(song.initial_tempo - EMOTION_BPM[emotion]) > 0.01:
+                        raise SystemExit(f"camera_route: /generate {emotion} gave no valid MIDI")
+                    out["answers"].append(emotion)
+                # where a /camera_frame goes: the handler's mean (from
+                # /metrics), and in it the JSON parse and the FER's call
+                handler = _handler_mean_ms(state.metrics.render())
+                frame32 = frame.astype(np.float32)
+                out["split"] = {"payload_kb": len(payload) / 1024, "handler_mean_ms": handler,
+                                "json_parse_ms": _median_ms(lambda: np.asarray(json.loads(payload)["frame"],
+                                                                               dtype=np.float32)),
+                                "fer_ms": _median_ms(lambda: state.camera.predict_emotion(frame32))}
+                out["frame_median_ms"] = float(np.median(out["frame_ms"]))
+                out["generate_median_ms"] = float(np.median(out["generate_ms"]))
+                out["route_median_ms"] = float(np.median(np.add(out["frame_ms"], out["generate_ms"])))
+                n_parts = VIDEO_PARTS
+            else:
+                n_parts = 2 * Y4M_FRAMES  # past the clip's end: the source loops
+            state.camera_emotion = "unset"
+            t0 = time.perf_counter()
+            resp = urllib.request.urlopen(base + "/video_feed", timeout=120)
+            try:
+                if not resp.headers["Content-Type"].startswith("multipart/x-mixed-replace"):
+                    raise SystemExit(f"/video_feed: {resp.headers['Content-Type']}")
+                parts = _read_parts(resp, n_parts)
+            finally:
+                resp.close()
+            # from the second part on: the first frame's work (the FER's
+            # first call) delays it, and the parts after it keep the cap's schedule
+            times = [t for t, _ in parts[1:]]
+            fps = (len(times) - 1) / (times[-1] - times[0])
+            if fps > VIDEO_MAX_FPS * 1.05:
+                raise SystemExit(f"/video_feed: {fps:.1f} frames/s over the {VIDEO_MAX_FPS:g} fps cap")
+            if state.camera_emotion not in EMOTIONS:
+                raise SystemExit(f"/video_feed did not set the camera emotion ({state.camera_emotion!r})")
+            out.update(video_parts=len(parts), video_fps=fps, first_part_ms=(parts[0][0] - t0) * 1e3,
+                       part_kb=float(np.mean([len(d) for _, d in parts])) / 1024,
+                       camera_emotion=state.camera_emotion,
+                       healthz={k: health[k] for k in ("camera_backend", "video_feed")})
+            rec["synthetic" if source == "synthetic" else "y4m"] = out
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+            # as serve() drains: the stream's thread ends at its first write
+            # after the client hung up, and its frames need the FER until then
+            deadline = time.monotonic() + 10
+            while state.inflight() > 0 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            state.close()
+    emit(rec, results)
+    return rec
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -3058,16 +3526,28 @@ def main() -> int:
         if got != predicted or any(bf16_by_path[name].values()):
             raise SystemExit(f"{name} launches {got} / bf16 {bf16_by_path[name]}, predicted {predicted}, "
                              f"no bf16")
+    # the camera path: the SSD, the FER and the native JPEG on the card, then
+    # camera frame → emotion → /generate and the MJPEG stream through the server
+    camera, camera_models = drive("camera_models", lambda: drive_camera_models(torch, np, results), ())
+    routed, camera_route = drive("camera_route", lambda: drive_camera_route(torch, np, camera, results),
+                                 ("decoder_tail",))
+    camera_want = {"camera_models": (camera_models, none),
+                   # each server's warm-up sample_notes, then one /generate a frame
+                   "camera_route": (camera_route, dict(none, decoder_tail=2 + CAMERA_ROUTE_FRAMES))}
+    for name, (got, predicted) in camera_want.items():
+        if got != predicted or any(bf16_by_path[name].values()):
+            raise SystemExit(f"{name} launches {got} / bf16 {bf16_by_path[name]}, predicted {predicted}, "
+                             f"no bf16")
     path_names = ("sampling", "training", "resume", "serve_ckpt", "data", "vae_train", "vae_resume", "encode",
                   "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload",
                   "sweep", "sweep_resume", "sweep_halving", "sampling_fast", "training_bf16", "spectral",
                   "cli_pipeline", "cli_resume", "cli_commands", "cli_module",
-                  "text_mlp", "roberta", "text_route", "cli_text_eval")
+                  "text_mlp", "roberta", "text_route", "cli_text_eval", "camera_models", "camera_route")
     paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
              conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading,
              sweeping, sweep_resuming, sweep_halving, sampling_fast, training_bf16, spectral,
              cli_pipeline, cli_resume, cli_commands, cli_module,
-             text_mlp_counts, roberta_counts, text_route, cli_text_eval)
+             text_mlp_counts, roberta_counts, text_route, cli_text_eval, camera_models, camera_route)
     launches = {k: sum(p[k] for p in paths) for k in wrappers}
     launches_bf16 = {k: sum(bf16_by_path[p][k] for p in path_names) for k in moded}
 
@@ -3147,6 +3627,11 @@ def main() -> int:
           "text_mlp_measured": text["measured"], "roberta_forward_ms": roberta["forward"]["ms"],
           "roberta_forward_bound_ms": roberta["forward"]["bound_ms"],
           "text_predicted_launches": {name: predicted for name, (_, predicted) in text_want.items()},
+          "camera_predicted_launches": {name: predicted for name, (_, predicted) in camera_want.items()},
+          "detect": camera["record"]["detect"], "ssd_forward": camera["record"]["ssd_forward"],
+          "fer": camera["record"]["fer"], "jpeg": camera["record"]["jpeg"],
+          "camera_route_median_ms": routed["synthetic"]["route_median_ms"],
+          "video_fps": {k: routed[k]["video_fps"] for k in ("synthetic", "y4m")},
           "launches_by_path": dict(zip(path_names, paths)), "launches_bf16_by_path": bf16_by_path},
          results)
     emit({"phase": "script", "wall_s": time.perf_counter() - t_script}, results)

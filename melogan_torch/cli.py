@@ -455,11 +455,14 @@ def cmd_doctor(args):
     subprocess bounded by ``MELOGAN_DOCTOR_PROBE_SECS`` (default 240): a
     diagnostic tool hanging on the very condition it diagnoses would be
     useless, and the doctor itself never initializes CUDA. Exits nonzero if
-    any check FAILs (WARNs don't fail the run). The JAX doctor's checks of
-    the native codecs are left out: the port has no native MIDI or JPEG
-    codec. The text backend is checked by its configuration (loading it
-    would touch the device): its name and, for ``torch-roberta``, that the
-    checkpoint directory holds a config and weights."""
+    any check FAILs (WARNs don't fail the run). Of the JAX doctor's native
+    codec checks, ``native-jpeg`` is kept (the port builds the same
+    ``native/jpeg_codec.cpp`` with g++ into ``build/melogan_torch/``);
+    ``native-midi`` is left out, as the port writes MIDI in Python (ROADMAP
+    A, "not to be ported"). The text backend is checked by its
+    configuration (loading it would touch the device): its name and, for
+    ``torch-roberta``, that the checkpoint directory holds a config and
+    weights."""
     import subprocess
     import time
 
@@ -555,6 +558,15 @@ def cmd_doctor(args):
           f"{n_golden} reference .mid files under {golden}" if n_golden
           else f"none under {golden or '$MELOGAN_REFERENCE_DIR (unset)'} "
                "(the quality gate's bands are built in)")
+
+    # the native JPEG encoder (g++ at first use; the Python one serves without it)
+    from melogan_torch.imaging.native import LIB_PATH, get_lib, load_error
+
+    if get_lib() is not None:
+        check("OK", "native-jpeg", f"built ({LIB_PATH})")
+    else:
+        check("WARN", "native-jpeg", "unavailable (Python fallback serves)"
+              + (f": {load_error()}" if load_error() else ""))
 
     # the text backend, by its configuration
     from melogan_torch.models.text_emotion import backend_name

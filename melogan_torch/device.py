@@ -1,6 +1,7 @@
 """Device selection: the port runs on the GPU unless the caller asks for the CPU."""
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Union
 
 import torch
@@ -31,3 +32,24 @@ def device_info(device: torch.device) -> Dict[str, object]:
             "count": torch.cuda.device_count(),
         }
     return {"platform": "cpu", "kind": "cpu", "count": 1}
+
+
+class DeviceWorker:
+    """One long-lived thread that runs a model's device calls, in order.
+
+    PyTorch keeps cuDNN's execution plans (and the cuBLAS handle) per
+    thread, so the first call of a conv net on a new thread plans every
+    conv again, which takes many times the call itself (``chip_smoke.py``'s
+    ``camera_models`` phase measures both). The stdlib HTTP server starts a
+    thread for each request, so the camera models hand their device work
+    to this thread. ``close`` ends it (after the calls submitted so far);
+    an unreferenced worker's thread ends too."""
+
+    def __init__(self, name: str):
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix=name)
+
+    def __call__(self, fn, *args):
+        return self._pool.submit(fn, *args).result()
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)

@@ -1,19 +1,30 @@
-"""HTTP serving on the port: the generation and text parts of
-``melogan_tpu/serving/app.py`` on a stdlib WSGI stack.
+"""HTTP serving on the port: ``melogan_tpu/serving/app.py`` on a stdlib
+WSGI stack.
 
 - ``GET  /``          the web UI (the JAX package's page, byte for byte)
 - ``POST /get_text_emotion``  {"text": ...} → {"emotion": ...}, by the
   configured text backend (``models/text_emotion.py``), loaded at the first
   request on the server's device; 413 for a body over ``MAX_JSON_BODY``, 500
   when the backend fails to load or to run (no fallback to another backend)
+- ``POST /camera_frame``  {"frame": [[gray, ...], ...]} → {"emotion": ...}
+  by the mini-Xception FER on the server's device (``models/xception.py``);
+  503 when no FER is loaded, 413 for a body over ``MAX_FRAME_BODY``, 400 for
+  a frame it cannot classify
+- ``GET  /get_camera_emotion``  the emotion of the latest camera frame, from
+  ``/camera_frame`` or the video feed ("calm" before any)
+- ``GET  /video_feed``  MJPEG (multipart/x-mixed-replace) of the configured
+  frame source's frames, each run through the camera pipeline (face box,
+  FER, overlay) when a FER is loaded, at most ``MELOGAN_VIDEO_MAX_FPS``
+  (default 20) frames a second; 503 when no source is configured
 - ``POST /generate``  {"emotion": ...} → audio/midi download; 400 for an
   unknown emotion, 413 for a body over ``MAX_JSON_BODY``, 503 when the
   sample pool cannot produce a sample in time
 - ``GET  /healthz``   liveness, the text backend with its measured accuracy
-  and note, weight provenance, the sample pool's stats and the device that
-  serves
+  and note, the camera backend and whether a video feed is configured,
+  weight provenance, the sample pool's stats and the device that serves
 - ``GET  /metrics``   Prometheus text: requests by route, method and status,
-  handler latency by route, pool gauges, reloads
+  handler latency by route (the stream of ``/video_feed`` excluded), pool
+  gauges, reloads
 - ``POST /reload``    hot-swap a checkpoint into the running sampler (the
   startup path, or {"checkpoint": path}); the pool is flushed
 
@@ -27,16 +38,21 @@ unless a checkpoint (``.ckpt`` or ``.pth``) is named, with random weights
 and a warning when the file is absent, and ``use_ema`` serves the file's EMA
 generator; ``watch_ckpt`` polls the file and hot-swaps it when it changes.
 The config is a YAML path (``configs/gan.yaml`` by default; ``GANConfig()``
-when the file does not exist) or a ``GANConfig``. The camera routes and
-``/video_feed`` come with a later slice (ROADMAP A.8b). The JAX server's
-device-init watchdog is not ported: it guards a TPU backend that can hang
-while it initializes, and CUDA's initialization either returns or raises.
+when the file does not exist) or a ``GANConfig``. The FER loads from the
+first weight file of ``models/xception.py::h5_candidates`` on the server's
+device; with no file the camera routes answer as the JAX server's do without
+one, and a file that fails to load stops ``create_server`` (the JAX server
+serves on without a FER). The frame source is None, ``"synthetic"`` (a
+drifting face-like blob) or a ``.y4m`` file, looped (``camera_source`` or
+``MELOGAN_CAMERA_SOURCE``). The JAX server's device-init watchdog is not
+ported: it guards a TPU backend that can hang while it initializes, and
+CUDA's initialization either returns or raises.
 
 Run: ``python -m melogan_torch.serving.app [--port 5000] [--workdir .]
 [--config configs/gan.yaml] [--checkpoint gan_final.ckpt] [--ema]
-[--watch-ckpt SECONDS] [--device cuda]``; ``MELOGAN_SAMPLE_POOL=0`` turns
-the pool off and ``MELOGAN_POOL_WARM=0`` its background warm-up, as for the
-JAX server.
+[--watch-ckpt SECONDS] [--camera-source synthetic|clip.y4m] [--device
+cuda]``; ``MELOGAN_SAMPLE_POOL=0`` turns the pool off and
+``MELOGAN_POOL_WARM=0`` its background warm-up, as for the JAX server.
 """
 from __future__ import annotations
 
@@ -50,18 +66,26 @@ from socketserver import ThreadingMixIn
 from typing import Dict, Optional, Tuple, Union
 from wsgiref.simple_server import WSGIServer, make_server
 
+import numpy as np
+
+from melogan_torch.camera import CameraEmotion
 from melogan_torch.config import GANConfig
 from melogan_torch.constants import EMOTION_BPM
 from melogan_torch.device import device_info
 from melogan_torch.midi.codec import render_to_bytes
 from melogan_torch.models.text_emotion import backend_info, backend_name, predict_emotion
+from melogan_torch.models.xception import load_default_fer
 from melogan_torch.sampling import Sampler, emotion_scale
 from melogan_torch.serving.metrics import Registry
 from melogan_torch.serving.pool import PoolTimeout, SamplePool
+from melogan_torch.serving.video import BOUNDARY, SyntheticFrameSource, mjpeg_parts
 
 # JSON request bodies are tiny ({"emotion": ...} / {"text": ...}); cap reads so an oversized
-# body cannot balloon per-request memory
+# body cannot balloon per-request memory. /camera_frame carries a whole
+# grayscale frame as JSON numbers (~8 bytes/pixel of text, ~2.5 MB for
+# 640x480), so it passes its own frame-sized limit.
 MAX_JSON_BODY = 1 << 20
+MAX_FRAME_BODY = 64 << 20
 # how much of an over-limit body is drained (in chunks) so the connection
 # closes cleanly after a 413; beyond this the client is hostile
 _DRAIN_CAP = 8 << 20
@@ -70,11 +94,15 @@ DRAIN_SECS = 10.0
 
 class AppState:
     """The sampler, the optional sample pool, the checkpoint served, the
-    metrics registry, the per-request seed counter and the in-flight
-    count."""
+    metrics registry, the per-request seed counter, the in-flight count, and
+    the camera: the FER (``camera``, loaded here on the sampler's device;
+    None without a weights file), the MJPEG ``frame_source``, the
+    ``camera_pipeline`` that annotates its frames (a ``CameraEmotion`` over
+    the FER, when both exist) and the latest ``camera_emotion``."""
 
     def __init__(self, cfg: GANConfig, sampler: Sampler, pool: Optional[SamplePool] = None,
-                 ckpt_path: Optional[str] = None, loaded_version: Optional[tuple] = None, use_ema: bool = False):
+                 ckpt_path: Optional[str] = None, loaded_version: Optional[tuple] = None, use_ema: bool = False,
+                 frame_source=None):
         self.cfg = cfg
         self.sampler = sampler
         self.pool = pool
@@ -99,6 +127,22 @@ class AppState:
         self.seed_counter = 0
         self._inflight = 0  # requests whose body is not fully written yet
         self._lock = threading.Lock()
+        self._camera_emotion = "calm"
+        self.camera = load_default_fer(sampler.device)
+        # MJPEG source: any (re-)iterable of (H, W, 3) uint8 RGB frames
+        self.frame_source = frame_source
+        self.camera_pipeline = (CameraEmotion(fer=self.camera)
+                                if frame_source is not None and self.camera is not None else None)
+
+    @property
+    def camera_emotion(self) -> str:
+        with self._lock:
+            return self._camera_emotion
+
+    @camera_emotion.setter
+    def camera_emotion(self, value: str) -> None:
+        with self._lock:
+            self._camera_emotion = value
 
     @property
     def loaded(self) -> bool:
@@ -149,16 +193,20 @@ class AppState:
         return flushed
 
     def close(self) -> None:
-        """Stop the checkpoint watcher and the sample pool's threads."""
+        """Stop the checkpoint watcher's, the sample pool's and the FER's
+        threads."""
         if self.watcher is not None:
             self.watcher.stop.set()
             self.watcher.join(timeout=10)
         if self.pool is not None:
             self.pool.close()
+        if self.camera is not None:
+            self.camera.close()
 
 
 _KNOWN_METHODS = {"GET", "POST", "HEAD", "PUT", "DELETE", "OPTIONS", "PATCH"}
-_ROUTES = {"/", "/healthz", "/get_text_emotion", "/generate", "/metrics", "/reload"}
+_ROUTES = {"/", "/healthz", "/get_text_emotion", "/get_camera_emotion", "/video_feed", "/camera_frame",
+           "/generate", "/metrics", "/reload"}
 
 
 def _method_label(method: str) -> str:
@@ -333,6 +381,8 @@ def build_app(state: AppState):
                     "text_backend": text["backend"],
                     "text_backend_accuracy": text.get("measured_eval_accuracy"),
                     "text_backend_note": text["note"],
+                    "camera_backend": "xception" if state.camera else None,
+                    "video_feed": state.frame_source is not None,
                     # weight provenance: random weights until a checkpoint is
                     # served (at startup, by /reload or by the watcher)
                     "generator": "checkpoint" if state.loaded else "random-weights",
@@ -354,6 +404,41 @@ def build_app(state: AppState):
                 return _json_response(start_response,
                                       {"error": f"text backend failed: {type(e).__name__}: {e}"},
                                       status="500 Internal Server Error")
+            return _json_response(start_response, {"emotion": emotion})
+
+        if method == "GET" and path == "/get_camera_emotion":
+            return _json_response(start_response, {"emotion": state.camera_emotion})
+
+        if method == "GET" and path == "/video_feed":
+            if state.frame_source is None:
+                return _json_response(
+                    start_response,
+                    {"error": "no camera frame source configured; "
+                              "POST grayscale frames to /camera_frame instead"},
+                    status="503 Service Unavailable")
+            start_response("200 OK", [("Content-Type", f"multipart/x-mixed-replace; boundary={BOUNDARY}")])
+
+            def _set_emotion(e):
+                state.camera_emotion = e
+
+            # cap the stream rate: with an infinite frame source each client
+            # otherwise busy-loops detect+annotate+encode on a full host core
+            return mjpeg_parts(iter(state.frame_source), state.camera_pipeline, on_emotion=_set_emotion,
+                               max_fps=float(os.environ.get("MELOGAN_VIDEO_MAX_FPS", "20")))
+
+        if method == "POST" and path == "/camera_frame":
+            if state.camera is None:
+                return _json_response(start_response, {"error": "camera emotion model not loaded"},
+                                      status="503 Service Unavailable")
+            payload = _read_json(environ, limit=MAX_FRAME_BODY)
+            if payload is None:
+                return _too_large(start_response)
+            try:
+                frame = np.asarray(payload["frame"], dtype=np.float32)
+                emotion = state.camera.predict_emotion(frame)
+            except Exception as e:  # noqa: BLE001 — a frame it cannot classify is the client's 400
+                return _json_response(start_response, {"error": f"bad frame: {e}"}, status="400 Bad Request")
+            state.camera_emotion = emotion
             return _json_response(start_response, {"emotion": emotion})
 
         if method == "POST" and path == "/generate":
@@ -462,9 +547,10 @@ def build_app(state: AppState):
                 "melogan_http_requests_total", help="HTTP requests by route/method/status",
                 route=route, method=_method_label(environ.get("REQUEST_METHOD", "-")),
                 status=status_box["code"])
-        state.metrics.observe("melogan_http_request_duration_seconds", time.perf_counter() - t0,
-                              help="Handler latency (body build included; streams excluded)",
-                              route=route)
+        if route != "/video_feed":  # the handler only sets the stream up
+            state.metrics.observe("melogan_http_request_duration_seconds", time.perf_counter() - t0,
+                                  help="Handler latency (body build included; streams excluded)",
+                                  route=route)
         return _TrackedBody(result)
 
     return instrumented
@@ -531,6 +617,21 @@ def _resolve_config(config) -> GANConfig:
     return GANConfig()
 
 
+def camera_frame_source(source: Optional[str]):
+    """The frames of ``/video_feed``: None, the synthetic webcam for
+    ``"synthetic"``, else a looped ``.y4m`` file, whose header is read here
+    so a bad path fails at startup, not at the first viewer."""
+    if not source:
+        return None
+    if source == "synthetic":
+        return SyntheticFrameSource()
+    from melogan_torch.imaging.y4m import Y4MFrameSource
+
+    frames = Y4MFrameSource(source, loop=True)
+    print(f"[INIT] camera source: {source} ({frames.width}x{frames.height} y4m, looped)")
+    return frames
+
+
 def create_server(
     host: str = "0.0.0.0",
     port: int = 5000,
@@ -543,6 +644,7 @@ def create_server(
     pool_warm: bool = True,
     watch_ckpt: float = 0.0,
     fast_math: bool = False,
+    camera_source: Optional[str] = None,
 ) -> Tuple[WSGIServer, AppState]:
     """Build the sampler, warm it up, fill the sample pool, and bind a
     threaded WSGI server. The caller runs ``serve_forever`` and, at the
@@ -559,10 +661,15 @@ def create_server(
     ladder once in the background. ``watch_ckpt``: the watcher's poll
     interval in seconds (0: off). ``fast_math``: the sampler's one-pass bf16
     products (``Sampler(fast_math=True)``), kept across ``/reload`` and the
-    watcher's swaps."""
+    watcher's swaps. ``camera_source`` (else ``MELOGAN_CAMERA_SOURCE``):
+    ``/video_feed``'s frames, None (the route answers 503), ``"synthetic"``
+    or the path of a ``.y4m`` file, looped. The FER loads on ``device`` from
+    the first weight file that exists (``AppState``); a file that fails to
+    load raises here."""
     from melogan_torch.utils.weights import load_gan_final_full
 
     backend_name()  # a misconfigured text backend fails here, not at a request
+    frame_source = camera_frame_source(camera_source or os.environ.get("MELOGAN_CAMERA_SOURCE"))
     cfg = _resolve_config(config)
     gen_sd = fe_sd = features = None
     loaded_version = None
@@ -597,8 +704,13 @@ def create_server(
             raise
         if pool_warm:
             pool.warm_async()
-    state = AppState(cfg, sampler, pool=pool, ckpt_path=ckpt_path, loaded_version=loaded_version,
-                     use_ema=use_ema)
+    try:
+        state = AppState(cfg, sampler, pool=pool, ckpt_path=ckpt_path, loaded_version=loaded_version,
+                         use_ema=use_ema, frame_source=frame_source)
+    except BaseException:
+        if pool is not None:
+            pool.close()
+        raise
     if watch_ckpt > 0:
         state.watcher = watch_checkpoint(state, watch_ckpt)
     try:
@@ -612,12 +724,13 @@ def create_server(
 def serve(host: str = "0.0.0.0", port: int = 5000, workdir: str = ".",
           config: Union[str, GANConfig, None] = DEFAULT_CONFIG, checkpoint: Optional[str] = None,
           use_ema: bool = False, device="cuda", watch_ckpt: float = 0.0, dp: int = 0,
-          fast_math: bool = False) -> None:
+          fast_math: bool = False, camera_source: Optional[str] = None) -> None:
     """Serve until interrupted, then wait up to ``DRAIN_SECS`` for the
     responses in flight. The sample pool is on unless
     ``MELOGAN_SAMPLE_POOL=0``, and warms its refill ladder unless
     ``MELOGAN_POOL_WARM=0``, as for the JAX server. ``fast_math``: sample
-    with the one-pass bf16 products (``create_server``). ``dp``
+    with the one-pass bf16 products (``create_server``). ``camera_source``:
+    ``/video_feed``'s frames (``create_server``). ``dp``
     (data-parallel sampling) is not ported yet and raises unless 0."""
     if dp:
         raise NotImplementedError("data-parallel sampling over a mesh is not ported yet")
@@ -625,7 +738,7 @@ def serve(host: str = "0.0.0.0", port: int = 5000, workdir: str = ".",
         host, port, workdir=workdir, config=config, checkpoint=checkpoint, use_ema=use_ema,
         device=device, sample_pool=os.environ.get("MELOGAN_SAMPLE_POOL", "1") != "0",
         pool_warm=os.environ.get("MELOGAN_POOL_WARM", "1") != "0", watch_ckpt=watch_ckpt,
-        fast_math=fast_math)
+        fast_math=fast_math, camera_source=camera_source)
     print(f"[INIT] serving on http://{host}:{httpd.server_address[1]} "
           f"({device_info(state.sampler.device)['kind']}, text backend {backend_name()}, "
           f"{'checkpoint ' + state.ckpt_path if state.loaded else 'random weights'}"
@@ -654,10 +767,12 @@ def main(argv=None) -> None:
     ap.add_argument("--ema", action="store_true", help="serve the checkpoint's EMA generator (G_ema)")
     ap.add_argument("--watch-ckpt", type=float, default=0.0, metavar="SECONDS",
                     help="poll the checkpoint and hot-swap it when it changes (0: off)")
+    ap.add_argument("--camera-source", default=None, metavar="synthetic|PATH.y4m",
+                    help="the frames of /video_feed (default $MELOGAN_CAMERA_SOURCE; none: 503)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     serve(args.host, args.port, workdir=args.workdir, config=args.config, checkpoint=args.checkpoint,
-          use_ema=args.ema, device=args.device, watch_ckpt=args.watch_ckpt)
+          use_ema=args.ema, device=args.device, watch_ckpt=args.watch_ckpt, camera_source=args.camera_source)
 
 
 if __name__ == "__main__":

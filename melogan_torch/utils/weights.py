@@ -42,6 +42,11 @@ The text path: ``text_mlp_state_from_flax`` / ``text_mlp_flax_from_state``
 map the JAX text MLP's flax tree (the cache file of both packages) to and
 from ``TextEmotionMLP``'s state dict, and ``roberta_state_from_jax`` the
 JAX RoBERTa's layer-stacked tree to the HF names of ``models/roberta.py``.
+
+The camera path: ``ssd_state_from_jax`` maps the JAX SSD's tree (conv
+weights HWIO) to ``models/ssd.py::SSD``'s state dict (OIHW), and
+``xception_state_from_keras`` the mini-Xception's Keras weights to
+``models/xception.py::MiniXception``'s.
 """
 from __future__ import annotations
 
@@ -1013,6 +1018,52 @@ def roberta_state_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         for leaf, name, transposed in _ROBERTA_LAYER:
             a = layers[leaf][i]
             sd[f"roberta.encoder.layer.{i}.{name}"] = a.T if transposed else a
+    return {k: np.array(v, np.float32, order="C") for k, v in sd.items()}
+
+
+# the camera path: leaf of a layer's entry in the JAX tree → the port's
+# parameter or buffer name under that layer (conv weights are transposed)
+_SSD_LEAVES = {"w": "weight", "b": "bias", "mean": "mean", "var": "var", "gamma": "weight",
+               "beta": "bias", "scale": "scale"}
+
+
+def ssd_state_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX SSD's tree (``melogan_tpu/models/ssd.py::init_params``: conv
+    ``w`` HWIO and ``b``; BatchNorm ``mean``/``var``; Scale
+    ``gamma``/``beta``; ``conv4_3_norm.scale``) → the state dict of
+    ``models/ssd.py::SSD`` (conv weights OIHW, the BatchNorm buffers, the
+    Scale's ``weight``/``bias``, the norm's ``scale``)."""
+    sd = {}
+    for layer, entry in params.items():
+        for leaf, value in entry.items():
+            a = _np(value)
+            sd[f"{layer}.{_SSD_LEAVES[leaf]}"] = a.transpose(3, 2, 0, 1) if leaf == "w" else a
+    return {k: np.array(v, np.float32, order="C") for k, v in sd.items()}
+
+
+# Keras leaf → (the port's name under the layer, how the array is laid out)
+_KERAS_LEAVES = {
+    "kernel": ("weight", (3, 2, 0, 1)),  # HWIO → OIHW
+    "bias": ("bias", None),
+    "depthwise_kernel": ("depthwise.weight", (2, 3, 0, 1)),  # (H, W, Cin, 1) → (Cin, 1, H, W)
+    "pointwise_kernel": ("pointwise.weight", (3, 2, 0, 1)),  # (1, 1, Cin, Cout) → (Cout, Cin, 1, 1)
+    "gamma": ("weight", None), "beta": ("bias", None),
+    "moving_mean": ("running_mean", None), "moving_variance": ("running_var", None),
+}
+
+
+def xception_state_from_keras(weights: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The mini-Xception's Keras weights as ``load_mini_xception_weights``
+    flattens them (``conv2d_1/kernel``, ``separable_conv2d_1/depthwise_kernel``,
+    ``batch_normalization_1/moving_mean``, ...) → the state dict of
+    ``models/xception.py::MiniXception``; raises KeyError on a leaf it does
+    not know."""
+    sd = {}
+    for key, value in weights.items():
+        layer, leaf = key.split("/")
+        name, perm = _KERAS_LEAVES[leaf]
+        a = _np(value)
+        sd[f"{layer}.{name}"] = a.transpose(perm) if perm else a
     return {k: np.array(v, np.float32, order="C") for k, v in sd.items()}
 
 

@@ -550,8 +550,8 @@ def test_doctor_on_the_cpu_is_bounded_and_fails(tmp_path, capsys, monkeypatch, p
     assert time.perf_counter() - t0 < float(probe_secs) * 2 + 30
     out = capsys.readouterr().out
     for frag in ("device:", "nvcc:", "kernel-cache:", "ae-config:", "ed-config:", "gan-config:",
-                 "splits:", "ae-ckpt:", "ed-ckpt:", "gan-ckpt:", "golden-artifacts:", "text-backend:",
-                 "doctor:"):
+                 "splits:", "ae-ckpt:", "ed-ckpt:", "gan-ckpt:", "golden-artifacts:", "native-jpeg:",
+                 "text-backend:", "doctor:"):
         assert frag in out, out
     assert "[FAIL] device:" in out
     assert ("hung" in out) == (probe_secs == "0.001")

@@ -197,13 +197,14 @@ def test_generate_midi_and_many_end_to_end(tmp_path):
 def test_port_imports_nothing_of_jax():
     """Every module of melogan_torch imports, in a fresh interpreter, without
     pulling in jax, flax, optax, msgpack, yaml, melogan_tpu, transformers,
-    safetensors or tokenizers (the card's machine has none of the last
-    three); with them blocked, the checkpoint codec still writes and reads a
-    file and the typed configs read the shipped YAML files."""
+    safetensors, tokenizers, h5py or PIL (the card's machine has none of the
+    last five); with them blocked, the checkpoint codec still writes and
+    reads a file, the typed configs read the shipped YAML files, and a
+    frame goes through the camera path (SSD, FER, JPEG) on the CPU."""
     code = (
         "import importlib, os, pkgutil, sys, tempfile\n"
         "for blocked in ('msgpack', 'flax', 'jax', 'optax', 'yaml', 'melogan_tpu', 'transformers',\n"
-        "                'safetensors', 'tokenizers'):\n"
+        "                'safetensors', 'tokenizers', 'h5py', 'PIL'):\n"
         "    sys.modules[blocked] = None  # an import of it raises ImportError\n"
         "import numpy as np\n"
         "import melogan_torch\n"
@@ -217,9 +218,16 @@ def test_port_imports_nothing_of_jax():
         "assert AEConfig.from_yaml('configs/ae_freebits.yaml').free_bits == 0.25\n"
         "assert EDConfig.from_yaml('configs/ed.yaml').labels == ('happy', 'sad', 'angry', 'calm')\n"
         "assert GANConfig.from_yaml('configs/gan_conditioning.yaml').latent_dim == 8\n"
+        "from melogan_torch.camera import CameraEmotion\n"
+        "from melogan_torch.models.ssd import FaceDetector\n"
+        "from melogan_torch.serving.video import SyntheticFrameSource, mjpeg_parts\n"
+        "frame = next(iter(SyntheticFrameSource(n_frames=1)))\n"
+        "cam = CameraEmotion(face_detector=FaceDetector(seed=0, device='cpu'), device='cpu')\n"
+        "part = next(mjpeg_parts([frame], cam))\n"
+        "assert b'\\xff\\xd8' in part and cam.current_emotion == 'calm'\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None and m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'yaml', 'melogan_tpu', 'transformers',\n"
-        "                                  'safetensors', 'tokenizers'))\n"
+        "                                  'safetensors', 'tokenizers', 'h5py', 'PIL'))\n"
         "need = {'melogan_torch.models.vae', 'melogan_torch.train.vae_loop', 'melogan_torch.train.harness',\n"
         "        'melogan_torch.utils.yaml_subset', 'melogan_torch.data.npz', 'melogan_torch.data.scaler',\n"
         "        'melogan_torch.data.splits', 'melogan_torch.data.synthetic', 'melogan_torch.data.augment',\n"
@@ -230,7 +238,11 @@ def test_port_imports_nothing_of_jax():
         "        'melogan_torch.diagnostics.tsne', 'melogan_torch.data.text_corpus',\n"
         "        'melogan_torch.models.tokenizer', 'melogan_torch.models.text_emotion',\n"
         "        'melogan_torch.models.text_mlp', 'melogan_torch.models.roberta',\n"
-        "        'melogan_torch.diagnostics.text_eval', 'melogan_torch.utils.safetensors'}\n"
+        "        'melogan_torch.diagnostics.text_eval', 'melogan_torch.utils.safetensors',\n"
+        "        'melogan_torch.imaging', 'melogan_torch.imaging.jpeg', 'melogan_torch.imaging.draw',\n"
+        "        'melogan_torch.imaging.y4m', 'melogan_torch.imaging.native', 'melogan_torch.models.caffe',\n"
+        "        'melogan_torch.models.ssd', 'melogan_torch.models.xception', 'melogan_torch.camera',\n"
+        "        'melogan_torch.serving.video'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "assert len(mods) >= 50, mods\n"
         "assert not bad, bad\n"
