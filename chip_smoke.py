@@ -174,7 +174,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ``.y4m`` file written by ``write_y4m``, read past the clip's end; 10
     ``decoder_tail`` launches, the two warm-ups and the 8 ``/generate``,
     and no ``conv1d`` or ``convt1d``);
-18. prints the per-mode launch counts (``launches_by_mode``), the
+18. data parallelism (``melogan_torch/parallel``), each phase with the
+    counts set to 0 first: ``dp_train`` (``dp_program``: a ``GANConfig()``
+    group step from a critic away from its init with given draws, 5 timed
+    group steps, a one-step epoch of ``vae_loop.train`` and of
+    ``ed_loop.train`` at the shipped widths, run plain, then on one NCCL rank in this process,
+    ``--dp 1``, which must be bit for bit the plain run, as must a
+    ``gan_loop.train`` epoch at ``--dp 1``; then on two gloo ranks sharing
+    the card, held against the plain run with the tolerances of
+    ``tests/test_torch_parallel.py``, Adam's first moments of every module
+    included; every rank must launch the plain
+    run's kernels; the step walls, the bytes the all-reduce carries and its
+    share of two traced steps on the gloo ranks), ``dp_sample``
+    (``Sampler(mesh=make_mesh(1))`` at batch 1, 4096 and 4095 bit for bit
+    the plain sampler, and a sampler over two shards of the one card within
+    ``DP_SAMPLE_ATOL``, one ``decoder_tail`` launch a non-empty block;
+    ``create_server(dp=1)`` answering four ``POST /generate`` and
+    ``/healthz``; 16 ``decoder_tail`` launches) and ``dp_cli``
+    (``train-gan --dp 1`` through the command line in this process, its
+    ``gan_final.ckpt`` bit for bit that of ``train-gan``; ``python -m
+    melogan_torch train-gan --dp 2`` in a child exits non-zero with
+    ``make_mesh``'s "asked for 2 devices, have 1" before any work);
+19. prints the per-mode launch counts (``launches_by_mode``), the
     script's wall, the ``kernels`` JSON line (launches summed over every
     driven path; the bf16 mode of each conv kernel as an entry of its own),
     the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -3332,6 +3353,420 @@ def drive_camera_route(torch, np, camera, results):
     return rec
 
 
+# data parallelism (melogan_torch/parallel): dp_train holds a GANConfig() group step from a
+# perturbed critic, then a VAE and an ED epoch at the shipped widths, plain, on one NCCL rank
+# (--dp 1, bit for bit) and on two gloo ranks sharing the card (the CPU tests' tolerances)
+DP_STEPS = 5  # timed group steps after a first, each run
+DP_PROFILED_STEPS = 2  # group steps traced on the gloo ranks for the all-reduce's share
+# an epoch of one step (batch 32, 64) and one validation batch: the first moments after one
+# update read the gradients; after a second, the ±lr moves of the first have changed them
+DP_VAE_ROWS, DP_ED_ROWS, DP_VAL_ROWS = 32, 64, 32
+DP_TIMEOUT = 600  # seconds before the two gloo ranks are killed
+# Adam's first moments, of their module group's largest: 1e-4 at the shipped widths, as
+# group_step_gpu_vs_cpu (five critic updates carry the reduction-order noise on; the CPU
+# rehearsal of this phase read 2.2e-5 on the critic, the tiny CPU tests hold 1e-5); the VAE's
+# and ED's one-step epochs too (3.0e-7 and 7.2e-7 on the H100)
+DP_GRAD_REL = 1e-4
+DP_REL = 1e-4  # metrics, of their scale
+DP_SAMPLE_ATOL = 1e-5  # a sampler over two shards against one, as test_sharded_sampler_matches_one_device
+
+
+def _np_sd(module):
+    return {k: v.detach().cpu().numpy().copy() for k, v in module.state_dict().items()}
+
+
+def dp_program(mesh, spec):
+    """One rank of ``dp_train`` (``mesh`` None: the plain run, in this
+    process): the group step from ``spec``'s perturbed state with its
+    draws, then ``DP_STEPS`` timed group steps with the state's own draws
+    (traced on two ranks: the all-reduce's share), then ``vae_loop.train``
+    and ``ed_loop.train`` for one epoch. Returns numpy results and this
+    process's kernel launches."""
+    import numpy as np
+    import torch
+
+    from melogan_torch.config import AEConfig, EDConfig, GANConfig
+    from melogan_torch.data.datasets import SplitData
+    from melogan_torch.ops import conv1d, convt, decoder
+    from melogan_torch.parallel.mesh import tree_map
+    from melogan_torch.train import ed_loop, gan_step, vae_loop
+
+    t_start = time.perf_counter()
+    wrappers = {"decoder_tail": decoder.decoder_tail_cuda, "convt1d": convt.convt1d_cuda,
+                "conv1d": conv1d.conv1d_cuda}
+    before = {k: w.launches for k, w in wrappers.items()}
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    tag = "plain" if mesh is None else f"world{mesh.data}"
+    cfg, ed_cfg = GANConfig(), EDConfig()
+    state = gan_step.init_state(cfg, gan_step.build_models(cfg, ed_cfg), seed=3, device=dev)
+    for name, sd in spec["modules"].items():
+        getattr(state, name).load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    steps = gan_step.make_train_steps(cfg, mesh=mesh)
+    batches, draws = tree_map(lambda t: t.to(dev), spec["group"])
+    state, m = steps.group(state, batches, draws)
+    out = {"metrics": {k: float(v) for k, v in m.items()},
+           "modules": {n: _np_sd(getattr(state, n)) for n in ("generator", "critic", "feature_encoder")},
+           "exp_avg": {f"{g}.{n}": getattr(state, opt).state[p]["exp_avg"].cpu().numpy().copy()
+                       for g, mod, opt in (("G", state.generator, "opt_g"),
+                                           ("FE", state.feature_encoder, "opt_g"),
+                                           ("D", state.critic, "opt_d"))
+                       for n, p in mod.named_parameters()}}
+    walls = []
+    for _ in range(DP_STEPS + 1):
+        t0 = time.perf_counter()
+        state, _ = steps.group(state, batches)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = walls[1:]
+    if mesh is not None and mesh.data > 1:
+        from torch.profiler import ProfilerActivity, profile
+
+        profiled = {k: w.launches for k, w in wrappers.items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DP_PROFILED_STEPS):
+                state, _ = steps.group(state, batches)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # the traced steps' launches are left out of this rank's count, which must equal the plain run's
+        before = {k: before[k] + w.launches - profiled[k] for k, w in wrappers.items()}
+        coll = {e.key: {"host_ms": e.cpu_time_total / 1e3, "calls": e.count} for e in prof.key_averages()
+                if e.key == "dp.all_reduce" or "allreduce" in e.key.lower() or "all_reduce" in e.key.lower()}
+        # the spans' durations as the Chrome trace holds them (host side, "user_annotation")
+        trace = os.path.join(spec["workdir"], f"trace_rank{mesh.rank}.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        spans = [e["dur"] for e in events if e.get("name") == "dp.all_reduce" and e.get("ph") == "X"
+                 and e.get("cat") == "user_annotation"]
+        span = sum(spans) / 1e3
+        gpu_span = sum(e["dur"] for e in events if e.get("name") == "dp.all_reduce" and e.get("ph") == "X"
+                       and e.get("cat") == "gpu_user_annotation") / 1e3
+        # the reductions of one group step alone, on idle gradient-shaped buffers: the bytes'
+        # own cost, without the wait for the device work queued before them
+        grads = {"critic": [torch.zeros_like(p) for p in state.critic.parameters()],
+                 "gen": [torch.zeros_like(p) for p in list(state.generator.parameters())
+                         + list(state.feature_encoder.parameters())]}
+        torch.cuda.synchronize()
+        mesh.barrier()  # the ranks leave the trace's export at different times
+        t0 = time.perf_counter()
+        for _ in range(DP_PROFILED_STEPS):
+            for _ in range(cfg.critic_iters):
+                mesh.all_reduce_mean_(grads["critic"])
+            mesh.all_reduce_mean_(grads["gen"])
+        torch.cuda.synchronize()
+        out["profile"] = {"steps": DP_PROFILED_STEPS, "wall_ms": wall, "collectives": coll,
+                          "span_ms": span, "span_calls": len(spans), "gpu_span_ms": gpu_span,
+                          "grad_allreduce_ms": (time.perf_counter() - t0) * 1e3}
+    vae_tr, vae_va, ed_tr, ed_va = (SplitData(*a) for a in spec["data"])
+    t0 = time.perf_counter()
+    best, vm = vae_loop.train(AEConfig(epochs=1, recon_save_count=0), vae_tr, vae_va,
+                              workdir=os.path.join(spec["workdir"], f"vae_{tag}"), verbose=False,
+                              recon_dumps=False, mesh=mesh, device=dev)
+    out["vae"] = {"model": _np_sd(best.model), "metrics": vm, "wall_s": time.perf_counter() - t0,
+                  **_adam_first_moments(best.opt)}
+    t0 = time.perf_counter()
+    best, em = ed_loop.train(EDConfig(num_epochs=1), ed_tr, ed_va,
+                             workdir=os.path.join(spec["workdir"], f"ed_{tag}"), verbose=False,
+                             mesh=mesh, device=dev)
+    out["ed"] = {"model": _np_sd(best.model), "metrics": em, "wall_s": time.perf_counter() - t0,
+                 **_adam_first_moments(best.opt)}
+    out["launches"] = {k: w.launches - before[k] for k, w in wrappers.items()}
+    out["program_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _adam_first_moments(opt):
+    """A VAE or ED optimizer's first moments by parameter name, and its
+    update count."""
+    sd = opt.state_dict()
+    return {"mu": {k: v.detach().cpu().numpy().copy() for k, v in sd["mu"].items()}, "count": sd["count"]}
+
+
+def dp_gan_run(mesh, workdir):
+    """``gan_loop.train`` at the shipped widths for one epoch on the
+    training phase's corpus (2 groups and a 2-batch tail), with ``mesh``:
+    the final modules, history and step."""
+    import numpy as np
+
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.train.gan_loop import train
+
+    state, hist = train(GANConfig(save_freq=1), EDConfig(), make_corpus(np, CORPUS_ROWS), workdir=workdir,
+                        epochs=1, verbose=False, mesh=mesh, device="cuda")
+    return {"modules": {n: _np_sd(getattr(state, n)) for n in ("generator", "critic", "feature_encoder")},
+            "history": {k: v for k, v in hist.items() if k != "epoch_seconds"}, "step": state.step}
+
+
+def _tree_equal(a, b):
+    return not _tree_diff(a, b)
+
+
+def _tree_diff(a, b, where=""):
+    """{path: max abs difference} of the leaves that differ (None where
+    the keys or shapes differ); empty when ``a`` equals ``b`` bit for bit."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return {where: None}
+        out = {}
+        for k in a:
+            out.update(_tree_diff(a[k], b[k], f"{where}/{k}"))
+        return out
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return {where: None}
+    if np.array_equal(a, b):
+        return {}
+    return {where: float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())}
+
+
+def check_dp_two(np, cfg, plain, rank0, rank1):
+    """Two gloo ranks against the plain run, with the tolerances of
+    ``tests/test_torch_parallel.py`` (the moments' at the shipped widths:
+    ``DP_GRAD_REL``); the worst errors."""
+    from melogan_torch.config import AEConfig, EDConfig
+
+    worst = {}
+    if not _tree_equal(rank0["modules"], rank1["modules"]):
+        raise SystemExit("dp_train: the two ranks' weights differ")
+    for k, want in plain["metrics"].items():
+        err = abs(rank0["metrics"][k] - want) / max(abs(want), 1e-30)
+        worst[f"metric {k}"] = err
+        if err > DP_REL:
+            raise SystemExit(f"dp_train: metric {k} {rank0['metrics'][k]} vs plain {want}")
+    lr = {"G": cfg.lr_g, "FE": cfg.lr_g, "D": cfg.lr_d}
+    updates = {"G": 1, "FE": 1, "D": cfg.critic_iters}
+    module_of = {"G": "generator", "FE": "feature_encoder", "D": "critic"}
+    for group in ("G", "FE", "D"):
+        mine, want = ({n.split(".", 1)[1]: v for n, v in r["exp_avg"].items() if n.split(".", 1)[0] == group}
+                      for r in (rank0, plain))
+        worst[f"{group} grad"], worst[f"{group} param"] = _check_adam(
+            np, mine, want, rank0["modules"][module_of[group]], plain["modules"][module_of[group]],
+            lr[group], updates[group], DP_GRAD_REL, 1e-4, group)
+    # the one-step epochs' best states, with the group step's rule
+    for what, key, lr_w in (("vae", "best_val", AEConfig().lr), ("ed", "val_loss", EDConfig().optimizer.lr)):
+        a, b = rank0[what]["metrics"][key], plain[what]["metrics"][key]
+        worst[f"{what} {key}"] = abs(a - b) / abs(b)
+        if abs(a - b) > DP_REL * abs(b):
+            raise SystemExit(f"dp_train: {what} {key} {a} vs plain {b}")
+        if rank0[what]["count"] != plain[what]["count"] or plain[what]["count"] != 1:
+            raise SystemExit(f"dp_train: {what} took {rank0[what]['count']} updates, plain {plain[what]['count']}")
+        worst[f"{what} grad"], worst[f"{what} param"] = _check_adam(
+            np, rank0[what]["mu"], plain[what]["mu"], rank0[what]["model"], plain[what]["model"],
+            lr_w, plain[what]["count"], DP_GRAD_REL, 1e-4, what)
+        if not _tree_equal(rank0[what]["model"], rank1[what]["model"]):
+            raise SystemExit(f"dp_train: the two ranks' {what} weights differ")
+    return worst
+
+
+def _check_adam(np, ours_mu, want_mu, ours_p, want_p, lr, updates, grad_rel, big_rel, what):
+    """One module group after ``updates`` Adam steps against the plain run:
+    every first moment within ``grad_rel`` of the group's largest, every
+    parameter within 2·lr per update (an element whose true gradient is
+    zero moves ±lr at random), and within 1e-6 per update where the plain
+    first moment is above ``big_rel`` of the largest. Returns the worst
+    moment error (of the largest) and the worst parameter error."""
+    gmax = max(float(np.abs(v).max()) for v in want_mu.values())
+    worst_g = worst_p = 0.0
+    for n, mu in want_mu.items():
+        gerr = float(np.abs(ours_mu[n] - mu).max())
+        d = np.abs(np.asarray(ours_p[n], np.float64) - np.asarray(want_p[n], np.float64))
+        big = np.abs(mu) > big_rel * gmax
+        dbig = float(d[big].max()) if big.any() else 0.0
+        worst_g, worst_p = max(worst_g, gerr / gmax), max(worst_p, float(d.max()))
+        if gerr > grad_rel * gmax or float(d.max()) > 2 * lr * updates * (1 + 1e-3) or dbig > 1e-6 * updates:
+            raise SystemExit(f"dp_train: {what} {n}: grad err {gerr:.3e} (group max {gmax:.3e}), "
+                             f"param err {float(d.max()):.3e}, where the gradient is large {dbig:.3e}")
+    return worst_g, worst_p
+
+
+def drive_dp_train(torch, np, results):
+    """``dp_train``: ``dp_program`` plain, on one NCCL rank in this process
+    (``--dp 1``: every result bit for bit the plain run's, and a
+    ``train()`` run beside a plain one, bit for bit) and on two gloo ranks
+    on the one card (against the plain run, ``check_dp_two``); the step
+    walls and the gloo ranks' all-reduce share."""
+    import datetime
+
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.parallel import launch
+    from melogan_torch.train import gan_step
+    from melogan_torch.utils.flops import group_step_flops
+
+    cfg, ed_cfg = GANConfig(), EDConfig()
+    cpu = gan_step.init_state(cfg, gan_step.build_models(cfg, ed_cfg), seed=3, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():  # a critic away from its init, as check_group_step_against_cpu
+        for m in cpu.critic.modules():
+            if isinstance(m, (torch.nn.Conv1d, torch.nn.Linear)):
+                m.weight.mul_(10.0)
+                m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=g))
+    (group,) = _batches_and_draws(torch, np, cfg, cpu.feature_encoder, 4, ["cpu"])
+    splits = [make_corpus(np, n, seed=s) for n, s in ((DP_VAE_ROWS, 11), (DP_VAL_ROWS, 12),
+                                                       (DP_ED_ROWS, 13), (DP_VAL_ROWS, 14))]
+    spec = {"modules": {n: _np_sd(getattr(cpu, n)) for n in ("generator", "critic", "feature_encoder", "ed")},
+            "group": group, "workdir": os.path.join(WORK_DIR, "dp"),
+            "data": [(d.notes_raw, d.emotions, d.numeric, list(d.filenames)) for d in splits]}
+    def compared(r):  # dp_program's results, less its walls
+        return {"metrics": r["metrics"], "modules": r["modules"], "exp_avg": r["exp_avg"],
+                **{w: {k: r[w][k] for k in ("model", "metrics", "mu", "count")} for w in ("vae", "ed")}}
+
+    # the process's first run warms its caches; a second one is the plain run compared
+    warm = dp_program(None, spec)
+    t0 = time.perf_counter()
+    plain = dp_program(None, spec)
+    t1 = time.perf_counter()
+    (one,) = launch.spawn(dp_program, 1, args=(spec,), device="cuda")
+    t2 = time.perf_counter()
+    repeat = _tree_diff(compared(plain), compared(warm))
+    dp1 = _tree_diff(compared(one), compared(plain))
+    if dp1:
+        raise SystemExit(f"dp_train: --dp 1 not bit for bit the plain run: {dp1}; the plain run "
+                         f"against its first repeat: {repeat}")
+    run_plain = dp_gan_run(None, os.path.join(WORK_DIR, "dp", "gan_plain"))
+    (run_one,) = launch.spawn(dp_gan_run, 1, args=(os.path.join(WORK_DIR, "dp", "gan_world1"),), device="cuda")
+    if not _tree_equal(run_one, run_plain):
+        raise SystemExit("dp_train: train() at --dp 1 not bit for bit the plain run")
+    t3 = time.perf_counter()
+    two = launch.spawn(dp_program, 2, args=(spec,), device="cuda", backend="gloo", timeout=DP_TIMEOUT,
+                       rank_timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    t4 = time.perf_counter()
+    worst = check_dp_two(np, cfg, plain, two[0], two[1])
+    # what the all-reduce carries a group step: critic_iters critic updates and one G + FE update,
+    # each one flat float32 buffer of the gradients and, with them, no other tensor
+    n_critic = sum(p.numel() for p in cpu.critic.parameters())
+    n_gen = sum(p.numel() for p in cpu.generator.parameters()) + sum(
+        p.numel() for p in cpu.feature_encoder.parameters())
+    prof = two[0]["profile"]
+    rec = {"phase": "dp_train",
+           "plain_step_median_ms": float(np.median(plain["step_ms"])),
+           "dp1_step_median_ms": float(np.median(one["step_ms"])),
+           "gloo2_step_median_ms": [float(np.median(r["step_ms"])) for r in two],
+           "plain_step_ms": plain["step_ms"], "dp1_step_ms": one["step_ms"],
+           "gloo2_rank0_step_ms": two[0]["step_ms"],
+           "group_step_flops": group_step_flops(cfg, ed_cfg),
+           "allreduce_bytes_per_group_step": {"critic": 4 * n_critic, "critic_updates": cfg.critic_iters,
+                                              "generator_and_fe": 4 * n_gen},
+           "gloo2_profile": prof,
+           # the dp.all_reduce spans of the traced steps (their wait for queued device work
+           # included), and one step's gradient reductions alone, each over the step's wall
+           "gloo2_allreduce_share": prof["span_ms"] / prof["wall_ms"],
+           "gloo2_grad_allreduce_ms_per_step": prof["grad_allreduce_ms"] / prof["steps"],
+           "gloo2_grad_allreduce_share": prof["grad_allreduce_ms"] / prof["steps"] / float(np.median(two[0]["step_ms"])),
+           "dp1_collectives": "none: a data axis of 1 takes the one-device path",
+           "plain_repeat_differs": repeat,
+           "program_s": {"plain": plain["program_s"], "dp1": one["program_s"],
+                         "gloo2": [r["program_s"] for r in two]},
+           "epoch_wall_s": {w: {"vae": r["vae"]["wall_s"], "ed": r["ed"]["wall_s"]}
+                            for w, r in (("plain", plain), ("dp1", one), ("gloo2_rank0", two[0]))},
+           "launches_per_rank": {"plain": plain["launches"], "dp1": one["launches"],
+                                 "gloo2": [r["launches"] for r in two]},
+           "worst_vs_plain": worst,
+           "wall_s": {"plain": t1 - t0, "dp1": t2 - t1, "gan_runs": t3 - t2, "gloo2": t4 - t3}}
+    emit(rec, results)
+    if any(r["launches"][k] <= 0 for r in two for k in ("conv1d", "convt1d")):
+        raise SystemExit(f"dp_train: a gloo rank launched no conv kernel: {[r['launches'] for r in two]}")
+    return rec
+
+
+def drive_dp_sample(torch, np, results):
+    """``dp_sample``: at batch 1, ``MAIN_BATCH`` and ``MAIN_BATCH`` - 1,
+    ``Sampler(mesh=make_mesh(1))`` bit for bit the plain ``Sampler``, and a
+    sampler over a local mesh of two shards on the one card (the split,
+    an empty block at batch 1, an uneven split and the concatenation on the
+    host) within ``DP_SAMPLE_ATOL`` of it, with one ``decoder_tail`` launch
+    a non-empty block; then ``create_server(dp=1)`` answering four
+    ``POST /generate`` and ``GET /healthz``."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.config import GANConfig
+    from melogan_torch.ops import decoder
+    from melogan_torch.parallel.mesh import Mesh, make_mesh
+    from melogan_torch.sampling import Sampler
+    from melogan_torch.serving.app import create_server
+
+    plain = Sampler(GANConfig(), seed=0, device="cuda")
+    sharded = Sampler(GANConfig(), seed=0, mesh=make_mesh(1), device="cuda")
+    # two shards on one card: _replicate shares the modules, so this costs no copy
+    two = Sampler(GANConfig(), seed=0, mesh=Mesh(data=2, devices=(torch.device("cuda", 0),) * 2), device="cuda")
+    walls, errs, two_launches = {}, {}, {}
+    for b in (1, MAIN_BATCH, MAIN_BATCH - 1):
+        emotions = [EMOTIONS[i % 4] for i in range(b)]
+        want = plain.sample_notes(emotions, seed=11)
+        t0 = time.perf_counter()
+        got = sharded.sample_notes(emotions, seed=11)
+        walls[b] = time.perf_counter() - t0
+        if not np.array_equal(got, want):
+            raise SystemExit(f"dp_sample: the mesh sampler differs from the plain one at batch {b}")
+        n0 = decoder.decoder_tail_cuda.launches
+        got = two.sample_notes(emotions, seed=11)
+        two_launches[b] = decoder.decoder_tail_cuda.launches - n0
+        errs[b] = float(np.abs(got.astype(np.float64) - want).max()) if got.shape == want.shape else None
+        if errs[b] is None or errs[b] > DP_SAMPLE_ATOL or two_launches[b] != min(b, 2):
+            raise SystemExit(f"dp_sample: two shards at batch {b}: shape {got.shape}, max abs err {errs[b]}, "
+                             f"{two_launches[b]} decoder_tail launches (want {min(b, 2)})")
+    httpd, state = create_server("127.0.0.1", 0, workdir=os.path.join(WORK_DIR, "no_checkpoint"),
+                                 device="cuda", sample_pool=False, dp=1)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        for emotion in EMOTIONS:
+            status, body = http(base, "/generate", json.dumps({"emotion": emotion}).encode())
+            if status != 200 or body[:4] != b"MThd":
+                raise SystemExit(f"dp_sample /generate {emotion}: status {status}")
+        status, body = http(base, "/healthz")
+        health = json.loads(body)
+        if status != 200 or health["device"]["platform"] != "gpu" or state.sampler.mesh is None:
+            raise SystemExit(f"dp_sample /healthz: {status} {health}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        state.close()
+    emit({"phase": "dp_sample", "bit_identical": True, "mesh_sample_s": walls, "two_shards_max_abs_err": errs,
+          "two_shards_decoder_tail_launches": two_launches, "generate": 4}, results)
+
+
+def drive_dp_cli(np, piped, results):
+    """``dp_cli``: ``train-gan --dp 1`` through ``melogan_torch.cli.main``
+    in this process (one NCCL rank) for one epoch on the pipeline's splits,
+    its ``gan_final.ckpt`` bit for bit that of the same command without
+    ``--dp``; then ``python -m melogan_torch train-gan --dp 2`` in a child
+    process on the one card, which must exit non-zero before any work with
+    ``make_mesh``'s device count."""
+    import shutil
+
+    from melogan_torch.utils.checkpoint import load_checkpoint
+
+    data = os.path.join(piped["work"], "data")
+    argv = ["train-gan", "--splits-dir", os.path.join(data, "splits"), "--processed-dir",
+            os.path.join(data, "processed"), "--config", CLI_CONFIGS["gan"], "--ed-config",
+            CLI_CONFIGS["ed"], "--epochs", "1"]
+    finals, walls = {}, {}
+    for name, extra in (("plain", []), ("dp1", ["--dp", "1"])):
+        work = os.path.join(CLI_DIR, f"dp_{name}")
+        shutil.rmtree(work, ignore_errors=True)
+        t0 = time.perf_counter()
+        run_cli(argv + ["--workdir", work] + extra, f"train_gan_{name}")
+        walls[name] = time.perf_counter() - t0
+        finals[name] = load_checkpoint(os.path.join(work, "experiments", "gan", "checkpoints", "gan_final.ckpt"))
+    if not _tree_equal(finals["dp1"], finals["plain"]):
+        raise SystemExit("dp_cli: train-gan --dp 1 wrote another gan_final.ckpt than train-gan")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "melogan_torch", *argv, "--workdir",
+                           os.path.join(CLI_DIR, "dp_2"), "--dp", "2"],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    refused_s = time.perf_counter() - t0
+    if proc.returncode == 0 or "asked for 2 devices, have 1" not in proc.stderr:
+        raise SystemExit(f"dp_cli: --dp 2 on one card exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if os.path.exists(os.path.join(CLI_DIR, "dp_2", "experiments")):
+        raise SystemExit("dp_cli: --dp 2 did work before it refused")
+    emit({"phase": "dp_cli", "train_gan_wall_s": walls, "dp2_exit": proc.returncode,
+          "dp2_message": proc.stderr.strip().splitlines()[-1], "dp2_wall_s": refused_s}, results)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -3538,16 +3973,34 @@ def main() -> int:
         if got != predicted or any(bf16_by_path[name].values()):
             raise SystemExit(f"{name} launches {got} / bf16 {bf16_by_path[name]}, predicted {predicted}, "
                              f"no bf16")
+    # data parallelism: --dp 1 bit for bit, two gloo ranks sharing the card, the sampler and the
+    # server over a local mesh, and the command line's --dp
+    dp, dp_training = drive("dp_train", lambda: drive_dp_train(torch, np, results), ("conv1d", "convt1d"))
+    _, dp_sampling = drive("dp_sample", lambda: drive_dp_sample(torch, np, results), ("decoder_tail",))
+    _, dp_cli = drive("dp_cli", lambda: drive_dp_cli(np, piped, results), ("conv1d", "convt1d"))
+    per_rank = dp["launches_per_rank"]
+    if any(r != per_rank["plain"] for r in [per_rank["dp1"]] + per_rank["gloo2"]):
+        raise SystemExit(f"dp_train launches per rank {per_rank}: each rank should launch the plain run's")
+    # the plain and the one-shard sampler at three batches, the two-shard sampler's non-empty
+    # blocks (1 + 2 + 2), then the server's warm-up and four /generate
+    dp_want = {"dp_sample": (dp_sampling, dict(none, decoder_tail=2 * 3 + 5 + 1 + 4))}
+    for name, (got, predicted) in dp_want.items():
+        if got != predicted:
+            raise SystemExit(f"{name} launches {got}, predicted {predicted}")
+    if any(n for name in ("dp_train", "dp_sample", "dp_cli") for n in bf16_by_path[name].values()):
+        raise SystemExit(f"a dp path launched the bf16 mode: {bf16_by_path}")
     path_names = ("sampling", "training", "resume", "serve_ckpt", "data", "vae_train", "vae_resume", "encode",
                   "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload",
                   "sweep", "sweep_resume", "sweep_halving", "sampling_fast", "training_bf16", "spectral",
                   "cli_pipeline", "cli_resume", "cli_commands", "cli_module",
-                  "text_mlp", "roberta", "text_route", "cli_text_eval", "camera_models", "camera_route")
+                  "text_mlp", "roberta", "text_route", "cli_text_eval", "camera_models", "camera_route",
+                  "dp_train", "dp_sample", "dp_cli")
     paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
              conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading,
              sweeping, sweep_resuming, sweep_halving, sampling_fast, training_bf16, spectral,
              cli_pipeline, cli_resume, cli_commands, cli_module,
-             text_mlp_counts, roberta_counts, text_route, cli_text_eval, camera_models, camera_route)
+             text_mlp_counts, roberta_counts, text_route, cli_text_eval, camera_models, camera_route,
+             dp_training, dp_sampling, dp_cli)
     launches = {k: sum(p[k] for p in paths) for k in wrappers}
     launches_bf16 = {k: sum(bf16_by_path[p][k] for p in path_names) for k in moded}
 
@@ -3632,6 +4085,11 @@ def main() -> int:
           "fer": camera["record"]["fer"], "jpeg": camera["record"]["jpeg"],
           "camera_route_median_ms": routed["synthetic"]["route_median_ms"],
           "video_fps": {k: routed[k]["video_fps"] for k in ("synthetic", "y4m")},
+          "dp_plain_step_median_ms": dp["plain_step_median_ms"], "dp1_step_median_ms": dp["dp1_step_median_ms"],
+          "dp_gloo2_step_median_ms": dp["gloo2_step_median_ms"],
+          "dp_gloo2_allreduce_share": dp["gloo2_allreduce_share"],
+          "dp_gloo2_grad_allreduce_ms_per_step": dp["gloo2_grad_allreduce_ms_per_step"],
+          "dp_launches_per_rank": dp["launches_per_rank"],
           "launches_by_path": dict(zip(path_names, paths)), "launches_bf16_by_path": bf16_by_path},
          results)
     emit({"phase": "script", "wall_s": time.perf_counter() - t_script}, results)

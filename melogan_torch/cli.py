@@ -37,9 +37,13 @@ Every subcommand that touches the device runs on the GPU unless the
 top-level ``--device cpu`` is given (``python -m melogan_torch --device cpu
 pipeline ...``); asking for the GPU where there is none raises, and nothing
 falls back to the CPU. The handlers in ``_HOST_ONLY_FNS`` never touch the
-device and never initialize CUDA. ``--dp N`` is parsed where the JAX CLI
-takes it and exits for any N > 0: data parallelism is not ported yet
-(ROADMAP A.9). The JAX CLI's ``precompile`` (it warms a JAX compile cache)
+device and never initialize CUDA. ``--dp N`` (data parallelism over N
+devices): ``train-ae``, ``train-ed``, ``train-gan``, ``sweep`` and
+``pipeline`` start N ranks, one process a device (``parallel/launch.py``),
+each of which runs the subcommand again inside the group; under a group that
+already exists (``torchrun``) the subcommand joins it and starts nothing.
+``sample`` and ``serve`` split their batches over N local devices in this
+process. The JAX CLI's ``precompile`` (it warms a JAX compile cache)
 and ``bench`` (it runs the JAX package's benchmark) have no counterpart
 here.
 """
@@ -159,6 +163,36 @@ def cmd_augment_corpus(args):
     return report
 
 
+def _check_dp_batch(dp, batch_size):
+    """Hard-errors when ``batch_size`` does not divide ``--dp``: no batch
+    could then be split over the ranks, and every rank would train the
+    whole batch, at one device's speed, while claiming to be data-parallel."""
+    if batch_size is not None and batch_size % dp != 0:
+        raise SystemExit(
+            f"--dp {dp} requires the config batch_size ({batch_size}) to be "
+            f"divisible by it; otherwise no batch sharding can be applied"
+        )
+
+
+def _mesh_from_args(args, batch_size=None):
+    """--dp N → a (data=N, model=1) mesh, ``make_mesh(n_devices=N)``: over
+    the process group inside the ranks that ``main`` started (or under
+    ``torchrun``), else over the first N local devices (``sample``,
+    ``serve``); 0/absent → None. ``batch_size``: see ``_check_dp_batch``."""
+    dp = getattr(args, "dp", 0)
+    if not dp:
+        return None
+    _check_dp_batch(dp, batch_size)
+    from melogan_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_devices=dp, device=args.device)
+
+
+def _is_main(mesh):
+    """Whether this process prints a trainer's result (rank 0, or alone)."""
+    return mesh is None or mesh.is_main
+
+
 def _load_split(args, name):
     from melogan_torch.data.datasets import load_split
 
@@ -192,13 +226,16 @@ def cmd_train_ae(args):
     cfg = _load_cfg(AEConfig, args.config, args.workdir)
     if args.epochs:
         cfg.epochs = args.epochs
+    mesh = _mesh_from_args(args, cfg.batch_size)
     train_data = _load_split(args, "train")
     val_data = _load_split(args, "val")
     _, metrics = vae_loop.train(
         cfg, train_data, val_data, workdir=args.workdir,
-        resume=getattr(args, "resume", False), precision=_precision(args), device=args.device,
+        resume=getattr(args, "resume", False), mesh=mesh, precision=_precision(args),
+        device=args.device,
     )
-    print(json.dumps(metrics))
+    if _is_main(mesh):
+        print(json.dumps(metrics))
 
 
 def cmd_encode(args):
@@ -228,6 +265,7 @@ def cmd_train_ed(args):
     cfg = _load_cfg(EDConfig, args.config, args.workdir)
     if args.epochs:
         cfg.num_epochs = args.epochs
+    mesh = _mesh_from_args(args, cfg.batch_size)
     train_data = _load_split(args, "train")
     val_data = _load_split(args, "val")
     lat_tr = lat_va = None
@@ -236,9 +274,11 @@ def cmd_train_ed(args):
         lat_va = np.load(os.path.join(args.splits_dir, "val", "encoder_feats.npy"))
     _, metrics = ed_loop.train(
         cfg, train_data, val_data, lat_tr, lat_va, workdir=args.workdir,
-        resume=getattr(args, "resume", False), precision=_precision(args), device=args.device,
+        resume=getattr(args, "resume", False), mesh=mesh, precision=_precision(args),
+        device=args.device,
     )
-    print(json.dumps(metrics))
+    if _is_main(mesh):
+        print(json.dumps(metrics))
 
 
 def cmd_eval_ed(args):
@@ -308,6 +348,7 @@ def cmd_train_gan(args):
     ed_cfg = _load_cfg(EDConfig, args.ed_config, args.workdir)
     if args.epochs:
         cfg.epochs = args.epochs
+    mesh = _mesh_from_args(args, cfg.batch_size)
     train_data = _load_split(args, "train")
     if getattr(args, "ema", None) is not None:
         cfg.ema_decay = _resolve_ema_arg(args.ema, cfg, cfg.epochs, train_data.n)
@@ -327,11 +368,12 @@ def cmd_train_gan(args):
 
     _, metrics = gan_loop.train(
         cfg, ed_cfg, train_data, latents=latents, ed_variables=ed_variables,
-        workdir=args.workdir, resume=getattr(args, "resume", False),
+        workdir=args.workdir, resume=getattr(args, "resume", False), mesh=mesh,
         precision=_precision(args), track_best=track_best,
         gate_samples_per_emotion=getattr(args, "gate_samples", 2), device=args.device,
     )
-    print(json.dumps(metrics))
+    if _is_main(mesh):
+        print(json.dumps(metrics))
 
 
 def parse_hyper_grid(spec):
@@ -367,6 +409,7 @@ def cmd_sweep(args):
     ed_cfg = _load_cfg(EDConfig, args.ed_config, args.workdir)
     if args.epochs:
         cfg.epochs = args.epochs
+    mesh = _mesh_from_args(args)
     train_data = _load_split(args, "train")
     if getattr(args, "ema", None) is not None:
         cfg.ema_decay = _resolve_ema_arg(args.ema, cfg, cfg.epochs, train_data.n)
@@ -389,8 +432,10 @@ def cmd_sweep(args):
         promote_best=args.promote_best, precision=_precision(args),
         hyper_grid=hyper_grid, halving=getattr(args, "halving", False),
         rung_epochs=getattr(args, "rung_epochs", None),
-        resume=getattr(args, "resume", False), device=args.device,
+        resume=getattr(args, "resume", False), mesh=mesh, device=args.device,
     )
+    if not _is_main(mesh):
+        return
     print(json.dumps({"best_seed": report["best_seed"],
                       "best_checkpoint": report["best_checkpoint"],
                       "gate": [{"seed": r["seed"], "passed": r["gate_passed"],
@@ -418,6 +463,7 @@ def cmd_sample(args):
     from melogan_torch.sampling import Sampler, emotion_scale
 
     cfg = _load_cfg(GANConfig, args.config, args.workdir)
+    mesh = _mesh_from_args(args)
     gen_sd, fe_sd, emotion_features, ckpt_path, loaded = _load_generator(args, cfg)
     if loaded:
         print(f"[INFO] loaded generator from {ckpt_path}"
@@ -428,7 +474,8 @@ def cmd_sample(args):
         print(f"[WARN] checkpoint not found at {ckpt_path}; sampling with random weights")
 
     sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd, seed=args.seed,
-                      emotion_features=emotion_features, device=args.device)
+                      mesh=mesh, emotion_features=emotion_features,
+                      device=args.device)
     os.makedirs(args.out, exist_ok=True)
     rng = np.random.default_rng(args.seed)
     emotions = [args.emotion] if args.emotion != "all" else ["happy", "sad", "angry", "calm"]
@@ -597,7 +644,13 @@ def cmd_pipeline(args):
     """full_script.sh equivalent: synth-data? → preprocess → splits → arrays →
     train-ae → encode → train-ed → train-gan → sample ×4 emotions →
     quality-gate. Prints per-stage wall-clock at the end and writes it to
-    ``<workdir>/pipeline_timings.json``."""
+    ``<workdir>/pipeline_timings.json``.
+
+    Inside the ranks of ``--dp N`` the three train stages run on every
+    rank; rank 0 alone runs the data stages, ``encode``, ``sample`` and the
+    quality gate (on its own device) and writes the markers and the
+    timings, while the others wait. Rank 0 decides every ``--resume`` skip
+    and the others follow it."""
     import time
     from types import SimpleNamespace
 
@@ -609,6 +662,9 @@ def cmd_pipeline(args):
     data_root = os.path.join(work, "data")
     resume = getattr(args, "resume", False)
     device = args.device
+    dp = getattr(args, "dp", 0)
+    mesh = _mesh_from_args(args)
+    main = _is_main(mesh)
 
     # EMA implies --gan-track-best (mirrors train-gan's default): the gate
     # protects a mis-sized decay and the sample stage serves the gated-best
@@ -656,24 +712,35 @@ def cmd_pipeline(args):
         except (OSError, ValueError):
             return None
 
-    def stage(name, fn, *a, skippable=True, artifacts=()):
+    def stage(name, fn, *a, skippable=True, artifacts=(), where="all"):
+        """Run (or, on --resume, skip) one stage. ``where``: "all" ranks
+        run ``fn``, or rank 0 runs it while the others wait ("main"), or
+        rank 0 is the only one here ("solo", the data stages)."""
         nonlocal upstream_ran
         marker = os.path.join(done_dir, f"{name}.json")
-        if (resume and skippable and not upstream_ran and os.path.exists(marker)
-                and all(os.path.exists(p) for p in artifacts)):
-            saved = _read_marker(name)
-            if saved and saved.get("sig") == sig:
+        skip = None
+        if main:
+            skip = bool(resume and skippable and not upstream_ran and os.path.exists(marker)
+                        and all(os.path.exists(p) for p in artifacts)
+                        and (_read_marker(name) or {}).get("sig") == sig)
+        if mesh is not None and where != "solo":
+            skip = mesh.broadcast_object(skip)
+        if skip:
+            if main:
                 print(f"[INFO] --resume: skipping {name} "
                       "(completed in a previous run)")
-                timings.append((name, 0.0))
-                return None
+            timings.append((name, 0.0))
+            return None
         upstream_ran = True
         t0 = time.perf_counter()
-        out = fn(*a)
+        out = fn(*a) if where != "main" or main else None
         timings.append((name, time.perf_counter() - t0))
-        os.makedirs(done_dir, exist_ok=True)
-        atomic_write(marker, lambda f: json.dump(
-            {"stage": name, "sig": sig, "data_sig": data_sig}, f))
+        if main:
+            os.makedirs(done_dir, exist_ok=True)
+            atomic_write(marker, lambda f: json.dump(
+                {"stage": name, "sig": sig, "data_sig": data_sig}, f))
+        if mesh is not None and where == "main":
+            mesh.barrier()
         return out
 
     def done_if(name, *artifacts):
@@ -721,32 +788,35 @@ def cmd_pipeline(args):
     if getattr(args, "gan_track_best", False):
         arts["train-gan"] = arts["train-gan"] + (gan_best_path,)
 
-    if args.synthetic and not done_if("synth-data", *arts["synth-data"]):
-        stage("synth-data", cmd_synth_data,
-              SimpleNamespace(out=data_root, per_emotion=args.per_emotion, seed=42),
-              skippable=False)
-    if not done_if("preprocess", *arts["preprocess"]):
-        stage("preprocess", cmd_preprocess,
-              SimpleNamespace(manifest=manifest, out=processed, scaler=None),
-              skippable=False)
-    if not done_if("make-splits", *arts["make-splits"]):
-        stage("make-splits", cmd_make_splits,
-              SimpleNamespace(manifest=manifest, out=splits_dir, seed=42),
-              skippable=False)
-    if not done_if("split-arrays", *arts["split-arrays"]):
-        stage("split-arrays", cmd_split_arrays,
-              SimpleNamespace(splits=["train", "val", "test"], splits_dir=splits_dir,
-                              processed_dir=processed),
-              skippable=False)
+    if main:  # the data stages: host work, on rank 0 alone
+        if args.synthetic and not done_if("synth-data", *arts["synth-data"]):
+            stage("synth-data", cmd_synth_data,
+                  SimpleNamespace(out=data_root, per_emotion=args.per_emotion, seed=42),
+                  skippable=False, where="solo")
+        if not done_if("preprocess", *arts["preprocess"]):
+            stage("preprocess", cmd_preprocess,
+                  SimpleNamespace(manifest=manifest, out=processed, scaler=None),
+                  skippable=False, where="solo")
+        if not done_if("make-splits", *arts["make-splits"]):
+            stage("make-splits", cmd_make_splits,
+                  SimpleNamespace(manifest=manifest, out=splits_dir, seed=42),
+                  skippable=False, where="solo")
+        if not done_if("split-arrays", *arts["split-arrays"]):
+            stage("split-arrays", cmd_split_arrays,
+                  SimpleNamespace(splits=["train", "val", "test"], splits_dir=splits_dir,
+                                  processed_dir=processed),
+                  skippable=False, where="solo")
+    if mesh is not None:  # the other ranks follow rank 0's data stages
+        upstream_ran = mesh.broadcast_object(upstream_ran)
     base = SimpleNamespace(
         workdir=work, splits_dir=splits_dir, processed_dir=processed,
         config=args.ae_config, epochs=args.epochs, checkpoint=None,
-        bf16=getattr(args, "bf16", False), resume=resume, device=device,
+        bf16=getattr(args, "bf16", False), resume=resume, device=device, dp=dp,
     )
     stage("train-ae", cmd_train_ae, base, artifacts=arts["train-ae"])
     stage("encode", cmd_encode,
           SimpleNamespace(**{**vars(base), "splits": ["train", "val", "test"]}),
-          artifacts=arts["encode"])
+          artifacts=arts["encode"], where="main")
     stage("train-ed", cmd_train_ed,
           SimpleNamespace(**{**vars(base), "config": args.ed_config}),
           artifacts=arts["train-ed"])
@@ -766,11 +836,13 @@ def cmd_pipeline(args):
         workdir=work, config=args.gan_config, checkpoint=sample_ckpt,
         emotion="all", samples=2, seed=42, out=gen_dir,
         ema=getattr(args, "gan_ema", None) is not None, device=device,
-    ), artifacts=(gen_dir,))
+    ), artifacts=(gen_dir,), where="main")
     # golden-band quality gate over the fresh samples
     if not getattr(args, "skip_quality_gate", False):
         stage("quality-gate", cmd_quality_gate,
-              SimpleNamespace(dir=gen_dir, strict=True), skippable=False)
+              SimpleNamespace(dir=gen_dir, strict=True), skippable=False, where="main")
+    if not main:
+        return
     total = sum(t for _, t in timings)
     print("[INFO] pipeline stage timings: "
           + " | ".join(f"{n} {t:.1f}s" for n, t in timings)
@@ -1042,7 +1114,7 @@ def cmd_serve(args):
     serve(host=args.host, port=args.port, workdir=args.workdir,
           config=cfg, checkpoint=args.checkpoint,
           fast_math=getattr(args, "fast_math", False),
-          watch_ckpt=getattr(args, "watch_ckpt", 0.0),
+          watch_ckpt=getattr(args, "watch_ckpt", 0.0), dp=getattr(args, "dp", 0),
           use_ema=getattr(args, "ema", False), device=args.device)
 
 
@@ -1151,7 +1223,7 @@ def build_parser():
     s.add_argument("--processed-dir", default="data/processed")
     s.set_defaults(fn=cmd_split_arrays)
 
-    dp_help = "data-parallel device count (0 = single device; N > 0 is not ported yet)"
+    dp_help = "data-parallel device count: N ranks, one a device (0 = single device)"
     bf16_help = "bf16 training (one-pass bf16 products, f32 sums)"
     for name, fn, cfg_default in (
         ("train-ae", cmd_train_ae, "configs/ae.yaml"),
@@ -1259,7 +1331,7 @@ def build_parser():
                         "ranks EMA weights and finals carry G_ema ('auto' "
                         "sizes the decay from the planned G-update count)")
     s.add_argument("--dp", type=int, default=0,
-                   help="shard the population over N devices (not ported yet)")
+                   help="shard the population over N ranks, one a device")
     s.add_argument("--bf16", action="store_true", help=bf16_help)
     s.set_defaults(fn=cmd_sweep)
 
@@ -1274,7 +1346,7 @@ def build_parser():
     s.add_argument("--ema", action="store_true",
                    help="sample from the EMA generator weights (G_ema)")
     s.add_argument("--dp", type=int, default=0,
-                   help="shard the sample batch over N devices (not ported yet)")
+                   help="shard the sample batch over N local devices")
     s.set_defaults(fn=cmd_sample)
 
     s = sub.add_parser("pipeline", help="all stages end-to-end")
@@ -1312,7 +1384,7 @@ def build_parser():
                         "checkpoints (step-identical)")
     s.add_argument("--bf16", action="store_true", help="bf16 training for all three stages")
     s.add_argument("--dp", type=int, default=0,
-                   help="data-parallel device count for all three stages (not ported yet)")
+                   help="data-parallel device count for all three train stages")
     s.set_defaults(fn=cmd_pipeline)
 
     s = sub.add_parser("doctor", help="environment diagnostic (card, nvcc, kernel "
@@ -1437,7 +1509,7 @@ def build_parser():
     s.add_argument("--fast-math", action="store_true", dest="fast_math",
                    help="one-pass bf16 products: not f32-deterministic bytes")
     s.add_argument("--dp", type=int, default=0,
-                   help="shard pool-refill batches over N devices (not ported yet)")
+                   help="shard every sample batch over N local devices")
     s.add_argument("--watch-ckpt", type=float, default=0.0, dest="watch_ckpt",
                    metavar="SECS",
                    help="auto hot-reload the checkpoint when its mtime "
@@ -1479,11 +1551,67 @@ _HOST_ONLY_FNS = {"cmd_synth_data", "cmd_preprocess", "cmd_make_splits",
                   "cmd_doctor"}
 
 
+# subcommand handlers that --dp N runs on N ranks, one process a device
+_RANK_FNS = {"cmd_train_ae", "cmd_train_ed", "cmd_train_gan", "cmd_sweep", "cmd_pipeline"}
+
+
+def _dp_batch_sizes(args):
+    """The config batch sizes that ``--dp`` must divide, as the JAX CLI
+    checks them: each trainer's own, the three of ``pipeline``, none for
+    ``sweep`` (it shards members, not batches)."""
+    from melogan_torch.config import AEConfig, EDConfig, GANConfig
+
+    name = args.fn.__name__
+    if name == "cmd_pipeline":
+        pairs = [(AEConfig, args.ae_config), (EDConfig, args.ed_config), (GANConfig, args.gan_config)]
+    else:
+        pairs = {"cmd_train_ae": [(AEConfig, args.config)], "cmd_train_ed": [(EDConfig, args.config)],
+                 "cmd_train_gan": [(GANConfig, args.config)]}.get(name, [])
+    return [_load_cfg(cls, path, args.workdir).batch_size for cls, path in pairs]
+
+
+def _needs_ranks(args) -> bool:
+    """Whether ``main`` starts the ranks of a ``--dp`` run: a training
+    subcommand outside a process group. Under ``torchrun`` this process
+    first joins torchrun's group (``parallel.distributed.join_torchrun``)."""
+    if not getattr(args, "dp", 0) or args.fn.__name__ not in _RANK_FNS:
+        return False
+    from melogan_torch.parallel.distributed import join_torchrun
+
+    return not join_torchrun(args.device)
+
+
+def _check_dp(args):
+    """Before any work: the batch sizes and the device count of a ``--dp``
+    run that starts its ranks."""
+    from melogan_torch.parallel.mesh import make_mesh
+
+    for batch_size in _dp_batch_sizes(args):
+        _check_dp_batch(args.dp, batch_size)
+    try:
+        make_mesh(n_devices=args.dp, device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"--dp {args.dp}: {e}")
+
+
+def _run_ranks(args, argv):
+    """``--dp N``: run this command line on N ranks (``parallel/launch.py``),
+    each of which joins the group and trains its shard; a rank that fails
+    ends them all and exits non-zero with its traceback."""
+    from melogan_torch.parallel import launch
+
+    try:
+        launch.spawn(launch.cli_rank, args.dp, args=(argv,), device=args.device)
+    except Exception as e:  # noqa: BLE001 — a rank's failure, reported with its traceback
+        raise SystemExit(f"--dp {args.dp}: a rank failed:\n{e}")
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    if getattr(args, "dp", 0):
-        raise SystemExit(f"--dp {args.dp}: data-parallel training and sampling are not "
-                         "ported yet (ROADMAP A.9); run without --dp")
+    spawn_ranks = _needs_ranks(args)
+    if spawn_ranks:
+        _check_dp(args)
     if args.fn.__name__ not in _HOST_ONLY_FNS:
         from melogan_torch.device import resolve_device
 
@@ -1493,6 +1621,9 @@ def main(argv=None):
             raise SystemExit(f"--device {args.device}: {e}")
         if device.type == "cuda":
             _build_kernels()
+    if spawn_ranks:
+        _run_ranks(args, argv)
+        return
     args.fn(args)
 
 

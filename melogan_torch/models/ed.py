@@ -22,7 +22,7 @@ tests inject the JAX package's draws.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -100,6 +100,19 @@ class MLPClassifier(nn.Module):
             prev = h
         self.net = nn.Sequential(*layers)
         self.head = Linear(prev, n_classes)
+
+    def draw_masks(self, batch: int, generator: torch.Generator) -> List[Optional[torch.Tensor]]:
+        """The keep masks a train-mode forward over ``batch`` rows draws
+        from ``generator``, drawn ahead in the same order, on its device
+        (None for a rate-0 ``Dropout``, which draws nothing)."""
+        masks, width = [], None
+        for m in self.net:
+            if isinstance(m, nn.Linear):
+                width = m.out_features
+            elif isinstance(m, Dropout):
+                masks.append(m.draw_mask((batch, width), generator, generator.device)
+                             if m.rate else None)
+        return masks
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:

@@ -23,6 +23,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from melogan_torch.ops.conv import conv1d, conv_transpose1d
+from melogan_torch.parallel.mesh import active_mesh, all_reduce
 from melogan_torch.precision import (  # noqa: F401  (the JAX module's names)
     bf16_products,
     default_precision,
@@ -104,9 +105,70 @@ def adaptive_avg_pool_1(x: torch.Tensor) -> torch.Tensor:
 
 def batch_norm_lc(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """``bn`` over a channels-last (B, L, C) tensor: statistics over B and L,
-    running stats updated in train mode exactly as over (B, C, L)."""
+    running stats updated in train mode exactly as over (B, C, L). In train
+    mode inside a data-parallel step (``parallel.mesh.data_parallel``) the
+    statistics are those of the global batch (``_CrossRankBatchNorm``);
+    otherwise this is ``nn.BatchNorm1d`` itself."""
     b, l, c = x.shape
+    mesh = active_mesh()
+    if bn.training and mesh is not None:
+        return _cross_rank_batch_norm(bn, x.reshape(b * l, c), mesh).reshape(b, l, c)
     return bn(x.reshape(b * l, c)).reshape(b, l, c)
+
+
+def _cross_rank_batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, mesh) -> torch.Tensor:
+    """Train-mode ``bn`` (affine) over rows ``x`` (M, C) with the
+    statistics of the rows of every rank, as JAX's ``TorchBatchNorm`` under
+    GSPMD (``melogan_tpu/models/layers.py:302-313``): one ``all_reduce`` of
+    the per-channel count, sum and sum of squares in float64 gives the
+    global mean and biased variance; the running stats take the global
+    unbiased variance and ``num_batches_tracked`` advances (the folded-BN
+    cache of ``models/gan.py`` keys on it). Also under ``no_grad``."""
+    bn.num_batches_tracked.add_(1)
+    momentum = bn.momentum if bn.momentum is not None else 1.0 / float(bn.num_batches_tracked)
+    y, mean, var, n = _CrossRankBatchNorm.apply(x, bn.weight, bn.bias, bn.eps, mesh)
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - momentum).add_(mean * momentum)
+        bn.running_var.mul_(1.0 - momentum).add_(var * (n / (n - 1.0)) * momentum)
+    return y
+
+
+class _CrossRankBatchNorm(torch.autograd.Function):
+    """(x (M, C), weight, bias) → (y, global mean, global biased variance,
+    global row count as a 0-d float64 tensor). Backward, once
+    differentiable: one ``all_reduce`` of the two per-channel sums Σdy and
+    Σdy·x̂, then dx = γ·invstd·(dy − Σdy/n − x̂·Σdy·x̂/n); dγ and dβ are this
+    rank's own sums, which the optimizer's gradient mean over the ranks
+    completes."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        c = x.shape[1]
+        xd = x.detach().to(torch.float64)
+        stats = torch.cat([xd.new_full((1,), float(x.shape[0])), xd.sum(0), xd.square().sum(0)])
+        all_reduce(stats, mesh.group)
+        n = stats[0]
+        mean64 = stats[1:1 + c] / n
+        var64 = torch.clamp(stats[1 + c:] / n - mean64.square(), min=0.0)
+        mean, var = mean64.to(x.dtype), var64.to(x.dtype)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (x - mean) * invstd
+        ctx.save_for_backward(xhat, invstd, weight, n)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var, n)
+        return xhat * weight + bias, mean, var, n
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, _dmean, _dvar, _dn):
+        xhat, invstd, weight, n = ctx.saved_tensors
+        c = dy.shape[1]
+        local = torch.cat([dy.sum(0), (dy * xhat).sum(0)])
+        sums = local.clone()
+        all_reduce(sums, ctx.mesh.group)
+        n = n.to(dy.dtype)
+        dx = invstd * weight * (dy - sums[:c] / n - xhat * (sums[c:] / n))
+        return dx, local[c:], local[:c], None, None
 
 
 def trim_or_pad_length(x: torch.Tensor, target_len: int) -> torch.Tensor:

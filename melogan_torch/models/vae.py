@@ -30,6 +30,7 @@ from torch import nn
 
 from melogan_torch.config import AEConfig
 from melogan_torch.models.layers import Conv1d, ConvTranspose1d, Linear, batch_norm_lc, trim_or_pad_length
+from melogan_torch.parallel.mesh import cross_rank_mean
 
 _CONV = dict(kernel_size=5, stride=2, padding=2)
 
@@ -144,12 +145,16 @@ def vae_loss(recon, x, mu, log_var, beta: float, free_bits: float = 0.0,
     mse = torch.mean(torch.square(recon - x))
     kl_terms = 1 + log_var - torch.square(mu) - torch.exp(log_var)
     kld = -0.5 * torch.mean(kl_terms)
-    if free_bits and free_bits > 0.0:
-        kl_pen = torch.mean(torch.clamp(-0.5 * torch.mean(kl_terms, dim=0), min=free_bits))
+    # the two knobs are not linear in the batch means they read: in a
+    # data-parallel step those are the global batch's (cross_rank_mean)
+    per_dim = free_bits and free_bits > 0.0
+    if per_dim:
+        kl_pen = torch.mean(torch.clamp(cross_rank_mean(-0.5 * torch.mean(kl_terms, dim=0)),
+                                        min=free_bits))
     else:
         kl_pen = kld
     if capacity is None:
         total = mse + beta * kl_pen
     else:
-        total = mse + beta * torch.abs(kl_pen - capacity)
+        total = mse + beta * torch.abs((kl_pen if per_dim else cross_rank_mean(kl_pen)) - capacity)
     return total, mse, kld

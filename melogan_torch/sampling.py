@@ -15,10 +15,13 @@ but not the JAX package's notes (another random stream). ``sample_from`` is
 the deterministic core that takes features and noise from the caller.
 ``fast_math`` runs each forward under the ``"fast"`` precision: the
 one-pass bf16 products of the JAX package's fast-math sample step.
+``mesh`` (``parallel.make_mesh(n)``, a local mesh) splits each batch's rows
+over its devices after the draws, as JAX's sharded sample step does.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 from typing import Dict, Mapping, Optional
 
@@ -32,6 +35,7 @@ from melogan_torch.device import resolve_device
 from melogan_torch.midi.codec import render_to_bytes, save_piano_roll_to_midi
 from melogan_torch.models.gan import FeatureEncoder, Generator
 from melogan_torch.models.layers import gan_init_
+from melogan_torch.parallel.mesh import Mesh
 from melogan_torch.precision import using
 from melogan_torch.utils.weights import load_state_dicts
 
@@ -81,6 +85,16 @@ class Sampler:
     thread, as the JAX sampler flips its precision around each call: the
     sample pool's refill thread samples too. The notes differ from the f32
     default's within bf16 rounding.
+
+    ``mesh``: a local mesh (``parallel.make_mesh(n)`` outside a process
+    group) over whose devices each batch is split: the jitter and noise of
+    the whole batch are drawn once on the first device, from the same
+    generator as without a mesh, the rows are cut with
+    ``torch.tensor_split`` (an uneven batch unevenly), each block runs on
+    its device's copy of the modules, launched one after another without
+    waiting, and the blocks are joined on the host. Eval mode has no
+    cross-row operation, so the notes are those of one device up to the
+    kernels' summation order. ``device`` is then the mesh's first device.
     """
 
     def __init__(
@@ -94,11 +108,15 @@ class Sampler:
         emotion_features=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel sampling over a mesh is not ported yet")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a melogan_torch.parallel.mesh.Mesh, got {type(mesh).__name__}")
+        if mesh is not None and mesh.group is not None and mesh.data > 1:
+            raise ValueError("a Sampler's mesh is local, over this process's devices "
+                             "(make_mesh outside a process group); a rank samples alone")
         self.cfg = cfg or GANConfig()
         self.fast_math = bool(fast_math)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         if self.device.type == "cuda":
             # f32 parity with the JAX package (Precision.HIGHEST): cuBLAS
             # matmuls and cuDNN convs must not drop to TF32, which keeps
@@ -114,6 +132,7 @@ class Sampler:
         # with a new feature encoder
         self._var_lock = threading.Lock()
         self._gen, self._fe = gen, fe
+        self._replicas = self._replicate(gen, fe)
         self._base_features = torch.as_tensor(base, dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------
@@ -130,6 +149,17 @@ class Sampler:
         else:
             load_state_dicts(gen, fe, gen_variables, fe_variables)
         return gen.to(self.device).eval(), fe.to(self.device).eval()
+
+    def _replicate(self, gen, fe):
+        """(device, generator, encoder) for each device of the mesh, the
+        modules themselves on the first; None without a mesh."""
+        if self.mesh is None:
+            return None
+        copies = {self.device: (gen, fe)}
+        for dev in self.mesh.devices:
+            if dev not in copies:
+                copies[dev] = (copy.deepcopy(gen).to(dev), copy.deepcopy(fe).to(dev))
+        return [(dev,) + copies[dev] for dev in self.mesh.devices]
 
     def _validate_features(self, emotion_features) -> np.ndarray:
         if emotion_features is None:
@@ -154,9 +184,19 @@ class Sampler:
             emb = fe(features)
             latent = None
             if self.cfg.integration_mode == "conditioning":
-                latent = torch.zeros((noise.shape[0], self.cfg.latent_dim), device=self.device)
+                latent = torch.zeros((noise.shape[0], self.cfg.latent_dim), device=noise.device)
             notes, _ = gen(noise, latent, emb)
         return notes
+
+    def _sample(self, gen, fe, replicas, features: torch.Tensor, noise: torch.Tensor) -> np.ndarray:
+        """Notes of (features, noise) on the first device, or split over
+        the mesh's replicas."""
+        if replicas is None:
+            return _to_numpy(self._forward(gen, fe, features, noise))
+        blocks = zip(torch.tensor_split(features, len(replicas)), torch.tensor_split(noise, len(replicas)))
+        outs = [self._forward(g, e, f.to(dev), z.to(dev))
+                for (dev, g, e), (f, z) in zip(replicas, blocks) if f.shape[0]]  # B < devices: empty blocks
+        return np.concatenate([_to_numpy(o) for o in outs])
 
     def sample_from(self, features, noise) -> np.ndarray:
         """Deterministic core: (B, 6) jittered features and (B, noise_dim)
@@ -164,8 +204,8 @@ class Sampler:
         f = torch.as_tensor(np.asarray(features, np.float32), device=self.device)
         z = torch.as_tensor(np.asarray(noise, np.float32), device=self.device)
         with self._var_lock:
-            gen, fe = self._gen, self._fe
-        return _to_numpy(self._forward(gen, fe, f, z))
+            gen, fe, replicas = self._gen, self._fe, self._replicas
+        return self._sample(gen, fe, replicas, f, z)
 
     def sample_notes(self, emotions, seed: int = 0) -> np.ndarray:
         """Generate (B, max_notes, 4) note arrays for a list of emotion names."""
@@ -176,13 +216,13 @@ class Sampler:
             )
         idx = torch.as_tensor([EMOTIONS.index(e) for e in emotions], device=self.device)
         with self._var_lock:  # pair the reads (see swap_variables)
-            gen, fe, base_all = self._gen, self._fe, self._base_features
+            gen, fe, base_all, replicas = self._gen, self._fe, self._base_features, self._replicas
         rng = torch.Generator(device=self.device).manual_seed(seed)
         base = base_all[idx]
         features = base + FEATURE_JITTER_STD * torch.randn(
             base.shape, generator=rng, device=self.device)
         noise = torch.randn((len(emotions), self.cfg.noise_dim), generator=rng, device=self.device)
-        return _to_numpy(self._forward(gen, fe, features, noise))
+        return self._sample(gen, fe, replicas, features, noise)
 
     def swap_variables(self, gen_variables, fe_variables, emotion_features=None) -> None:
         """Atomically replace the generator + feature-encoder weights
@@ -193,11 +233,12 @@ class Sampler:
         raises before the swap. ``emotion_features``: the new checkpoint's
         conditioning centroids, if it carries them."""
         gen, fe = self._build_modules(gen_variables, fe_variables)
+        replicas = self._replicate(gen, fe)
         new_base = None
         if emotion_features is not None:
             new_base = self._validate_features(emotion_features)
         with self._var_lock:
-            self._gen, self._fe = gen, fe
+            self._gen, self._fe, self._replicas = gen, fe, replicas
             if new_base is not None:
                 self.emotion_features = new_base
                 self._base_features = torch.as_tensor(new_base, device=self.device)

@@ -645,6 +645,7 @@ def create_server(
     watch_ckpt: float = 0.0,
     fast_math: bool = False,
     camera_source: Optional[str] = None,
+    dp: int = 0,
 ) -> Tuple[WSGIServer, AppState]:
     """Build the sampler, warm it up, fill the sample pool, and bind a
     threaded WSGI server. The caller runs ``serve_forever`` and, at the
@@ -665,7 +666,14 @@ def create_server(
     ``/video_feed``'s frames, None (the route answers 503), ``"synthetic"``
     or the path of a ``.y4m`` file, looped. The FER loads on ``device`` from
     the first weight file that exists (``AppState``); a file that fails to
-    load raises here."""
+    load raises here. ``dp``: split every sample batch (pool refills and
+    ``/generate``) over ``dp`` local devices, ``make_mesh(n_devices=dp)``
+    (0: one device); more than there are raises before any work."""
+    mesh = None
+    if dp:
+        from melogan_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_devices=dp, device=device)
     from melogan_torch.utils.weights import load_gan_final_full
 
     backend_name()  # a misconfigured text backend fails here, not at a request
@@ -691,7 +699,7 @@ def create_server(
         print(f"[WARN] GAN checkpoint not found at {ckpt_path}; serving random weights"
               + (" until it appears" if watch_ckpt > 0 else ""))
     sampler = Sampler(cfg, gen_variables=gen_sd, fe_variables=fe_sd, fast_math=fast_math,
-                      emotion_features=features, device=device)
+                      mesh=mesh, emotion_features=features, device=device)
     # warm up before accepting traffic: the first call builds the kernels
     sampler.sample_notes(["happy"], seed=0)
     pool = None
@@ -730,15 +738,13 @@ def serve(host: str = "0.0.0.0", port: int = 5000, workdir: str = ".",
     ``MELOGAN_SAMPLE_POOL=0``, and warms its refill ladder unless
     ``MELOGAN_POOL_WARM=0``, as for the JAX server. ``fast_math``: sample
     with the one-pass bf16 products (``create_server``). ``camera_source``:
-    ``/video_feed``'s frames (``create_server``). ``dp``
-    (data-parallel sampling) is not ported yet and raises unless 0."""
-    if dp:
-        raise NotImplementedError("data-parallel sampling over a mesh is not ported yet")
+    ``/video_feed``'s frames (``create_server``). ``dp``: sample batches
+    split over that many local devices (``create_server``)."""
     httpd, state = create_server(
         host, port, workdir=workdir, config=config, checkpoint=checkpoint, use_ema=use_ema,
         device=device, sample_pool=os.environ.get("MELOGAN_SAMPLE_POOL", "1") != "0",
         pool_warm=os.environ.get("MELOGAN_POOL_WARM", "1") != "0", watch_ckpt=watch_ckpt,
-        fast_math=fast_math, camera_source=camera_source)
+        fast_math=fast_math, camera_source=camera_source, dp=dp)
     print(f"[INIT] serving on http://{host}:{httpd.server_address[1]} "
           f"({device_info(state.sampler.device)['kind']}, text backend {backend_name()}, "
           f"{'checkpoint ' + state.ckpt_path if state.loaded else 'random weights'}"

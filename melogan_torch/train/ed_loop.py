@@ -27,6 +27,14 @@ at the end of a fused chunk; the file a run leaves is the same).
 On the card each of the encoder's convs runs the port's ``conv1d`` kernel
 forward and its input gradient on the ``convt1d`` kernel (block 1's input
 is data and takes none); the Linears stay on cuBLAS in IEEE f32.
+
+With a data-parallel ``mesh`` (the ranks of ``--dp N`` or ``torchrun``)
+each rank gathers every global batch from its own copy of the data, draws
+the dropout keep masks for the global batch and keeps its rows of both;
+its four BatchNorms take the global statistics, and the gradients and the
+loss and accuracy of every batch are means over the ranks, so the
+schedulers decide alike on every rank. A batch whose rows do not divide the
+ranks runs whole on every rank. Rank 0 alone writes files.
 """
 from __future__ import annotations
 
@@ -44,19 +52,22 @@ from melogan_torch.data.datasets import SplitData, class_balance_weights
 from melogan_torch.device import resolve_device
 from melogan_torch.models.ed import EmotionDiscriminator
 from melogan_torch.models.layers import torch_default_init_
+from melogan_torch.parallel.mesh import Mesh, data_parallel, put_replicated, shard_pytree_batch
 from melogan_torch.train.gan_step import cross_entropy
 from melogan_torch.train.harness import (
     AdamW,
     EarlyStopping,
     ReduceLROnPlateau,
     batch_indices,
+    eval_on_shards,
+    rank_device,
+    rank_writer,
     refuse_spectral_norm,
     sched_step,
     with_precision,
 )
 from melogan_torch.utils import weights
 from melogan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
-from melogan_torch.utils.metrics import MetricsWriter
 
 
 @dataclass
@@ -136,15 +147,30 @@ def _loss_acc(logits: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torc
 
 
 def train_step(state: EDTrainState, x: torch.Tensor, y: torch.Tensor,
-               masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+               masks: Optional[Sequence[torch.Tensor]] = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One optimizer step on the batch (x, y) in train mode (BatchNorm on
     batch statistics, which advance the running ones), with the dropout
     keep ``masks`` given or drawn from ``state.rng``. Returns the detached
-    (loss, accuracy) as one device tensor."""
+    (loss, accuracy) as one device tensor. With a ``mesh`` that splits the
+    batch, the batch and the masks are global and this rank takes its rows
+    (module docstring); the row returned is then the mean over the ranks,
+    reduced with the gradients in one ``all_reduce``."""
     state.model.train()
-    loss, acc = _loss_acc(state.model(x, generator=state.rng, masks=masks), y)
-    state.opt.step(torch.autograd.grad(loss, state.opt.params))
-    return torch.stack([loss, acc]).detach()
+    b = x.shape[0]
+    dp = mesh if mesh is not None and mesh.splits(b) else None
+    if dp is not None:
+        if masks is None:
+            masks = state.model.classifier.draw_masks(b, state.rng)
+        x, y, masks = shard_pytree_batch((x, y, list(masks)), dp)
+    with data_parallel(dp):
+        loss, acc = _loss_acc(state.model(x, generator=state.rng, masks=masks), y)
+        grads = torch.autograd.grad(loss, state.opt.params)
+    row = torch.stack([loss, acc]).detach()
+    if dp is not None:
+        dp.all_reduce_mean_(list(grads) + [row])
+    state.opt.step(grads)
+    return row
 
 
 @torch.no_grad()
@@ -211,21 +237,22 @@ def train(
     steps run with bf16-rounded product operands and f32 sums
     (``harness.with_precision``); None or ``"highest"`` is IEEE f32. A
     spectral-norm classifier raises NotImplementedError, as the JAX trainer
-    cannot train one (ROADMAP C.5). ``mesh`` is not ported yet and raises
-    unless None."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training over a mesh is not ported yet")
+    cannot train one (ROADMAP C.5). ``mesh``: data parallelism over the
+    ranks of a process group (module docstring); ``device`` is then each
+    rank's own."""
     step = with_precision(train_step, precision)
     evaluate = with_precision(eval_step, precision)
     refuse_spectral_norm("ed_loop.train", ["use_spectral_norm"] if cfg.use_spectral_norm else [])
-    dev = resolve_device(device)
+    dev = rank_device(device, mesh)
+    main = mesh is None or mesh.is_main
+    verbose = verbose and main
     state = init_state(cfg, seed=cfg.seed, device=dev)
 
     def under(path):
         return os.path.join(workdir, path) if workdir else path
 
     ckpt_dir = under(cfg.checkpoint_dir)
-    writer = MetricsWriter(under(cfg.log_dir))
+    writer = rank_writer(under(cfg.log_dir), mesh)
     x_train = _inputs(cfg, train_data, train_latents)
     y_train = train_data.emotion_idx.astype(np.int64)
     x_val = _inputs(cfg, val_data, val_latents)
@@ -257,11 +284,8 @@ def train(
                 if note:
                     print(f"[ED] {note}")
 
-    x_train_dev = torch.as_tensor(x_train, device=dev)
-    y_train_dev = torch.as_tensor(y_train, device=dev)
+    x_train_dev, y_train_dev, x_val_dev, y_val_dev = put_replicated((x_train, y_train, x_val, y_val), mesh, dev)
     val_idx = torch.as_tensor(batch_indices(np.arange(len(y_val)), cfg.batch_size), device=dev)
-    x_val_dev = torch.as_tensor(x_val, device=dev)
-    y_val_dev = torch.as_tensor(y_val, device=dev)
 
     best = snapshot(state, 0, plateau, stopper)
     best_metrics: Dict[str, float] = {}
@@ -269,8 +293,10 @@ def train(
         t0 = time.perf_counter()
         idx = torch.as_tensor(batch_indices(epoch_order(n, data_rng, class_weights), cfg.batch_size),
                               device=dev)
-        train_loss, train_acc = _means([step(state, x_train_dev[i], y_train_dev[i]) for i in idx])
-        val_loss, val_acc = _means([evaluate(state, x_val_dev[i], y_val_dev[i]) for i in val_idx])
+        train_loss, train_acc = _means([step(state, x_train_dev[i], y_train_dev[i], mesh=mesh)
+                                        for i in idx])
+        val_loss, val_acc = _means([eval_on_shards(evaluate, state, mesh, x_val_dev[i], y_val_dev[i])
+                                    for i in val_idx])
         state.model.train()  # the state returned trains on, as it left the last step
         lr, improved, done = sched_step(plateau, stopper, val_loss, state.opt.lr)
         state.opt.lr = lr
@@ -283,16 +309,19 @@ def train(
         if verbose:
             print(f"[ED epoch {ep}] train loss {train_loss:.4f} acc {train_acc:.3f} | "
                   f"val loss {val_loss:.4f} acc {val_acc:.3f} | {dt:.2f}s")
-        if ep % cfg.save_freq == 0:
+        if ep % cfg.save_freq == 0 and main:
             save_checkpoint(os.path.join(ckpt_dir, f"ed_epoch{ep:04d}.ckpt"),
                             weights.export_ed_payload(snapshot(state, ep, plateau, stopper)))
-        if improved:
+        if improved and main:
             save_checkpoint(os.path.join(ckpt_dir, "ed_best.ckpt"), weights.export_ed_payload(best))
         if done:
             if verbose:
                 print(f"[ED] early stop at epoch {ep}")
             break
     writer.close()
+    if mesh is not None:
+        mesh.check_replicas(list(state.model.state_dict().values()), "ED weights")
+        mesh.barrier()  # the files exist when train returns on any rank
     return restore(state, best), best_metrics
 
 

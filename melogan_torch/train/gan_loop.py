@@ -18,7 +18,14 @@ layout) with ``emotion_features`` and, when EMA is on, ``G_ema``.
 (``train/sweep.py``) runs for each member. ``precision="bf16"`` runs every
 step under the one-pass bf16 products (``harness.with_precision``).
 
-The data-parallel mesh is not ported yet.
+With a data-parallel ``mesh`` (``parallel.make_mesh`` inside the ranks of
+``--dp N`` or ``torchrun``) every rank holds the whole corpus on its
+device, draws the same permutations from the same seeded numpy generator,
+gathers each global microbatch and trains on its own rows of it
+(``gan_step.make_train_steps(mesh=)``). Rank 0 alone writes checkpoints,
+metric logs and gate samples while the others wait; a resume reads the
+same file on every rank; at the end the ranks' weights must agree bit for
+bit.
 """
 from __future__ import annotations
 
@@ -31,12 +38,11 @@ import torch
 
 from melogan_torch.config import EDConfig, GANConfig
 from melogan_torch.data.datasets import SplitData, epoch_group_indices
-from melogan_torch.device import resolve_device
+from melogan_torch.parallel.mesh import put_replicated
 from melogan_torch.train import gan_step
-from melogan_torch.train.harness import with_precision
+from melogan_torch.train.harness import rank_device, rank_writer, with_precision
 from melogan_torch.utils import weights
 from melogan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
-from melogan_torch.utils.metrics import MetricsWriter
 from melogan_torch.utils.weights import load_gan_final, load_gan_final_full  # noqa: F401  (the JAX module's names)
 
 
@@ -65,10 +71,12 @@ def _epoch_scalars(m: Dict[str, float], n_groups: int, n_steps: int) -> Dict[str
     return scalars
 
 
-def device_gather(arrays, dev: torch.device):
-    """The corpus arrays on ``dev``, and ``gather(idx)``: the rows ``idx``
-    (any index array) of each, gathered on the device."""
-    data = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in arrays)
+def device_gather(arrays, dev: torch.device, mesh=None):
+    """The corpus arrays whole on the device (``put_replicated``: the
+    rank's under a ``mesh``, else ``dev``), and ``gather(idx)``: the rows
+    ``idx`` (any index array) of each, gathered there; a data-parallel step
+    then keeps its rank's rows of the global microbatch."""
+    data = put_replicated(tuple(np.ascontiguousarray(a) for a in arrays), mesh, dev)
 
     def gather(idx: np.ndarray):
         i = torch.as_tensor(idx, device=dev)
@@ -187,13 +195,14 @@ def train(
     (``gan_step.precision_tuned_cfg``); None or ``"highest"`` is IEEE f32.
     The gates' sampling and the λ_fm targets stay f32, as in the JAX loop.
     A spectral-norm feature encoder or ED raises NotImplementedError, as the
-    JAX loop cannot train one (ROADMAP C.5). ``mesh`` is not ported yet and
-    raises unless None."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training over a mesh is not ported yet")
+    JAX loop cannot train one (ROADMAP C.5). ``mesh``: data parallelism over
+    the ranks of a process group (module docstring); ``device`` is then
+    each rank's own."""
     cfg = gan_step.precision_tuned_cfg(cfg, precision)
     gan_step.refuse_gan_spectral_norm(cfg, ed_cfg, "gan_loop.train")
-    dev = resolve_device(device)
+    dev = rank_device(device, mesh)
+    main = mesh is None or mesh.is_main
+    verbose = verbose and main
     models = gan_step.build_models(cfg, ed_cfg)
     state = gan_step.init_state(cfg, models, seed=cfg.seed, ed_variables=ed_variables, device=dev)
     notes = train_data.notes_gan()
@@ -205,7 +214,7 @@ def train(
         if ed_variables is not None:
             fm_ed_target = gan_step.fm_ed_targets_from_data(state.ed, notes, emotion_idx)
     steps = precision_steps(gan_step.make_train_steps(cfg, fm_target=fm_target,
-                                                      fm_ed_target=fm_ed_target), precision)
+                                                      fm_ed_target=fm_ed_target, mesh=mesh), precision)
     emotion_features = emotion_centroids(numeric, emotion_idx)
 
     ckpt_dir = os.path.join(workdir, cfg.checkpoint_dir) if workdir else cfg.checkpoint_dir
@@ -232,7 +241,7 @@ def train(
             f"to the AE latent size, or re-export the latents."
         )
     # the corpus lives on the device; each step gathers its batches there
-    gather = device_gather((notes, emotion_idx, latents.astype(np.float32), numeric), dev)
+    gather = device_gather((notes, emotion_idx, latents.astype(np.float32), numeric), dev, mesh)
 
     gate_sampler = None
     best_gate = None  # (passed, -violations) of gan_best.ckpt
@@ -252,7 +261,7 @@ def train(
     # replay the data order: one permutation per epoch already trained
     for _ in range(start_epoch - 1):
         epoch_group_indices(notes.shape[0], cfg.batch_size, cfg.critic_iters, rng)
-    writer = MetricsWriter(log_dir)
+    writer = rank_writer(log_dir, mesh)
     history: Dict[str, float] = {}
     for ep in range(start_epoch, n_epochs + 1):
         t0 = time.perf_counter()
@@ -275,12 +284,12 @@ def train(
             )
         history = dict(scalars, epoch=ep)
 
-        if ep % cfg.save_freq == 0:
+        if ep % cfg.save_freq == 0 and main:
             save_checkpoint(os.path.join(ckpt_dir, f"gan_epoch{ep:04d}.ckpt"),
                             weights.export_train_payload(
                                 state, ep, emotion_features,
                                 g_ema=gan_step.ema_weights(state, cfg.ema_decay)))
-        if track_best and (ep % cfg.save_freq == 0 or ep == n_epochs):
+        if track_best and (ep % cfg.save_freq == 0 or ep == n_epochs) and main:
             from melogan_torch.train.sweep import gate_member
 
             gate_dir = os.path.join(workdir or ".", cfg.sample_dir, f"gate_epoch{ep:04d}")
@@ -297,7 +306,21 @@ def train(
                 if verbose:
                     print(f"[GAN] new best at epoch {ep}: gate {passed}/{total} ({violations} violations)")
 
-    for name in ("gan_final.pth", "gan_final.ckpt"):
-        save_gan_final(os.path.join(ckpt_dir, name), state, cfg, emotion_features)
+    if mesh is not None:
+        mesh.check_replicas(train_tensors(state), "GAN weights")
+    if main:
+        for name in ("gan_final.pth", "gan_final.ckpt"):
+            save_gan_final(os.path.join(ckpt_dir, name), state, cfg, emotion_features)
     writer.close()
+    if mesh is not None:
+        mesh.barrier()  # the files exist when train returns on any rank
     return state, history
+
+
+def train_tensors(state: gan_step.GANTrainState):
+    """What a data-parallel run keeps alike on every rank: the trained
+    modules' parameters and buffers and the EMA stream."""
+    out = []
+    for m in (state.generator, state.critic, state.feature_encoder):
+        out += list(m.parameters()) + list(m.buffers())
+    return out + list((state.ema_params or {}).values())

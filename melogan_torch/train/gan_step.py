@@ -42,6 +42,7 @@ from melogan_torch.device import resolve_device
 from melogan_torch.models.ed import EmotionDiscriminator
 from melogan_torch.models.gan import Critic, FeatureEncoder, Generator
 from melogan_torch.models.layers import gan_init_, torch_default_init_
+from melogan_torch.parallel.mesh import Mesh, data_parallel, microbatch_constrainer
 from melogan_torch.precision import mode_of
 from melogan_torch.train.harness import refuse_spectral_norm
 from melogan_torch.utils.weights import to_tensors
@@ -365,8 +366,15 @@ def _penalty(grads: torch.Tensor) -> torch.Tensor:
     return (norms - 1.0).square().mean()
 
 
-def _apply(opt: torch.optim.Adam, params: List[torch.Tensor], loss: torch.Tensor) -> None:
+def _apply(opt: torch.optim.Adam, params: List[torch.Tensor], loss: torch.Tensor,
+           mesh: Optional[Mesh] = None) -> None:
+    """One Adam step on ``loss``'s gradients; with a data-parallel ``mesh``
+    they are first replaced by their means over the ranks (one flat
+    ``all_reduce``): every loss here is a mean over equal shards, so that
+    mean is the gradient of the global batch's loss."""
     grads = torch.autograd.grad(loss, params)
+    if mesh is not None:
+        mesh.all_reduce_mean_(grads)
     for p, g in zip(params, grads):
         p.grad = g
     opt.step()
@@ -383,7 +391,7 @@ class TrainStepFns(NamedTuple):
 
 
 def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
-                     fm_target=None, fm_ed_target=None) -> TrainStepFns:
+                     fm_target=None, fm_ed_target=None, mesh: Optional[Mesh] = None) -> TrainStepFns:
     """Build the step functions. ``fm_target`` / ``fm_ed_target``: the
     ``(targets, scale)`` pairs of :func:`fm_targets_from_data` /
     :func:`fm_ed_targets_from_data`; ``cfg.lambda_fm > 0`` needs at least
@@ -391,8 +399,24 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
     instead of the config (its learning rates are the state's, see
     :func:`init_state`); as in the JAX package, the λ_fm check is then
     skipped. Metrics are 0-d tensors on the state's device, with the JAX
-    package's keys."""
+    package's keys.
+
+    ``mesh``: a data-parallel mesh over ranks (``parallel.make_mesh`` in a
+    process group). Every rank takes the same global batches and the
+    draws are made for the global batch from the state's generator, seeded
+    alike on every rank (or given, global, by the caller); each rank keeps
+    its own rows of both (``microbatch_constrainer``), its BatchNorms take
+    the global batch statistics, the gradients and the metrics are means
+    over the ranks, and the EMA and Adam then run alike on every rank. So
+    the run equals the single-device one up to reduction order. A batch
+    whose rows do not divide the ranks runs whole on every rank, as JAX's
+    mesh leaves it replicated."""
     fm_on, fm_ed_on = fm_target is not None, fm_ed_target is not None
+    shard = microbatch_constrainer(mesh)
+
+    def dp_mesh(b: int) -> Optional[Mesh]:
+        """The mesh when a batch of ``b`` rows is split over its ranks."""
+        return mesh if mesh is not None and mesh.splits(b) else None
     src = cfg if hyper is None else hyper
     lambda_gp, lambda_emo, lambda_fm = src.lambda_gp, src.lambda_emotion, src.lambda_fm
     if hyper is None and cfg.lambda_fm and not (fm_on or fm_ed_on):
@@ -427,10 +451,16 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
         )
 
     def critic_update(state: GANTrainState, batch, draws: Optional[CriticDraws]):
-        real, _, latents, numeric = batch
-        b = real.shape[0]
+        b = batch[0].shape[0]
         if draws is None:
             draws = draw_critic(state, b)
+        dp = dp_mesh(b)
+        with data_parallel(dp):
+            return _critic_update(state, shard(batch), shard(draws), dp)
+
+    def _critic_update(state: GANTrainState, batch, draws: CriticDraws, dp: Optional[Mesh]):
+        real, _, latents, numeric = batch
+        b = real.shape[0]
         critic = state.critic
         with torch.no_grad():
             # G in train mode: batch statistics, and its running stats advance
@@ -450,13 +480,19 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
             df = critic(fake, emb).mean()
             gp = gradient_penalty(critic, real, fake, emb, alpha)
         loss = df - dr + lambda_gp * gp
-        _apply(state.opt_d, list(critic.parameters()), loss)
+        _apply(state.opt_d, list(critic.parameters()), loss, dp)
         return loss.detach(), gp.detach(), dr.detach(), df.detach()
 
     def gen_update(state: GANTrainState, batch, draws: Optional[GenDraws]):
-        real, emot_idx, latents, numeric = batch
+        b = batch[0].shape[0]
         if draws is None:
-            draws = draw_gen(state, real.shape[0])
+            draws = draw_gen(state, b)
+        dp = dp_mesh(b)
+        with data_parallel(dp):
+            return _gen_update(state, shard(batch), shard(draws), dp)
+
+    def _gen_update(state: GANTrainState, batch, draws: GenDraws, dp: Optional[Mesh]):
+        _, emot_idx, latents, numeric = batch
         ed = state.ed
         emb = state.feature_encoder(numeric, masks=draws.fe_masks)
         notes, glatent = state.generator(draws.noise, latent_input(latents), emb)
@@ -483,7 +519,7 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
         if fm_on or fm_ed_on:
             loss = loss + lambda_fm * fm
         params = list(state.generator.parameters()) + list(state.feature_encoder.parameters())
-        _apply(state.opt_g, params, loss)
+        _apply(state.opt_g, params, loss, dp)
         return adv.detach(), emo.detach(), fm.detach()
 
     def critic_updates(state, batches, draws):
@@ -515,17 +551,21 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
         }
         if fm_on or fm_ed_on:
             metrics["loss_g_fm"] = fm
-        return state, metrics
+        return state, _rank_mean(metrics, batches)
+
+    def _rank_mean(metrics, batches):
+        dp = dp_mesh(batches[0].shape[1])
+        return metrics if dp is None else dp.mean_dict(metrics)
 
     def critic_only_step(state: GANTrainState, batches,
                          draws: Optional[Sequence[CriticDraws]] = None):
         """The epoch tail: one critic update per stacked batch."""
         d_losses, gps, drs, dfs = critic_updates(state, batches, draws)
-        return state, {
+        return state, _rank_mean({
             "loss_d_sum": d_losses.sum(),
             "gp_mean": gps.mean(),
             "d_real_sum": drs.sum(),
             "d_fake_sum": dfs.sum(),
-        }
+        }, batches)
 
     return TrainStepFns(group=group_step, tail=critic_only_step)

@@ -22,7 +22,10 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from melogan_torch.device import resolve_device
+from melogan_torch.parallel.mesh import Mesh, shard_pytree_batch
 from melogan_torch.precision import mode_of, using
+from melogan_torch.utils.metrics import MetricsWriter
 
 
 def _f32(x: float) -> float:
@@ -235,3 +238,48 @@ def refuse_spectral_norm(trainer: str, what: Sequence[str]) -> None:
             f"{trainer}: cannot train a spectral-norm model ({', '.join(what)}): the JAX "
             "trainers apply it without its 'spectral' collection (flax raises "
             "ScopeCollectionNotFound), so there is no reference run to port")
+
+
+def rank_device(device, mesh: Optional[Mesh]) -> torch.device:
+    """Where a trainer runs: ``device`` without a mesh, else this rank's
+    device. A trainer's mesh spans processes, one device a rank
+    (``parallel.launch.spawn``, ``--dp N`` or ``torchrun``): a local mesh
+    of several devices raises ValueError, and anything but a ``Mesh``
+    TypeError."""
+    if mesh is None:
+        return resolve_device(device)
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a melogan_torch.parallel.mesh.Mesh, got {type(mesh).__name__}")
+    if mesh.group is None and mesh.data > 1:
+        raise ValueError(
+            f"training over {mesh.data} devices runs one process a device: start the ranks with "
+            "--dp N or torchrun (parallel.launch.spawn) and pass make_mesh() from inside them")
+    return mesh.device
+
+
+class _NoWriter:
+    """The metrics writer of a rank that writes no files."""
+
+    def add_scalars(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def rank_writer(log_dir: str, mesh: Optional[Mesh]):
+    """``MetricsWriter(log_dir)`` on the rank that writes the run's files
+    (rank 0, or the only process), a writer that writes nothing on the
+    others."""
+    return MetricsWriter(log_dir) if mesh is None or mesh.is_main else _NoWriter()
+
+
+def eval_on_shards(evaluate, state, mesh: Optional[Mesh], *batch) -> torch.Tensor:
+    """``evaluate(state, *batch)``'s metrics row; with a ``mesh`` that
+    splits the batch, of this rank's rows, then the mean over the ranks
+    (the shards are equal, so that is the global batch's mean)."""
+    if mesh is None or not mesh.splits(batch[0].shape[0]):
+        return evaluate(state, *batch)
+    row = evaluate(state, *shard_pytree_batch(batch, mesh))
+    mesh.all_reduce_mean_([row])
+    return row

@@ -21,6 +21,14 @@ Selection gates each member's fresh samples against the golden bands
 (``diagnostics/quality.py``) and ranks by files passed, then fewest
 violations: WGAN critic losses are not comparable across independent
 critics.
+
+With a ``mesh`` (the ranks of ``--dp N`` or ``torchrun``) the population
+is sharded in contiguous blocks: rank r trains members
+[r·K/N, (r+1)·K/N), one after another, with no collective while they
+train. After every chunk each member's state and curve are broadcast from
+its owner, so every rank holds the whole population; rank 0 alone then
+writes ``sweep_state.ckpt``, gates, ranks and writes the finals, and the
+report is broadcast back.
 """
 from __future__ import annotations
 
@@ -35,12 +43,13 @@ from melogan_torch import EMOTIONS
 from melogan_torch.config import EDConfig, GANConfig
 from melogan_torch.constants import BPM_JITTER, EMOTION_BPM
 from melogan_torch.data.datasets import SplitData, epoch_group_indices
-from melogan_torch.device import resolve_device
 from melogan_torch.diagnostics import quality
+from melogan_torch.parallel.mesh import Mesh
 from melogan_torch.sampling import Sampler
 from melogan_torch.train import gan_step
 from melogan_torch.train.gan_loop import (_epoch_scalars, device_gather, emotion_centroids,
                                           precision_steps, run_epoch, save_gan_final)
+from melogan_torch.train.harness import rank_device
 from melogan_torch.utils import weights
 from melogan_torch.utils.atomic import atomic_write
 from melogan_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -70,6 +79,7 @@ def _train_population(
     epoch_offset: int = 0,
     total_epochs: Optional[int] = None,
     save_cb=None,
+    mesh: Optional[Mesh] = None,
 ) -> List[gan_step.GANTrainState]:
     """Run ``n_epochs`` epochs of every member in ``save_freq``-sized
     chunks (the JAX sweep's chunks; the short last chunk is not padded),
@@ -77,7 +87,10 @@ def _train_population(
     ``save_cb(done)`` after a chunk on ``MELOGAN_SWEEP_STATE_EVERY``'s
     cadence and after the last. The shuffle generators in ``rngs`` advance
     as solo runs' do, so halving rungs call this again with the same
-    generators and a survivor's curve is its uninterrupted run's."""
+    generators and a survivor's curve is its uninterrupted run's. With a
+    ``mesh`` this rank trains its own block of members and every member is
+    then taken from its owner (``_sync_members``) after each chunk."""
+    owned = _owned(len(states), mesh)
     total = total_epochs if total_epochs is not None else epoch_offset + n_epochs
     epoch = 1
     while epoch <= n_epochs:
@@ -85,12 +98,15 @@ def _train_population(
         chunk = list(range(epoch, chunk_end + 1))
         t0 = time.perf_counter()
         for k, rng in enumerate(rngs):
+            if k not in owned:
+                continue
             for ep in chunk:
                 gi, ti = epoch_group_indices(n_rows, cfg.batch_size, cfg.critic_iters, rng)
                 states[k], m, n_groups, n_steps = run_epoch(member_steps[k], states[k], gather, gi, ti)
                 scalars = _epoch_scalars(m, n_groups, n_steps)
                 history[k].append({"epoch": ep + epoch_offset,
                                    **{key: scalars[key] for key in HISTORY_KEYS if key in scalars}})
+        _sync_members(states, history, cfg, mesh)
         dt = (time.perf_counter() - t0) / len(chunk)
         if verbose:
             last = [history[k][-1] for k in range(len(seeds))]
@@ -109,6 +125,37 @@ def _train_population(
                 save_cb(epoch_offset + chunk_end)
         epoch = chunk_end + 1
     return states
+
+
+def _block(k: int, ranks: int, rank: int) -> range:
+    """The members rank ``rank`` of ``ranks`` trains: its contiguous block
+    of the ``k``."""
+    per = k // ranks
+    return range(rank * per, (rank + 1) * per)
+
+
+def _owned(k: int, mesh: Optional[Mesh]) -> range:
+    return range(k) if mesh is None else _block(k, mesh.data, mesh.rank)
+
+
+def _sync_members(states, history, cfg: GANConfig, mesh: Optional[Mesh]) -> None:
+    """Every member's training state (weights, BatchNorm statistics, both
+    Adams, step, EMA stream and random stream, as a periodic checkpoint
+    holds them) and curve, broadcast from the rank that trains it; a no-op
+    without a mesh of several ranks."""
+    if mesh is None or mesh.data <= 1:
+        return
+    zeros = np.zeros((4, 6), np.float32)
+    for src in range(mesh.data):
+        mine = None
+        if src == mesh.rank:
+            mine = {k: (weights.export_train_payload(states[k], 0, zeros, g_ema=states[k].ema_params),
+                        history[k]) for k in _block(len(states), mesh.data, src)}
+        theirs = mesh.broadcast_object(mine, src)
+        if src != mesh.rank:
+            for k, (payload, curve) in theirs.items():
+                weights.load_train_payload(states[k], payload, cfg.ema_decay)
+                history[k] = curve
 
 
 def sweep_gan(
@@ -167,10 +214,12 @@ def sweep_gan(
     bf16-rounded product operands and f32 sums, with ``fused_critic_batch``
     off (``gan_step.precision_tuned_cfg``); the gates sample in f32, as in
     the JAX sweep. A spectral-norm feature encoder or ED raises
-    NotImplementedError (ROADMAP C.5). ``mesh`` is not ported yet and raises
-    unless None."""
-    if mesh is not None:
-        raise NotImplementedError("a population sharded over a mesh is not ported yet")
+    NotImplementedError (ROADMAP C.5). ``mesh``: the population sharded
+    over the ranks of a process group (module docstring); ``len(seeds)``
+    must divide by its size and ``halving`` is refused, as in the JAX
+    sweep."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a melogan_torch.parallel.mesh.Mesh, got {type(mesh).__name__}")
     cfg = gan_step.precision_tuned_cfg(cfg, precision)
     gan_step.refuse_gan_spectral_norm(cfg, ed_cfg, "sweep_gan")
     seeds = [int(s) for s in seeds]
@@ -184,8 +233,23 @@ def sweep_gan(
                 f"{len(seeds)} seeds; they must pair 1:1"
             )
         hypers = [gan_step.HyperParams.from_config(cfg, **h) for h in hyper_grid]
-    if halving and len(seeds) < 2:
-        raise ValueError("halving needs a population of at least 2")
+    if mesh is not None and len(seeds) % mesh.shape["data"] != 0:
+        raise ValueError(
+            f"population ({len(seeds)}) must be divisible by the 'data' "
+            f"axis size ({mesh.shape['data']}) to shard members over devices"
+        )
+    if halving:
+        if len(seeds) < 2:
+            raise ValueError("halving needs a population of at least 2")
+        if mesh is not None:
+            raise ValueError(
+                "halving does not compose with population sharding: rung "
+                "sizes K/2, K/4, … 1 cannot stay divisible by the mesh axis; "
+                "run without --dp"
+            )
+    dev = rank_device(device, mesh)
+    main = mesh is None or mesh.is_main
+    verbose = verbose and main
     n_epochs = epochs or cfg.epochs
     r_epochs = (rung_epochs or cfg.save_freq) if halving else None
 
@@ -258,7 +322,6 @@ def sweep_gan(
             print("[WARN] latent feats length mismatch; using zero latents")
         latents = np.zeros((n, cfg.latent_dim), np.float32)
 
-    dev = resolve_device(device)
     states = [
         gan_step.init_state(cfg, gan_step.build_models(cfg, ed_cfg), seed=s,
                             ed_variables=ed_variables, device=dev,
@@ -282,7 +345,7 @@ def sweep_gan(
     else:
         member_steps = [precision_steps(gan_step.make_train_steps(cfg, hyper=h, fm_target=fm_target),
                                         precision) for h in hypers]
-    gather = device_gather((notes, emotion_idx, latents.astype(np.float32), numeric), dev)
+    gather = device_gather((notes, emotion_idx, latents.astype(np.float32), numeric), dev, mesh)
 
     # each member's epoch shuffles (the solo convention: seed = cfg.seed),
     # replayed past the epochs done (one permutation an epoch)
@@ -313,6 +376,10 @@ def sweep_gan(
         # atomic file as the state
         payload["meta"] = np.frombuffer(json.dumps(meta_now).encode(), np.uint8)
         save_checkpoint(state_path, payload)
+
+    def save_state_main(done_now):
+        if main:
+            save_state(done_now)
 
     if halving:
         sampler = None
@@ -359,11 +426,15 @@ def sweep_gan(
     elif done < n_epochs:
         states = _train_population(states, member_steps, gather, cfg, rngs, seeds,
                                    n_epochs - done, history, n, verbose, epoch_offset=done,
-                                   total_epochs=n_epochs, save_cb=save_state)
+                                   total_epochs=n_epochs, save_cb=save_state_main, mesh=mesh)
 
-    report = _select_and_save(cfg, states, seeds, history, workdir=workdir,
-                              samples_per_emotion=samples_per_emotion, promote_best=promote_best,
-                              verbose=verbose, hypers=hypers, emotion_features=emotion_features)
+    report = None
+    if main:
+        report = _select_and_save(cfg, states, seeds, history, workdir=workdir,
+                                  samples_per_emotion=samples_per_emotion, promote_best=promote_best,
+                                  verbose=verbose, hypers=hypers, emotion_features=emotion_features)
+    if mesh is not None:
+        report = mesh.broadcast_object(report)
     if rung_report is not None:
         report["rungs"] = rung_report
         _rewrite_report(cfg, workdir, report)

@@ -26,6 +26,16 @@ inject_hyperparams(adamw))`` in the same order. On the card the encoder's
 convs and the decoder's transposed convs run the port's kernels forward,
 and each conv's input gradient runs the other's kernel; on the CPU their
 plain versions run.
+
+With a data-parallel ``mesh`` (the ranks of ``--dp N`` or ``torchrun``)
+each rank gathers every global batch from its own copy of the corpus, draws
+the reparameterisation noise for the global batch and keeps its rows of
+both; its BatchNorms take the global statistics, the KL terms that are not
+means of rows (free bits, capacity) read the global batch mean
+(``parallel.mesh.cross_rank_mean``), and the gradients and every step's
+metrics are means over the ranks, so the schedulers decide alike on every
+rank. A batch whose rows do not divide the ranks (a small split's one
+whole batch) runs whole on every rank. Rank 0 alone writes files.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from melogan_torch.device import resolve_device
 from melogan_torch.midi.codec import save_recon_midi
 from melogan_torch.models.layers import torch_default_init_
 from melogan_torch.models.vae import VAE, vae_loss
+from melogan_torch.parallel.mesh import Mesh, data_parallel, put_replicated, shard_pytree_batch
 from melogan_torch.train.harness import (
     AdamW,
     EarlyStopping,
@@ -51,12 +62,14 @@ from melogan_torch.train.harness import (
     batch_indices,
     beta_schedule,
     capacity_schedule,
+    eval_on_shards,
+    rank_device,
+    rank_writer,
     sched_step,
     with_precision,
 )
 from melogan_torch.utils import weights
 from melogan_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from melogan_torch.utils.metrics import MetricsWriter
 
 ENCODE_BATCH = 256  # encode_mu pads its last chunk to this, as the JAX loop does
 
@@ -124,15 +137,30 @@ def restore(state: VAETrainState, snap: Dict[str, Any]) -> VAETrainState:
 
 
 def train_step(state: VAETrainState, x: torch.Tensor, beta: float, free_bits: float = 0.0,
-               capacity: Optional[float] = None, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+               capacity: Optional[float] = None, eps: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One optimizer step on the batch ``x`` (B, L, 4) in train mode, with
     the reparameterisation noise ``eps`` given or drawn from ``state.rng``.
-    Returns the detached (total, mse, kld) as one device tensor."""
+    Returns the detached (total, mse, kld) as one device tensor. With a
+    ``mesh`` that splits the batch, ``x`` and ``eps`` are global and this
+    rank takes its rows (module docstring); the row returned is then the
+    mean over the ranks, reduced with the gradients in one ``all_reduce``."""
     state.model.train()
-    recon, _, mu, log_var = state.model(x, eps=eps, generator=state.rng)
-    total, mse, kld = vae_loss(recon, x, mu, log_var, beta, free_bits=free_bits, capacity=capacity)
-    state.opt.step(torch.autograd.grad(total, state.opt.params))
-    return torch.stack([total, mse, kld]).detach()
+    b = x.shape[0]
+    dp = mesh if mesh is not None and mesh.splits(b) else None
+    if dp is not None:
+        if eps is None:
+            eps = torch.randn((b, state.model.latent_dim), generator=state.rng, device=x.device)
+        x, eps = shard_pytree_batch((x, eps), dp)
+    with data_parallel(dp):
+        recon, _, mu, log_var = state.model(x, eps=eps, generator=state.rng)
+        total, mse, kld = vae_loss(recon, x, mu, log_var, beta, free_bits=free_bits, capacity=capacity)
+        grads = torch.autograd.grad(total, state.opt.params)
+    row = torch.stack([total, mse, kld]).detach()
+    if dp is not None:
+        dp.all_reduce_mean_(list(grads) + [row])
+    state.opt.step(grads)
+    return row
 
 
 @torch.no_grad()
@@ -180,13 +208,14 @@ def train(
     ``precision="bf16"`` (or ``"default"``): the training and validation
     steps and the reconstruction forwards run with bf16-rounded product
     operands and f32 sums (``harness.with_precision``), as the JAX loop's
-    fused epoch program does; None or ``"highest"`` is IEEE f32. ``mesh`` is
-    not ported yet and raises unless None."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training over a mesh is not ported yet")
+    fused epoch program does; None or ``"highest"`` is IEEE f32. ``mesh``:
+    data parallelism over the ranks of a process group (module docstring);
+    ``device`` is then each rank's own."""
     step = with_precision(train_step, precision)
     evaluate = with_precision(eval_step, precision)
-    dev = resolve_device(device)
+    dev = rank_device(device, mesh)
+    main = mesh is None or mesh.is_main
+    verbose = verbose and main
     state = init_state(cfg, seed=cfg.seed, device=dev)
     reconstruct = with_precision(lambda x: state.model(x)[0], precision)
 
@@ -194,7 +223,7 @@ def train(
         return os.path.join(workdir, path) if workdir else path
 
     ckpt_dir, recon_dir = under(cfg.checkpoint_dir), under(cfg.recon_dir)
-    writer = MetricsWriter(under(cfg.log_dir))
+    writer = rank_writer(under(cfg.log_dir), mesh)
     x_train = train_data.notes_ae(cfg)
     x_val = val_data.notes_ae(cfg)
     fixed_val = x_val[: min(cfg.recon_save_count, x_val.shape[0])]
@@ -229,10 +258,8 @@ def train(
 
     val_idx = torch.as_tensor(epoch_indices(x_val.shape[0], cfg.batch_size, data_rng, shuffle=False),
                               device=dev)
-    x_train_dev = torch.as_tensor(x_train, device=dev)
-    x_val_dev = torch.as_tensor(x_val, device=dev)
-    fixed_dev = torch.as_tensor(fixed_val, device=dev)
-    dumps = recon_dumps and fixed_val.shape[0] > 0
+    x_train_dev, x_val_dev, fixed_dev = put_replicated((x_train, x_val, fixed_val), mesh, dev)
+    dumps = recon_dumps and fixed_val.shape[0] > 0 and main
 
     best = snapshot(state, 0, plateau, stopper)
     history: Dict[str, float] = {}
@@ -243,9 +270,9 @@ def train(
         cap = None
         if cfg.kl_capacity > 0.0:
             cap = _f32(capacity_schedule(ep, cfg.kl_capacity, cfg.kl_capacity_epochs or cfg.epochs))
-        rows = [step(state, x_train_dev[i], beta, cfg.free_bits, cap) for i in idx]
+        rows = [step(state, x_train_dev[i], beta, cfg.free_bits, cap, mesh=mesh) for i in idx]
         tm = _metrics(rows)
-        vm = _metrics([evaluate(state, x_val_dev[i]) for i in val_idx])
+        vm = _metrics([eval_on_shards(evaluate, state, mesh, x_val_dev[i]) for i in val_idx])
         recon = None
         if dumps and ep % cfg.recon_freq == 0:
             with torch.no_grad():
@@ -278,7 +305,7 @@ def train(
                     print(f"[WARN] recon dump failed for {name}: {e}")
         if not done:
             history = {"epoch": ep, "val_total": vm["total"], "best_val": stopper.best}
-        if improved:
+        if improved and main:
             save_checkpoint(best_path, weights.export_vae_payload(best))
         if done:
             if verbose:
@@ -286,10 +313,15 @@ def train(
                       f"(no improvement {cfg.early_stop_patience} epochs)")
             break
 
-    save_checkpoint(os.path.join(ckpt_dir, "ae_final.ckpt"),
-                    weights.convert_vae({k: v.detach().cpu().numpy()
-                                         for k, v in state.model.state_dict().items()}))
+    if mesh is not None:
+        mesh.check_replicas(list(state.model.state_dict().values()), "VAE weights")
+    if main:
+        save_checkpoint(os.path.join(ckpt_dir, "ae_final.ckpt"),
+                        weights.convert_vae({k: v.detach().cpu().numpy()
+                                             for k, v in state.model.state_dict().items()}))
     writer.close()
+    if mesh is not None:
+        mesh.barrier()  # the files exist when train returns on any rank
     return restore(state, best), {"best_val": stopper.best, **history}
 
 

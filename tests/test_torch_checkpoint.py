@@ -480,7 +480,8 @@ def test_unported_train_options_raise(tmp_path):
     data = SplitData(raw, emotions, numeric, [])
     # bf16 precision is ported (tests/test_torch_precision.py); a spectral-norm
     # model is refused, as the JAX loop cannot train one (ROADMAP C.5)
-    cases = (({"mesh": object()}, NotImplementedError, "mesh"),
+    # the mesh is ported (tests/test_torch_parallel.py): anything but a Mesh is refused
+    cases = (({"mesh": object()}, TypeError, "mesh"),
              ({"precision": "fp16"}, ValueError, "precision"),
              ({"cfg": GANConfig(**dict(TINY, encoder_use_sn=True))}, NotImplementedError, "spectral"))
     for kw, err, what in cases:

@@ -13,8 +13,9 @@
 - ``sample`` with one seed writes the same file names at the same tempos;
 - ``text-eval --json --ceiling`` on one cached classifier prints JAX's
   report;
-- ``doctor`` is bounded and fails without a card, ``--dp N`` exits naming
-  ROADMAP A.9, and ``python -m melogan_torch`` imports no JAX.
+- ``doctor`` is bounded and fails without a card, ``--dp N`` checks the
+  config batch (JAX's message) and the device count before any work, and
+  ``python -m melogan_torch`` imports no JAX.
 """
 import argparse
 import json
@@ -559,12 +560,32 @@ def test_doctor_on_the_cpu_is_bounded_and_fails(tmp_path, capsys, monkeypatch, p
     assert not torch.cuda.is_initialized()
 
 
-@pytest.mark.parametrize("argv", [
-    ["train-ae"], ["train-ed"], ["train-gan"], ["sweep"], ["sample"], ["pipeline"], ["serve"],
+@pytest.mark.parametrize("argv,batch_config", [
+    (["train-ae"], ("AEConfig", "configs/ae.yaml")),
+    (["train-ed"], ("EDConfig", "configs/ed.yaml")),
+    (["train-gan"], ("GANConfig", "configs/gan.yaml")),
+    (["sweep"], None), (["sample"], None), (["pipeline"], ("AEConfig", "configs/ae.yaml")),
+    (["serve"], None),
 ])
-def test_dp_exits_naming_roadmap(argv):
-    with pytest.raises(SystemExit, match="ROADMAP A.9"):
-        pcli.main(["--device", "cpu", *argv, "--dp", "2"])
+def test_dp_checks_the_batch_and_the_device_count(argv, batch_config):
+    """``--dp N`` before any work: a trainer whose config batch N does not
+    divide exits with ``_mesh_from_args``' message, JAX's word for word;
+    ``sweep`` (it shards members), ``sample`` and ``serve`` with N beyond
+    the devices there are fail with ``make_mesh``'s device count."""
+    if batch_config is not None:
+        from melogan_torch import config as pconfig
+
+        batch = pcli._load_cfg(getattr(pconfig, batch_config[0]), batch_config[1]).batch_size
+        dp = next(n for n in range(3, 64) if batch % n)
+        with pytest.raises(SystemExit) as theirs:
+            jcli._mesh_from_args(argparse.Namespace(dp=dp), batch)
+        with pytest.raises(SystemExit) as ours:
+            pcli.main(["--device", "cpu", *argv, "--dp", str(dp)])
+        assert str(ours.value) == str(theirs.value)
+        return
+    dp = (os.cpu_count() or 1) + 1
+    with pytest.raises((ValueError, SystemExit), match=f"asked for {dp} devices, have {dp - 1}"):
+        pcli.main(["--device", "cpu", *argv, "--dp", str(dp), "--workdir", "."])
 
 
 def test_device_commands_raise_without_a_card(tmp_path):
@@ -586,11 +607,11 @@ def test_serve_passes_its_flags(monkeypatch, tmp_path):
     got = {}
     monkeypatch.setattr(app, "serve", lambda **kw: got.update(kw))
     pcli.main(["--device", "cpu", "serve", "--port", "0", "--workdir", str(tmp_path),
-               "--checkpoint", "x.ckpt", "--fast-math", "--watch-ckpt", "2.5", "--ema"])
+               "--checkpoint", "x.ckpt", "--fast-math", "--watch-ckpt", "2.5", "--ema", "--dp", "2"])
     assert got == {"host": "0.0.0.0", "port": 0, "workdir": str(tmp_path),
                    "config": GANConfig.from_yaml(os.path.join(REPO, "configs/gan.yaml")),
                    "checkpoint": "x.ckpt", "fast_math": True, "watch_ckpt": 2.5, "use_ema": True,
-                   "device": "cpu"}
+                   "dp": 2, "device": "cpu"}
 
 
 def test_profile_prints_jax_keys_and_a_trace(corpus, tmp_path, capsys):

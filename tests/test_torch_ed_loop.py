@@ -573,7 +573,8 @@ def test_unported_train_options_raise(tmp_path):
     # bf16 precision is ported (tests/test_torch_precision.py); a spectral-norm
     # classifier is refused, as the JAX trainer cannot train one (ROADMAP C.5)
     sn_cfg = EDConfig(**dict(SMALL, num_epochs=1, use_spectral_norm=True))
-    for c, kw, err in ((cfg, {"mesh": object()}, NotImplementedError),
+    # the mesh is ported (tests/test_torch_parallel.py): anything but a Mesh is refused
+    for c, kw, err in ((cfg, {"mesh": object()}, TypeError),
                        (cfg, {"precision": "fp16"}, ValueError),
                        (sn_cfg, {}, NotImplementedError)):
         with pytest.raises(err):

@@ -457,8 +457,10 @@ def test_watch_checkpoint_picks_up_a_replaced_file(two_checkpoints, tmp_path):
 
 
 def test_unported_server_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        serve("127.0.0.1", 0, workdir=str(tmp_path), config=GANConfig(**SMALL), device="cpu", dp=2)
+    # dp is ported (tests/test_torch_parallel.py): more devices than there are raises before any work
+    dp = (os.cpu_count() or 1) + 1
+    with pytest.raises(ValueError, match=f"asked for {dp} devices"):
+        serve("127.0.0.1", 0, workdir=str(tmp_path), config=GANConfig(**SMALL), device="cpu", dp=dp)
 
 
 # ---------------------------------------------------------------------------

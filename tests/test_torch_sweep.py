@@ -597,7 +597,8 @@ def test_validation_raises_as_jax(corpus, tmp_path, case):
 
 
 def test_unported_options_raise(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the mesh is ported (tests/test_torch_parallel.py): anything but a Mesh is refused
+    with pytest.raises(TypeError, match="mesh"):
         _sweep(_cfg(), corpus, tmp_path, [1, 2], mesh=object())
     # bf16 precision is ported (tests/test_torch_precision.py); a spectral-norm
     # model is refused, as the JAX sweep cannot train one (ROADMAP C.5)

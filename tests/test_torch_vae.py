@@ -515,8 +515,9 @@ def test_encode_mu_matches_jax_with_the_padding_tail(jax_run):
 def test_unported_train_options_raise(tmp_path):
     cfg = AEConfig(**dict(SMALL, epochs=1))
     d = _split(51, 9)
-    # bf16 precision is ported (tests/test_torch_precision.py)
-    for kw, err in (({"mesh": object()}, NotImplementedError), ({"precision": "fp16"}, ValueError)):
+    # bf16 precision and the mesh are ported (tests/test_torch_precision.py,
+    # tests/test_torch_parallel.py); anything but a Mesh is refused
+    for kw, err in (({"mesh": object()}, TypeError), ({"precision": "fp16"}, ValueError)):
         with pytest.raises(err):
             vae_loop.train(cfg, d, d, workdir=str(tmp_path), device="cpu", **kw)
     if not torch.cuda.is_available():
