@@ -195,7 +195,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ``gan_final.ckpt`` bit for bit that of ``train-gan``; ``python -m
     melogan_torch train-gan --dp 2`` in a child exits non-zero with
     ``make_mesh``'s "asked for 2 devices, have 1" before any work);
-19. prints the per-mode launch counts (``launches_by_mode``), the
+19. tensor parallelism (``melogan_torch/parallel/tensor.py``): ``kernels_tp``
+    (``convt1d`` and ``conv1d`` at the shard shapes of a split group step
+    at batch 32, the decoder's stage 1 with 128 input channels a rank and
+    the ED's blocks 3 and 4 with 128 output and input channels, and both
+    input-gradient routes there, against their plain versions and timed)
+    and ``tp_train`` (``tp_program``: a ``GANConfig()`` group step and a
+    two-batch tail from a perturbed critic with given draws, plain in this
+    process and on two gloo ranks sharing the card at (data 1, model 2),
+    the state split by JAX's rule at min_dim 256; the metrics at JAX's TP
+    tolerances, Adam's first moments after the group step within 1e-4 of
+    their group's largest, parameters after the tail within 2·lr per
+    update, replicated tensors bit-equal across the ranks; each rank's launches as ``tp_counts`` predicts, added to the
+    path's; the step walls, the bytes the collectives carry a group step
+    and the ``tp.all_reduce`` spans' share of a traced step);
+20. prints the per-mode launch counts (``launches_by_mode``), the
     script's wall, the ``kernels`` JSON line (launches summed over every
     driven path; the bf16 mode of each conv kernel as an entry of its own),
     the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -3561,7 +3575,7 @@ def check_dp_two(np, cfg, plain, rank0, rank1):
     return worst
 
 
-def _check_adam(np, ours_mu, want_mu, ours_p, want_p, lr, updates, grad_rel, big_rel, what):
+def _check_adam(np, ours_mu, want_mu, ours_p, want_p, lr, updates, grad_rel, big_rel, what, phase="dp_train"):
     """One module group after ``updates`` Adam steps against the plain run:
     every first moment within ``grad_rel`` of the group's largest, every
     parameter within 2·lr per update (an element whose true gradient is
@@ -3577,7 +3591,7 @@ def _check_adam(np, ours_mu, want_mu, ours_p, want_p, lr, updates, grad_rel, big
         dbig = float(d[big].max()) if big.any() else 0.0
         worst_g, worst_p = max(worst_g, gerr / gmax), max(worst_p, float(d.max()))
         if gerr > grad_rel * gmax or float(d.max()) > 2 * lr * updates * (1 + 1e-3) or dbig > 1e-6 * updates:
-            raise SystemExit(f"dp_train: {what} {n}: grad err {gerr:.3e} (group max {gmax:.3e}), "
+            raise SystemExit(f"{phase}: {what} {n}: grad err {gerr:.3e} (group max {gmax:.3e}), "
                              f"param err {float(d.max()):.3e}, where the gradient is large {dbig:.3e}")
     return worst_g, worst_p
 
@@ -3767,6 +3781,280 @@ def drive_dp_cli(np, piped, results):
           "dp2_message": proc.stderr.strip().splitlines()[-1], "dp2_wall_s": refused_s}, results)
 
 
+# tensor parallelism (melogan_torch/parallel/tensor.py): tp_train holds a GANConfig() group step
+# and a two-batch tail from a perturbed critic with given draws, plain in this process and on two
+# gloo ranks sharing the card at (data 1, model 2) with the state split by JAX's rule at
+# min_dim 256; the conv kernels at the shard shapes that path gives them, against their plain
+# versions
+TP_MODEL = 2
+TP_MIN_DIM = 256
+TP_STEPS = 3  # timed group steps after the compared run, each run
+TP_PROFILED_STEPS = 1  # group steps traced on the ranks for the collectives' share
+TP_TIMEOUT = 300  # seconds before the two gloo ranks are killed
+TP_TAIL = 2  # batches of the compared tail step
+TP_GRAD_REL = 1e-4  # Adam's first moments, of their module group's largest (as DP_GRAD_REL)
+TP_RTOL, TP_ATOL = 2e-3, 1e-4  # metrics: JAX's TP test (tests/test_parallel.py:419-423)
+# the shard shapes on the path at batch 32, model 2: the decoder's stage 1 splits its input
+# channels (row), the ED's block 3 its output channels (column), block 4 its input ones (row)
+TP_CONVT_LAYERS = [(64, 128, 128)]  # (L, Cin, Cout): stage 1, a partial sum a rank
+TP_CONV1D_LAYERS = [(512, 128, 128, 3, 1, 1, "ed3_col"), (512, 128, 256, 3, 1, 1, "ed4_row")]
+TP_BACKWARD_LAYERS = [((l, cin, cout, k, s, p, 0), False, n) for l, cin, cout, k, s, p, n in TP_CONV1D_LAYERS] + [
+    ((64, 128, 128, 5, 2, 2, 1), True, "dec1_row")]
+
+
+def tp_counts(cfg, group_steps):
+    """Kernel launches of ``group_steps`` group steps and one ``TP_TAIL``
+    tail, plain or on a model rank (a split layer runs its conv once, on its
+    block): a critic update runs G's three transposed convs without
+    gradients; the G update G's three and the ED's convs forward, the ED's
+    input gradients (``convt1d``) and G's (``conv1d``, stages 3, 2, 1)."""
+    from melogan_torch.config import EDConfig
+
+    blocks = EDConfig().notes_blocks
+    per_group = {"convt1d": 3 * cfg.critic_iters + 3 + blocks, "conv1d": blocks + 3}
+    return {"decoder_tail": 0, "convt1d": group_steps * per_group["convt1d"] + 3 * TP_TAIL,
+            "conv1d": group_steps * per_group["conv1d"]}
+
+
+def tp_program(mesh, spec):
+    """One rank of ``tp_train`` (``mesh`` None: the plain run, in this
+    process): the state split over a (data 1, model ``TP_MODEL``) mesh by
+    ``tensor.place_state``, the group step and tail from ``spec``'s state
+    and draws (the compared run, whose launches are counted), the replica
+    check, the gathered state; then ``TP_STEPS`` timed group steps and one
+    traced on the ranks, and the bytes each collective carries in a group
+    step. Returns numpy results."""
+    import numpy as np
+    import torch
+
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.ops import conv1d, convt, decoder
+    from melogan_torch.parallel import tensor
+    from melogan_torch.parallel.mesh import make_mesh, tree_map
+    from melogan_torch.train import gan_step
+
+    t_start = time.perf_counter()
+    wrappers = {"decoder_tail": decoder.decoder_tail_cuda, "convt1d": convt.convt1d_cuda,
+                "conv1d": conv1d.conv1d_cuda}
+    before = {k: w.launches for k, w in wrappers.items()}
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    tp = None if mesh is None else make_mesh(model_parallel=TP_MODEL, device="cuda")
+    cfg, ed_cfg = GANConfig(), EDConfig()
+    state = gan_step.init_state(cfg, gan_step.build_models(cfg, ed_cfg), seed=3, device=dev)
+    for name, sd in spec["modules"].items():
+        getattr(state, name).load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    dims = {} if tp is None else tensor.place_state(state, tp, min_dim=TP_MIN_DIM)
+    steps = gan_step.make_train_steps(cfg, mesh=tp)
+    batches, draws = tree_map(lambda t: t.to(dev), spec["group"])
+    tail, tail_draws = tree_map(lambda t: t.to(dev), spec["tail"])
+    state, m = steps.group(state, batches, draws)
+    # the first moments after the group step: the tail's critic gradients read G's ±lr moves
+    # of its near-zero gradients, which the sums' order decides
+    after = tensor.gather_state(state)
+    critic_step = float(next(iter(state.opt_d.state.values()))["step"])
+    state, mt = steps.tail(state, tail, tail_draws)
+    torch.cuda.synchronize()
+    compared = {k: w.launches - before[k] for k, w in wrappers.items()}
+    tensor.check_replicas(state)  # replicated tensors bit-equal over the model axis
+    full = tensor.gather_state(state)
+
+    def host(sd, prefix=""):
+        return {k[len(prefix):]: v.cpu().numpy() for k, v in sd.items() if k.startswith(prefix)}
+
+    gan = ("generator", "critic", "feature_encoder")
+    out = {"metrics": [{k: float(v) for k, v in mm.items()} for mm in (m, mt)],
+           "modules": {n: host(full[n]) for n in gan},
+           "exp_avg": host(after["exp_avg"]), "tail_exp_avg": host(full["exp_avg"], "critic."),
+           "split": {k: v for k, v in dims.items() if v is not None}}
+    if tp is not None and tp.rank == 0:  # the state a plain tail starts from (check_tp_tail)
+        out["after_group"] = {"modules": {n: host(after[n]) for n in gan}, "critic_step": critic_step,
+                              "exp_avg": host(after["exp_avg"], "critic."),
+                              "exp_avg_sq": host(after["exp_avg_sq"], "critic.")}
+    walls = []
+    for _ in range(TP_STEPS):
+        t0 = time.perf_counter()
+        state, _ = steps.group(state, batches)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = walls
+    if tp is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TP_PROFILED_STEPS):
+                state, _ = steps.group(state, batches)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        trace = os.path.join(spec["workdir"], f"tp_trace_rank{tp.rank}.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        spans = [e["dur"] for e in events if e.get("name") == "tp.all_reduce" and e.get("ph") == "X"
+                 and e.get("cat") == "user_annotation"]
+        busy = sum(e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel") / 1e3
+        # what the collectives carry in one group step: count them through tensor.all_reduce
+        carried = {"calls": 0, "bytes": 0}
+        reduce_ = tensor.all_reduce
+
+        def counted(t, group):
+            carried["calls"] += 1
+            carried["bytes"] += t.numel() * t.element_size()
+            reduce_(t, group)
+
+        tensor.all_reduce = counted
+        try:
+            state, _ = steps.group(state, batches)
+            torch.cuda.synchronize()
+        finally:
+            tensor.all_reduce = reduce_
+        tp.barrier()  # the ranks leave the trace's export at different times
+        out["profile"] = {"steps": TP_PROFILED_STEPS, "wall_ms": wall, "span_ms": sum(spans) / 1e3,
+                          "span_calls": len(spans), "kernel_ms": busy, "per_group_step": carried}
+    out["compared_launches"] = compared
+    out["launches"] = {k: w.launches - before[k] for k, w in wrappers.items()}
+    out["program_s"] = time.perf_counter() - t_start
+    return out
+
+
+def check_tp_two(np, cfg, plain, ranks):
+    """The two model ranks against the plain run: the metrics of the group
+    step and the tail at JAX's TP tolerances, Adam's first moments after
+    the group step within ``TP_GRAD_REL`` of their group's largest, the
+    parameters after the tail within 2·lr per update (``_check_adam``); the
+    gathered states of both ranks bit-equal. Returns the worst errors."""
+    worst = {}
+    if not _tree_equal(ranks[0]["modules"], ranks[1]["modules"]):
+        raise SystemExit(f"tp_train: the two ranks' gathered weights differ: "
+                         f"{_tree_diff(ranks[0]['modules'], ranks[1]['modules'])}")
+    got = ranks[0]
+    for i, (mine, want) in enumerate(zip(got["metrics"], plain["metrics"])):
+        for k, w in want.items():
+            err = abs(mine[k] - w)
+            worst[f"metric {i} {k}"] = err / max(abs(w), 1e-30)
+            if err > TP_ATOL + TP_RTOL * abs(w):
+                raise SystemExit(f"tp_train: metric {k} of step {i}: {mine[k]} vs plain {w}")
+    lr = {"G": cfg.lr_g, "FE": cfg.lr_g, "D": cfg.lr_d}
+    updates = {"G": 1, "FE": 1, "D": cfg.critic_iters + TP_TAIL}
+    module_of = {"G": "generator", "FE": "feature_encoder", "D": "critic"}
+    for group in ("G", "FE", "D"):
+        mine, want = ({n.split(".", 1)[1]: v for n, v in r["exp_avg"].items()
+                       if n.split(".", 1)[0] == module_of[group]} for r in (got, plain))
+        # the critic's parameters after the tail: only their 2·lr bound, as the CPU tests
+        big_rel = 1e-4 if updates[group] == 1 else float("inf")
+        worst[f"{group} grad"], worst[f"{group} param"] = _check_adam(
+            np, mine, want, got["modules"][module_of[group]], plain["modules"][module_of[group]],
+            lr[group], updates[group], TP_GRAD_REL, big_rel, group, phase="tp_train")
+    return worst
+
+
+def check_tp_tail(torch, np, cfg, spec, got):
+    """The critic's tail against a plain tail on the card that starts from
+    rank 0's gathered state after the group step (G, FE, the critic and the
+    critic's Adam moments), so that the ±lr moves that G's near-zero
+    gradients took in the ranks' order of sums are the plain tail's too:
+    the ranks' critic first moments after the tail within ``TP_GRAD_REL``
+    of the group's largest, the critic's parameters within 2·lr per update, with
+    the large-gradient check (1e-4 of the largest). Returns the worst
+    errors."""
+    from melogan_torch.config import EDConfig
+    from melogan_torch.parallel import tensor
+    from melogan_torch.parallel.mesh import tree_map
+    from melogan_torch.train import gan_step
+
+    after = got["after_group"]
+    state = gan_step.init_state(cfg, gan_step.build_models(cfg, EDConfig()), seed=3, device="cuda")
+    for sds in (spec["modules"], after["modules"]):
+        for name, sd in sds.items():
+            getattr(state, name).load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    for n, p in state.critic.named_parameters():
+        state.opt_d.state[p] = {"step": torch.tensor(after["critic_step"]),
+                                "exp_avg": torch.as_tensor(after["exp_avg"][n]).to(p.device),
+                                "exp_avg_sq": torch.as_tensor(after["exp_avg_sq"][n]).to(p.device)}
+    tail, tail_draws = tree_map(lambda t: t.to("cuda"), spec["tail"])
+    state, _ = gan_step.make_train_steps(cfg).tail(state, tail, tail_draws)
+    full = tensor.gather_state(state)
+    want_mu = {k.split(".", 1)[1]: v.cpu().numpy() for k, v in full["exp_avg"].items() if k.startswith("critic.")}
+    want_p = {k: v.cpu().numpy() for k, v in full["critic"].items()}
+    return _check_adam(np, got["tail_exp_avg"], want_mu, got["modules"]["critic"], want_p, cfg.lr_d, TP_TAIL,
+                       TP_GRAD_REL, 1e-4, "D tail from the ranks' state", phase="tp_train")
+
+
+def check_tp_kernels(torch, F, ops, gen, results):
+    """``kernels_tp``: ``convt1d`` and ``conv1d`` at the shard shapes of the
+    tensor-parallel step at batch 32 (``TP_CONVT_LAYERS``,
+    ``TP_CONV1D_LAYERS``) and both input-gradient routes there
+    (``TP_BACKWARD_LAYERS``), each against its plain version within
+    ``TOL_REL`` of scale, timed beside the library call, bounds at 3xTF32."""
+    return {"convt1d": check_convt(torch, F, ops, TRAIN_BATCH, gen, results, TP_CONVT_LAYERS, "kernels_tp"),
+            "conv1d": check_conv1d(torch, F, ops, TRAIN_BATCH, gen, results, TP_CONV1D_LAYERS, "kernels_tp"),
+            "backward": check_backward_routes(torch, F, ops, TRAIN_BATCH, gen, results, TP_BACKWARD_LAYERS,
+                                              "kernels_tp_backward")}
+
+
+def drive_tp_train(torch, np, results):
+    """``tp_train``: ``tp_program`` plain in this process, then on two gloo
+    ranks sharing the card at (data 1, model 2) with ``GANConfig()`` split
+    by JAX's rule at min_dim 256; each rank's launches against
+    ``tp_counts``; the step walls, what the collectives carry and their
+    share of a traced step. Returns the record and the ranks' launches."""
+    import datetime
+
+    from melogan_torch.config import EDConfig, GANConfig
+    from melogan_torch.parallel import launch
+    from melogan_torch.train import gan_step
+
+    cfg, ed_cfg = GANConfig(), EDConfig()
+    cpu = gan_step.init_state(cfg, gan_step.build_models(cfg, ed_cfg), seed=3, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():  # a critic away from its init, as check_group_step_against_cpu
+        for m in cpu.critic.modules():
+            if isinstance(m, (torch.nn.Conv1d, torch.nn.Linear)):
+                m.weight.mul_(10.0)
+                m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=g))
+    (group,) = _batches_and_draws(torch, np, cfg, cpu.feature_encoder, 6, ["cpu"])
+    (tail,) = _batches_and_draws(torch, np, cfg, cpu.feature_encoder, 7, ["cpu"])
+    tail = (tuple(f[:TP_TAIL] for f in tail[0]), list(tail[1].critic[:TP_TAIL]))
+    spec = {"modules": {n: _np_sd(getattr(cpu, n)) for n in ("generator", "critic", "feature_encoder", "ed")},
+            "group": group, "tail": tail, "workdir": os.path.join(WORK_DIR, "tp")}
+    os.makedirs(spec["workdir"], exist_ok=True)
+    predicted = tp_counts(cfg, 1 + TP_STEPS)
+    predicted_rank = tp_counts(cfg, 1 + TP_STEPS + TP_PROFILED_STEPS + 1)
+    t0 = time.perf_counter()
+    plain = tp_program(None, spec)
+    t1 = time.perf_counter()
+    two = launch.spawn(tp_program, TP_MODEL, args=(spec,), device="cuda", backend="gloo", timeout=TP_TIMEOUT,
+                       rank_timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    t2 = time.perf_counter()
+    worst = check_tp_two(np, cfg, plain, two)
+    worst["D tail grad"], worst["D tail param"] = check_tp_tail(torch, np, cfg, spec, two[0])
+    if plain["launches"] != predicted or any(r["launches"] != predicted_rank for r in two) or any(
+            r["compared_launches"] != plain["compared_launches"] for r in two):
+        raise SystemExit(f"tp_train launches: plain {plain['launches']} (predicted {predicted}), ranks "
+                         f"{[r['launches'] for r in two]} (predicted {predicted_rank}), compared runs "
+                         f"{[r['compared_launches'] for r in two]} vs plain {plain['compared_launches']}")
+    prof = two[0]["profile"]
+    rec = {"phase": "tp_train", "mesh": {"data": 1, "model": TP_MODEL}, "min_dim": TP_MIN_DIM,
+           "split": two[0]["split"],
+           "plain_step_median_ms": float(np.median(plain["step_ms"])),
+           "tp2_step_median_ms": [float(np.median(r["step_ms"])) for r in two],
+           "plain_step_ms": plain["step_ms"], "tp2_rank0_step_ms": two[0]["step_ms"],
+           "tp2_profile": prof,
+           # the tp.all_reduce spans of the traced step (their wait for queued device work included)
+           "tp2_allreduce_share": prof["span_ms"] / prof["wall_ms"],
+           "tp2_kernel_busy_share": prof["kernel_ms"] / prof["wall_ms"],
+           "collective_mb_per_group_step": prof["per_group_step"]["bytes"] / 1e6,
+           "collective_calls_per_group_step": prof["per_group_step"]["calls"],
+           "launches": {"plain": plain["launches"], "ranks": [r["launches"] for r in two],
+                        "predicted_plain": predicted, "predicted_rank": predicted_rank},
+           "worst_vs_plain": worst, "program_s": {"plain": plain["program_s"],
+                                                  "tp2": [r["program_s"] for r in two]},
+           "wall_s": {"plain": t1 - t0, "tp2": t2 - t1}}
+    emit(rec, results)
+    ranks = {k: sum(r["launches"][k] for r in two) for k in plain["launches"]}
+    return rec, ranks
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -3823,6 +4111,7 @@ def main() -> int:
     check_backward_routes(torch, F, ops, TRAIN_BATCH, gen, results)
     vae_kernels = check_vae_kernels(torch, F, ops, gen, results)
     check_ed_kernels(torch, F, ops, gen, results)
+    check_tp_kernels(torch, F, ops, gen, results)
     bf16_kernels = check_bf16_kernels(torch, F, ops, gen, results)
     moded = {k: w for k, w in wrappers.items() if hasattr(w, "launches_bf16")}
     bf16_by_path = {}
@@ -3989,18 +4278,26 @@ def main() -> int:
             raise SystemExit(f"{name} launches {got}, predicted {predicted}")
     if any(n for name in ("dp_train", "dp_sample", "dp_cli") for n in bf16_by_path[name].values()):
         raise SystemExit(f"a dp path launched the bf16 mode: {bf16_by_path}")
+    # tensor parallelism: the split group step on two gloo ranks against the plain one; the
+    # path's launches are the plain run's in this process and both ranks'
+    (tp, tp_rank_launches), tp_training = drive("tp_train", lambda: drive_tp_train(torch, np, results),
+                                                ("conv1d", "convt1d"))
+    if any(bf16_by_path["tp_train"].values()):
+        raise SystemExit(f"tp_train launched the bf16 mode: {bf16_by_path['tp_train']}")
+    tp_training = {k: tp_training[k] + tp_rank_launches[k] for k in wrappers}
+    emit({"phase": "main_path_launches", "path": "tp_train_with_ranks", **tp_training}, results)
     path_names = ("sampling", "training", "resume", "serve_ckpt", "data", "vae_train", "vae_resume", "encode",
                   "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload",
                   "sweep", "sweep_resume", "sweep_halving", "sampling_fast", "training_bf16", "spectral",
                   "cli_pipeline", "cli_resume", "cli_commands", "cli_module",
                   "text_mlp", "roberta", "text_route", "cli_text_eval", "camera_models", "camera_route",
-                  "dp_train", "dp_sample", "dp_cli")
+                  "dp_train", "dp_sample", "dp_cli", "tp_train")
     paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
              conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading,
              sweeping, sweep_resuming, sweep_halving, sampling_fast, training_bf16, spectral,
              cli_pipeline, cli_resume, cli_commands, cli_module,
              text_mlp_counts, roberta_counts, text_route, cli_text_eval, camera_models, camera_route,
-             dp_training, dp_sampling, dp_cli)
+             dp_training, dp_sampling, dp_cli, tp_training)
     launches = {k: sum(p[k] for p in paths) for k in wrappers}
     launches_bf16 = {k: sum(bf16_by_path[p][k] for p in path_names) for k in moded}
 
@@ -4090,6 +4387,9 @@ def main() -> int:
           "dp_gloo2_allreduce_share": dp["gloo2_allreduce_share"],
           "dp_gloo2_grad_allreduce_ms_per_step": dp["gloo2_grad_allreduce_ms_per_step"],
           "dp_launches_per_rank": dp["launches_per_rank"],
+          "tp_plain_step_median_ms": tp["plain_step_median_ms"], "tp2_step_median_ms": tp["tp2_step_median_ms"],
+          "tp2_allreduce_share": tp["tp2_allreduce_share"], "tp_collective_mb": tp["collective_mb_per_group_step"],
+          "tp_launches": tp["launches"],
           "launches_by_path": dict(zip(path_names, paths)), "launches_bf16_by_path": bf16_by_path},
          results)
     emit({"phase": "script", "wall_s": time.perf_counter() - t_script}, results)

@@ -33,6 +33,7 @@ from torch import nn
 from melogan_torch.config import GANConfig
 from melogan_torch.models.layers import (
     Conv1d,
+    ConvTranspose1d,
     Dropout,
     Linear,
     SpectralNormLinear,
@@ -41,7 +42,6 @@ from melogan_torch.models.layers import (
     default_precision,
     trim_or_pad_length,
 )
-from melogan_torch.ops.conv import conv_transpose1d
 from melogan_torch.ops.decoder import fold_bn_affine, fused_decoder_tail
 
 _CONVT = dict(kernel_size=5, stride=2, padding=2, output_padding=1)
@@ -82,13 +82,13 @@ class GeneratorDecoder(nn.Module):
             Linear(latent_dim, 512), nn.ReLU(), Linear(512, 256 * self.reduced_len), nn.ReLU()
         )
         self.deconv = nn.Sequential(
-            nn.ConvTranspose1d(256, 128, **_CONVT),
+            ConvTranspose1d(256, 128, **_CONVT),
             nn.BatchNorm1d(128),
             nn.ReLU(),
-            nn.ConvTranspose1d(128, 64, **_CONVT),
+            ConvTranspose1d(128, 64, **_CONVT),
             nn.BatchNorm1d(64),
             nn.ReLU(),
-            nn.ConvTranspose1d(64, out_channels, **_CONVT),
+            ConvTranspose1d(64, out_channels, **_CONVT),
         )
         self._folded = None  # (key, source tensors, stages) of folded_stages
 
@@ -97,11 +97,13 @@ class GeneratorDecoder(nn.Module):
         f32 precision, and a max_notes the three ×2 stages reach exactly. The
         JAX gate's batch cap (≤ 32768) was the TPU compiler's envelope and is
         dropped: each stage's launch spreads its tiles over every SM at any
-        batch, and the core takes any channel count and length."""
+        batch, and the core takes any channel count and length. A decoder
+        split over a model axis (``parallel/tensor.py``) stays layered."""
         return (
             not self.training
             and default_precision() == "f32"
             and self.max_notes == 8 * self.reduced_len
+            and all(self.deconv[i].tp is None for i in (0, 3, 6))
         )
 
     def _fold_sources(self) -> List[torch.Tensor]:
@@ -159,13 +161,9 @@ class GeneratorDecoder(nn.Module):
         if self.fuses():
             return trim_or_pad_length(fused_decoder_tail(y, self.folded_stages()), self.max_notes)
         for conv_i, bn_i in ((0, 1), (3, 4)):
-            conv = self.deconv[conv_i]
-            y = conv_transpose1d(y, _hio(conv), 2, 2, 1, bias=conv.bias)
-            y = torch.relu(batch_norm_lc(self.deconv[bn_i], y))
-        conv = self.deconv[6]
-        y = conv_transpose1d(y, _hio(conv), 2, 2, 1, bias=conv.bias)
+            y = torch.relu(batch_norm_lc(self.deconv[bn_i], self.deconv[conv_i](y)))
         # no final activation: raw note values
-        return trim_or_pad_length(y, self.max_notes)
+        return trim_or_pad_length(self.deconv[6](y), self.max_notes)
 
 
 class Generator(nn.Module):

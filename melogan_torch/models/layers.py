@@ -146,7 +146,7 @@ class _CrossRankBatchNorm(torch.autograd.Function):
         c = x.shape[1]
         xd = x.detach().to(torch.float64)
         stats = torch.cat([xd.new_full((1,), float(x.shape[0])), xd.sum(0), xd.square().sum(0)])
-        all_reduce(stats, mesh.group)
+        all_reduce(stats, mesh.data_group)
         n = stats[0]
         mean64 = stats[1:1 + c] / n
         var64 = torch.clamp(stats[1 + c:] / n - mean64.square(), min=0.0)
@@ -165,7 +165,7 @@ class _CrossRankBatchNorm(torch.autograd.Function):
         c = dy.shape[1]
         local = torch.cat([dy.sum(0), (dy * xhat).sum(0)])
         sums = local.clone()
-        all_reduce(sums, ctx.mesh.group)
+        all_reduce(sums, ctx.mesh.data_group)
         n = n.to(dy.dtype)
         dx = invstd * weight * (dy - sums[:c] / n - xhat * (sums[c:] / n))
         return dx, local[c:], local[:c], None, None
@@ -185,17 +185,24 @@ class Linear(nn.Linear):
     """``nn.Linear`` (names ``weight`` (out, in) and ``bias``, so state dicts
     load strictly) that follows the precision switch: under ``"fast"`` it
     computes G(R(x)·R(W)ᵀ) + b (``bf16_product``), the TPU's one bf16 pass
-    of the JAX ``TorchLinear`` at DEFAULT, in f32 otherwise."""
+    of the JAX ``TorchLinear`` at DEFAULT, in f32 otherwise. ``tp``: the
+    tensor-parallel role that ``parallel.tensor.place_state`` gives it (its
+    weight then this rank's block), None otherwise."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear(x, self.weight)
+        return self.tp(x, self._product, self.bias) if self.tp is not None else self._product(x, self.bias)
 
-    def linear(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def _product(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.linear(x, self.weight, bias)
+
+    def linear(self, x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         """x·wᵀ + bias at this thread's precision."""
         if bf16_products():
             y = bf16_product(F.linear, x, w)
-            return y if self.bias is None else y + self.bias
-        return F.linear(x, w, self.bias)
+            return y if bias is None else y + bias
+        return F.linear(x, w, bias)
 
 
 class SpectralNormLinear(Linear):
@@ -233,7 +240,8 @@ class SpectralNormLinear(Linear):
         return sigma
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear(x, self.weight / torch.clamp(self.sigma(update=self.training), min=self.eps))
+        return self.linear(x, self.weight / torch.clamp(self.sigma(update=self.training), min=self.eps),
+                           self.bias)
 
 
 class Conv1d(nn.Conv1d):
@@ -247,8 +255,11 @@ class Conv1d(nn.Conv1d):
     WGAN-GP critic, whose gradient penalty needs a second derivative. Under
     the ``"fast"`` precision the pinned conv is ``bf16_product`` around
     ``F.conv1d``, then the bias: bf16 operands at every derivative order, as
-    XLA's conv at DEFAULT.
+    XLA's conv at DEFAULT. ``tp``: the tensor-parallel role, as
+    ``Linear``'s; either route then runs on this rank's channel block.
     """
+
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True, native: bool = False):
@@ -257,18 +268,22 @@ class Conv1d(nn.Conv1d):
         self.native = native
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tp(x, self._product, self.bias) if self.tp is not None else self._product(x, self.bias)
+
+    def _product(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The conv plus ``bias`` (None: none), on this layer's route."""
         s, p = self.stride[0], self.padding[0]
         if self.native:
             with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
                 if bf16_products():
                     y = bf16_product(lambda x_, w_: F.conv1d(x_, w_, None, s, p),
                                      x.transpose(1, 2), self.weight)
-                    if self.bias is not None:
-                        y = y + self.bias[:, None]
+                    if bias is not None:
+                        y = y + bias[:, None]
                 else:
-                    y = F.conv1d(x.transpose(1, 2), self.weight, self.bias, s, p)
+                    y = F.conv1d(x.transpose(1, 2), self.weight, bias, s, p)
             return y.transpose(1, 2)
-        return conv1d(x, self.weight.permute(2, 1, 0), s, p, bias=self.bias)
+        return conv1d(x, self.weight.permute(2, 1, 0), s, p, bias=bias)
 
 
 class ConvTranspose1d(nn.ConvTranspose1d):
@@ -276,11 +291,17 @@ class ConvTranspose1d(nn.ConvTranspose1d):
     geometry and the torch ``(Cin, Cout, K)`` weight, so reference state
     dicts load strictly. It always computes through
     ``ops.conv.conv_transpose1d``: the hand-written kernel on the card, its
-    plain version on the CPU, both differentiable once."""
+    plain version on the CPU, both differentiable once. ``tp``: the
+    tensor-parallel role, as ``Linear``'s."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tp(x, self._product, self.bias) if self.tp is not None else self._product(x, self.bias)
+
+    def _product(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         return conv_transpose1d(x, self.weight.permute(2, 0, 1), self.stride[0], self.padding[0],
-                                self.output_padding[0], bias=self.bias)
+                                self.output_padding[0], bias=bias)
 
 
 class Dropout(nn.Module):

@@ -3,8 +3,9 @@
 Port of ``melogan_tpu/parallel/distributed.py``. JAX joins processes with
 ``jax.distributed.initialize`` and assembles global arrays from each
 process's rows; the port joins them in a ``torch.distributed`` process
-group (NCCL on the card, gloo on the CPU) whose ranks are the data axis,
-one device a process, and each rank keeps its own rows of every batch.
+group (NCCL on the card, gloo on the CPU) whose ranks are the (data,
+model) grid, one device a process, and each rank keeps its data index's
+rows of every batch.
 
 - ``initialize``: ``init_process_group`` over ``tcp://`` from arguments
   or the ``MELOGAN_COORDINATOR`` (host:port), ``MELOGAN_NUM_PROCESSES`` and
@@ -13,8 +14,8 @@ one device a process, and each rank keeps its own rows of every batch.
   device count). ``join_torchrun``: the same from the variables that
   ``torchrun`` sets (``init_method="env://"``); the command line calls it
   for ``--dp`` and then joins that group instead of starting ranks.
-- ``make_multihost_mesh``: the mesh over the world group; one process
-  gives the one-device mesh.
+- ``make_multihost_mesh``: the (data, model) mesh over the world group,
+  the model axis within a node; one process gives the local mesh.
 - ``global_batch_from_local``: this process's rows as its shard, with the
   global row count.
 - ``process_count``: the world size.
@@ -93,10 +94,20 @@ def process_count() -> int:
 
 def make_multihost_mesh(model_parallel: int = 1, device="cuda") -> Mesh:
     """The (data, model) mesh over every process of the group, one device
-    each; a single process (no group, or a group of one) gives the
-    one-device mesh. ``model_parallel`` > 1 raises as ``make_mesh`` does."""
+    each, whose model axis never crosses a host: ``model_parallel`` must
+    divide the ranks of one node (``LOCAL_WORLD_SIZE``, as ``torchrun``
+    sets it; the whole group without it), and rank r sits at model index
+    r % model_parallel, so a model axis holds consecutive ranks of one
+    node. A single process (no group) gives ``make_mesh(model_parallel=)``
+    over its local devices, as JAX's single-process fallback does."""
     if not (dist.is_available() and dist.is_initialized()):
-        return make_mesh(1, model_parallel=model_parallel, device=device)
+        return make_mesh(model_parallel=model_parallel, device=device)
+    n_local = int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+    if n_local % model_parallel != 0:
+        raise ValueError(
+            f"model_parallel={model_parallel} must divide the per-host device "
+            f"count {n_local} (the model axis may not cross DCN)"
+        )
     return make_mesh(model_parallel=model_parallel, device=device)
 
 
@@ -111,7 +122,7 @@ class GlobalBatch(NamedTuple):
 
 def global_batch_from_local(mesh: Mesh, local_batch, batch_axis: int = 0) -> GlobalBatch:
     """Each process's own rows of a batch as its shard: the tree on this
-    rank's device, and the global row count summed over the ranks (one
+    rank's device, and the global row count summed over the data axis (one
     ``all_reduce``; the local count alone without a group)."""
     from melogan_torch.parallel.mesh import put_replicated, tree_map
 
@@ -121,7 +132,7 @@ def global_batch_from_local(mesh: Mesh, local_batch, batch_axis: int = 0) -> Glo
     if len(counts) != 1:
         raise ValueError(f"the leaves of a batch must share their row count, got {sorted(counts)}")
     rows = torch.tensor([float(counts.pop())], dtype=torch.float64)
-    if mesh.group is not None and mesh.data > 1:
+    if mesh._collective():
         rows = rows.to(mesh._comm_device())
-        dist.all_reduce(rows, group=mesh.group)
+        dist.all_reduce(rows, group=mesh.data_group)
     return GlobalBatch(local=local, global_rows=int(rows.item()))

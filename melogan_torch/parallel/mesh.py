@@ -6,10 +6,13 @@ process a device (the ranks of a ``torch.distributed`` group) and samples
 with one process over several local devices, and makes its few collectives
 itself:
 
-- ``Mesh``: the ``data`` and ``model`` sizes, this process's rank on the
-  data axis, its devices and its process group (None for a local mesh).
+- ``Mesh``: the ``data`` and ``model`` sizes, this process's rank and its
+  (data, model) coordinates, its devices, its process group (None for a
+  local mesh) and the subgroups of its two axes.
 - ``make_mesh``: under an initialised process group, the mesh over its
-  ranks, one device each; else a local mesh over the first N devices.
+  ranks, one device each, rank r at data index r // model and model index
+  r % model (JAX's ``reshape(n // model, model)`` of the devices); else a
+  local mesh over the first N devices.
 - ``batch_sharding`` / ``shard_pytree_batch``: this rank's rows of each
   leaf of a global batch whose batch axis divides ``data``, every other
   leaf whole (JAX leaves such a leaf replicated, ``mesh.py:84-96``), on the
@@ -19,13 +22,16 @@ itself:
   The trainers place their corpus and cut their batches with these.
 - ``data_parallel(mesh)``: inside the block, on this thread, a train-mode
   BatchNorm (``models/layers.py::batch_norm_lc``) and ``cross_rank_mean``
-  reduce over the mesh's ranks, as GSPMD's global batch statistics do.
+  reduce over the mesh's data axis, as GSPMD's global batch statistics do.
 - ``partition_params``: the dimension a ``model`` axis would split.
 
-The collectives are ``all_reduce`` and ``broadcast`` only: the two that
-gloo offers for CUDA tensors, so the same code runs under NCCL on cards and
-under gloo on the CPU and on one card. A mesh with ``model`` > 1 (tensor
-parallelism) is not ported (ROADMAP A.9b).
+Every reduction of a data-parallel step (the row blocks, the gradient and
+metric means, the BatchNorm statistics, the replica check) runs over the
+data axis: the ranks that share this rank's model index. The model axis
+carries the collectives inside the layers of a tensor-parallel state
+(``parallel/tensor.py``). The collectives are ``all_reduce`` and
+``broadcast`` only: the two that gloo offers for CUDA tensors, so the same
+code runs under NCCL on cards and under gloo on the CPU and on one card.
 """
 from __future__ import annotations
 
@@ -52,18 +58,39 @@ def all_reduce(t: torch.Tensor, group) -> None:
 @dataclass(frozen=True)
 class Mesh:
     """A (data, model) mesh. ``group`` is the process group of a mesh whose
-    data axis spans processes (one device each, ``devices`` holds this
-    rank's); None for a local mesh, whose ``devices`` are the data axis."""
+    axes span processes (one device each, ``devices`` holds this rank's);
+    None for a local mesh, whose ``devices`` are the data axis (a model
+    axis there repeats each block). ``data_group`` holds the ranks with
+    this rank's model index, ``model_group`` those with its data index;
+    an axis that spans the whole group defaults to ``group``."""
 
     data: int
     model: int = 1
     rank: int = 0
     devices: Tuple[torch.device, ...] = (torch.device("cpu"),)
     group: Any = None
+    data_group: Any = None
+    model_group: Any = None
+
+    def __post_init__(self):
+        if self.data_group is None and self.model == 1:
+            object.__setattr__(self, "data_group", self.group)
+        if self.model_group is None and self.data == 1:
+            object.__setattr__(self, "model_group", self.group)
 
     @property
     def shape(self) -> Dict[str, int]:
         return {"data": self.data, "model": self.model}
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index on the data axis."""
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's index on the model axis."""
+        return self.rank % self.model
 
     @property
     def device(self) -> torch.device:
@@ -76,33 +103,39 @@ class Mesh:
         return self.rank == 0
 
     def splits(self, n: int) -> bool:
-        """Whether a batch of ``n`` rows is split over the ranks: the mesh
-        spans processes, ``data`` > 1 and divides ``n``."""
-        return self.group is not None and self.data > 1 and n % self.data == 0
+        """Whether a batch of ``n`` rows is split over the data axis: the
+        mesh spans processes, ``data`` > 1 and divides ``n``."""
+        return self._collective() and n % self.data == 0
 
     def rows(self, x, axis: int = 0):
         """This rank's block of ``x`` along ``axis`` when ``splits`` its
-        length there, else ``x`` itself (also for a 0-d ``x``)."""
+        length there (the block of its data index), else ``x`` itself (also
+        for a 0-d ``x``)."""
         if x.ndim == 0 or not self.splits(x.shape[axis]):
             return x
         k = x.shape[axis] // self.data
-        return x.narrow(axis, self.rank * k, k)
+        return x.narrow(axis, self.data_rank * k, k)
 
     # -- collectives (no-ops at data 1 and on a local mesh) -----------------
     def _collective(self) -> bool:
-        return self.group is not None and self.data > 1
+        """Whether the data axis spans processes."""
+        return self.data_group is not None and self.data > 1
+
+    def _world(self) -> bool:
+        """Whether the mesh spans several processes."""
+        return self.group is not None and self.data * self.model > 1
 
     def _comm_device(self) -> torch.device:
         """Where host-side values travel: the card under NCCL, else the CPU."""
         return self.device if dist.get_backend(self.group) == "nccl" else torch.device("cpu")
 
     def all_reduce_mean_(self, tensors: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
-        """Replace each tensor by its mean over the ranks, in one
+        """Replace each tensor by its mean over the data axis, in one
         ``all_reduce`` of one flat float32 buffer."""
         if not self._collective() or not tensors:
             return tensors
         flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
-        all_reduce(flat, self.group)
+        all_reduce(flat, self.data_group)
         flat.div_(self.data)
         off = 0
         with torch.no_grad():
@@ -112,8 +145,8 @@ class Mesh:
         return tensors
 
     def mean_dict(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """0-d tensors (a step's metrics) as their means over the ranks, in
-        one ``all_reduce``."""
+        """0-d tensors (a step's metrics) as their means over the data axis,
+        in one ``all_reduce``."""
         if not self._collective() or not values:
             return values
         stacked = torch.stack([v.detach().to(torch.float32) for v in values.values()])
@@ -122,13 +155,13 @@ class Mesh:
 
     def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
         """Every rank's ``tensors`` set to rank ``src``'s, in place."""
-        if self._collective():
+        if self._world():
             for t in tensors:
                 dist.broadcast(t, src, group=self.group)
 
     def broadcast_object(self, obj, src: int = 0):
         """Rank ``src``'s picklable ``obj`` on every rank."""
-        if not self._collective():
+        if not self._world():
             return obj
         box = [obj]
         dist.broadcast_object_list(box, src, group=self.group, device=self._comm_device())
@@ -136,25 +169,33 @@ class Mesh:
 
     def barrier(self) -> None:
         """Wait for every rank (an ``all_reduce`` of one element)."""
-        if self._collective():
+        if self._world():
             all_reduce(torch.zeros(1, device=self._comm_device()), self.group)
 
-    def check_replicas(self, tensors: Sequence[torch.Tensor], what: str) -> None:
-        """Raise unless ``tensors`` are equal on every rank: a float64 sum
-        and sum of squares of them all, broadcast from rank 0 and compared
-        exactly (the ranks apply the same reduced gradients to the same
-        parameters, so they must agree bit for bit)."""
-        if not self._collective():
+    def check_replicas(self, tensors: Sequence[torch.Tensor], what: str, axis: str = "data") -> None:
+        """Raise unless ``tensors`` are equal on every rank of ``axis``
+        ("data": the ranks with this model index; "model": those with this
+        data index): a float64 sum and sum of squares of them all, broadcast
+        from the axis's first rank and compared exactly (the ranks apply the
+        same reduced gradients to the same parameters, so they must agree
+        bit for bit)."""
+        if axis == "data":
+            group, size, src = self.data_group, self.data, self.model_rank
+        elif axis == "model":
+            group, size, src = self.model_group, self.model, self.data_rank * self.model
+        else:
+            raise ValueError(f"axis must be 'data' or 'model', got {axis!r}")
+        if group is None or size <= 1:
             return
         acc = torch.zeros(2, dtype=torch.float64, device=self.device)
         for t in tensors:
             d = t.detach().to(torch.float64)
             acc += torch.stack([d.sum(), d.square().sum()])
         mine = acc.clone()
-        self.broadcast_([acc])
+        dist.broadcast(acc, src, group=group)
         if not torch.equal(acc, mine):
-            raise RuntimeError(f"data-parallel ranks diverged: rank {self.rank}'s {what} checksum "
-                               f"{mine.tolist()} != rank 0's {acc.tolist()}")
+            raise RuntimeError(f"{axis}-axis ranks diverged: rank {self.rank}'s {what} checksum "
+                               f"{mine.tolist()} != rank {src}'s {acc.tolist()}")
 
 
 def local_device(device="cuda") -> torch.device:
@@ -176,14 +217,19 @@ def make_mesh(
     model_parallel: int = 1,
     device="cuda",
 ) -> Mesh:
-    """A (data, model) mesh of ``n_devices`` (default: all there are).
+    """A (data, model) mesh of ``n_devices`` (default: all there are), with
+    ``model_parallel`` devices along the model axis and the rest along data.
 
     Under an initialised process group the devices are its ranks, one a
-    process, and the mesh spans all of them; otherwise they are this
-    process's CUDA devices, or, for ``device="cpu"``, as many CPU shards as
-    there are cores. Raises as JAX's ``make_mesh`` does when there are too
-    few devices or ``model_parallel`` does not divide ``n_devices``, and
-    NotImplementedError for ``model_parallel`` > 1 (ROADMAP A.9b)."""
+    process, and the mesh spans all of them: rank r sits at data index
+    r // model_parallel and model index r % model_parallel, as JAX's
+    ``reshape(n // model_parallel, model_parallel)`` of the devices places
+    them, and every rank creates the subgroups of both axes in the same
+    order. Otherwise they are this process's CUDA devices, or, for
+    ``device="cpu"``, as many CPU shards as there are cores; a local mesh
+    keeps the data axis's devices (the first of each row of the grid).
+    Raises as JAX's ``make_mesh`` does when there are too few devices or
+    ``model_parallel`` does not divide ``n_devices``."""
     in_group = dist.is_available() and dist.is_initialized()
     if in_group:
         have = dist.get_world_size()
@@ -197,21 +243,29 @@ def make_mesh(
         raise ValueError(f"asked for {n_devices} devices, have {have}")
     if n_devices % model_parallel != 0:
         raise ValueError("n_devices must be divisible by model_parallel")
-    if model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: tensor parallelism (a mesh with a model axis "
-            "above 1) is not ported yet (ROADMAP A.9b)")
+    data = n_devices // model_parallel
     if in_group:
         if n_devices != have:
             raise ValueError(f"a mesh under a process group spans all of its {have} ranks; "
                              f"asked for {n_devices}")
-        return Mesh(data=have, rank=dist.get_rank(), devices=(local_device(device),),
-                    group=dist.group.WORLD)
+        rank = dist.get_rank()
+        groups = {}
+        if data > 1 and model_parallel > 1:
+            for m in range(model_parallel):  # the data axis of each model index
+                g = dist.new_group([d * model_parallel + m for d in range(data)])
+                groups.setdefault("data", {})[m] = g
+            for d in range(data):  # the model axis of each data index
+                g = dist.new_group([d * model_parallel + m for m in range(model_parallel)])
+                groups.setdefault("model", {})[d] = g
+        return Mesh(data=data, model=model_parallel, rank=rank, devices=(local_device(device),),
+                    group=dist.group.WORLD,
+                    data_group=groups.get("data", {}).get(rank % model_parallel),
+                    model_group=groups.get("model", {}).get(rank // model_parallel))
     if torch.device(device).type == "cuda":
-        devices = tuple(torch.device("cuda", i) for i in range(n_devices))
+        devices = tuple(torch.device("cuda", d * model_parallel) for d in range(data))
     else:
-        devices = (torch.device("cpu"),) * n_devices
-    return Mesh(data=n_devices, devices=devices)
+        devices = (torch.device("cpu"),) * data
+    return Mesh(data=data, model=model_parallel, devices=devices)
 
 
 # ---------------------------------------------------------------------------

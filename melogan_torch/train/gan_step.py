@@ -61,7 +61,9 @@ class GANTrainState:
 
     ``step`` counts group steps (one generator update each); ``ema_params``
     is the raw zero-seeded EMA stream of the generator's parameters (None
-    when ``cfg.ema_decay`` is 0); :func:`ema_weights` debiases it."""
+    when ``cfg.ema_decay`` is 0); :func:`ema_weights` debiases it.
+    ``placement``: set by ``parallel.tensor.place_state`` when the state is
+    split over a mesh's model axis (None: every tensor whole)."""
 
     generator: Generator
     critic: Critic
@@ -72,6 +74,7 @@ class GANTrainState:
     rng: torch.Generator
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    placement: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -410,7 +413,16 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
     over the ranks, and the EMA and Adam then run alike on every rank. So
     the run equals the single-device one up to reduction order. A batch
     whose rows do not divide the ranks runs whole on every rank, as JAX's
-    mesh leaves it replicated."""
+    mesh leaves it replicated.
+
+    A mesh with a model axis (``make_mesh(model_parallel=k)``) takes a state
+    split over it by ``parallel.tensor.place_state``: the layers make the
+    model axis's collectives, and everything above runs over the data axis
+    alone (the ranks with this rank's model index): the rows each rank keeps,
+    the BatchNorm statistics, the gradient and metric means. Model ranks that
+    share a data index take the same rows and draws, so their replicated
+    parameters stay equal bit for bit. A state left whole runs as under a
+    mesh of the data axis alone, each model rank a replica."""
     fm_on, fm_ed_on = fm_target is not None, fm_ed_target is not None
     shard = microbatch_constrainer(mesh)
 

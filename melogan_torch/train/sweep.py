@@ -135,7 +135,7 @@ def _block(k: int, ranks: int, rank: int) -> range:
 
 
 def _owned(k: int, mesh: Optional[Mesh]) -> range:
-    return range(k) if mesh is None else _block(k, mesh.data, mesh.rank)
+    return range(k) if mesh is None else _block(k, mesh.data, mesh.data_rank)
 
 
 def _sync_members(states, history, cfg: GANConfig, mesh: Optional[Mesh]) -> None:
@@ -146,13 +146,13 @@ def _sync_members(states, history, cfg: GANConfig, mesh: Optional[Mesh]) -> None
     if mesh is None or mesh.data <= 1:
         return
     zeros = np.zeros((4, 6), np.float32)
-    for src in range(mesh.data):
+    for src in range(mesh.data):  # each data index's block, from its first rank
         mine = None
-        if src == mesh.rank:
+        if src == mesh.data_rank:
             mine = {k: (weights.export_train_payload(states[k], 0, zeros, g_ema=states[k].ema_params),
                         history[k]) for k in _block(len(states), mesh.data, src)}
-        theirs = mesh.broadcast_object(mine, src)
-        if src != mesh.rank:
+        theirs = mesh.broadcast_object(mine, src * mesh.model)
+        if src != mesh.data_rank:
             for k, (payload, curve) in theirs.items():
                 weights.load_train_payload(states[k], payload, cfg.ema_decay)
                 history[k] = curve

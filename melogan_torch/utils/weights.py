@@ -21,7 +21,9 @@ modules carry, and ``convert_*`` is its inverse. Mapping:
 
 A tree or state dict without BatchNorm statistics maps its parameters
 alone: that is how Adam's moments, which follow their parameters' layouts,
-cross over.
+cross over. ``flax_axes`` gives the same mapping per layer: the torch
+dimension of each dimension of the flax kernel, which the tensor-parallel
+placement (``parallel/tensor.py``) reads to apply JAX's rule.
 
 ``export_train_payload`` / ``load_train_payload`` carry the port's live
 training state to and from the payload of the JAX loop's periodic
@@ -64,6 +66,20 @@ def _np(x) -> np.ndarray:
     if hasattr(x, "detach"):
         x = x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def flax_axes(module: nn.Module) -> Optional[Tuple[int, ...]]:
+    """For a Linear, Conv1d or ConvTranspose1d, the torch ``weight``
+    dimension of each dimension of the flax ``kernel`` (the transposes
+    of ``_exp_linear``, ``_exp_conv1d`` and ``_exp_convt1d``); None for any
+    other module."""
+    if isinstance(module, nn.Linear):
+        return (1, 0)  # (in, out) ← (out, in)
+    if isinstance(module, nn.Conv1d):
+        return (2, 1, 0)  # (k, in, out) ← (out, in, k)
+    if isinstance(module, nn.ConvTranspose1d):
+        return (2, 0, 1)  # (k, in, out) ← (in, out, k)
+    return None
 
 
 def _exp_linear(p: Dict, prefix: str, sd: Dict) -> None:
