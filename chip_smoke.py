@@ -209,7 +209,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     update, replicated tensors bit-equal across the ranks; each rank's launches as ``tp_counts`` predicts, added to the
     path's; the step walls, the bytes the collectives carry a group step
     and the ``tp.all_reduce`` spans' share of a traced step);
-20. prints the per-mode launch counts (``launches_by_mode``), the
+20. the last two entry points: ``decoder_tail`` at the benchmark's batch
+    of 65536 against its plain version (outside any counted path), then,
+    each with the counts set to 0 first, ``bench`` (``python -m
+    melogan_torch bench`` through ``cli.main`` in this process: every key
+    of the root ``bench.py``'s line, read with ``ast``, and
+    ``power_limit``; the rates positive, p50 ≤ p90 ≤ p99, every share of
+    the bf16 peak at most 100, this card's name and count, the dp keys null
+    on one card; all three kernels and both conv kernels' bf16 mode
+    launched) and ``fault_inject`` (``melogan_torch.fault_inject.main``,
+    one trial with seed 3: the pipeline in a child on the card, killed
+    before it completes, resumed, every ``.mid`` and ``gan_final.ckpt``
+    leaf equal to the uninterrupted run's; the reference wall and the
+    stage the kill landed in; the children's launches are their own);
+21. prints the per-mode launch counts (``launches_by_mode``), the
     script's wall, the ``kernels`` JSON line (launches summed over every
     driven path; the bf16 mode of each conv kernel as an entry of its own),
     the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -4055,6 +4068,91 @@ def drive_tp_train(torch, np, results):
     return rec, ranks
 
 
+# ---------------------------------------------------------------------------
+# The last two entry points: python -m melogan_torch bench, and kill/resume
+# fault injection
+# ---------------------------------------------------------------------------
+
+BENCH_BATCH = 65536  # bench.py's headline sampling batch
+FAULT_DIR = os.path.join(WORK_DIR, "fault")
+FAULT_SEED = 3  # the seed of the JAX package's bounded trial (tests/test_fault_inject.py)
+
+
+def jax_bench_keys():
+    """The keys of the line the root bench.py prints (its ``out`` dict), read
+    with ``ast``: nothing of JAX is imported."""
+    import ast
+
+    with open(os.path.join(ROOT, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == "out" for t in node.targets)):
+            return {k.value for k in node.value.keys}
+    raise SystemExit("bench.py has no out dict")
+
+
+def drive_bench(torch, results):
+    """``bench``: ``python -m melogan_torch bench`` through ``cli.main`` in
+    this process (its launches count), the CPU baseline in its child; the
+    line must hold every key of the JAX benchmark's and ``power_limit``,
+    positive rates, ordered percentiles, no share of peak above 100, the
+    dp keys null on one card, and this card's name and count."""
+    t0 = time.perf_counter()
+    text = run_cli(["bench"], "bench")
+    seconds = time.perf_counter() - t0
+    line = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+    missing = (jax_bench_keys() | {"power_limit"}) - set(line)
+    positive = ("value", "train_steps_per_sec", "bf16_samples_per_sec", "bf16_train_steps_per_sec",
+                "cpu_samples_per_sec")
+    bad = [k for k in positive if not (line[k] or 0) > 0]
+    bad += [k for k, v in line.items() if k.endswith("_pct_bf16_peak") and not (v is not None and 0 < v <= 100)]
+    if not line["p50_midi_gen_latency_ms"] <= line["p90_midi_gen_latency_ms"] <= line["p99_midi_gen_latency_ms"]:
+        bad.append("p50 <= p90 <= p99")
+    if line["n_devices"] != torch.cuda.device_count() or line["chip"] != torch.cuda.get_device_name(0):
+        bad.append("n_devices / chip")
+    if line["n_devices"] == 1 and any(line[k] is not None for k in
+                                      ("dp_samples_per_sec", "dp_train_steps_per_sec", "dp_sampling_scaling")):
+        bad.append("dp keys on one card")
+    if missing or bad:
+        raise SystemExit(f"bench line: missing keys {sorted(missing)}, failed checks {bad}: {line}")
+    emit({"phase": "bench", "seconds": seconds, "line": line}, results)
+    return line
+
+
+def drive_fault_inject(results):
+    """``fault_inject``: ``melogan_torch.fault_inject.main`` with one trial
+    on the card (seed 3): the uninterrupted pipeline, one killed before it
+    completes, its ``--resume``, every artifact equal. The pipelines are
+    child processes; their launches are their own. Returns the record:
+    the report, the reference run's wall and the stage the kill landed in."""
+    import contextlib
+    import shutil
+
+    from melogan_torch import fault_inject
+
+    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+    os.makedirs(FAULT_DIR)
+    log = os.path.join(WORK_DIR, "fault_inject.log")
+    t0 = time.perf_counter()
+    try:
+        with open(log, "w") as f, contextlib.redirect_stdout(f):
+            reports = fault_inject.main(FAULT_DIR, trials=1, seed=FAULT_SEED, device="cuda")
+    finally:
+        with open(log) as f:
+            printed = f.read()
+        print(printed, end="", flush=True)
+    seconds = time.perf_counter() - t0
+    (report,) = reports
+    if not report["ok"] or report["completed_before_kill"]:
+        raise SystemExit(f"fault_inject: the pipeline was not killed before it completed: {report}")
+    rec = {"phase": "fault_inject", "seconds": seconds, "report": report,
+           "reference_wall_s": float(printed.split("[fault] reference wall ")[1].split("s,")[0]),
+           "killed_in": printed.split("killed in ")[1].split()[0]}
+    emit(rec, results)
+    return rec
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -4286,18 +4384,27 @@ def main() -> int:
         raise SystemExit(f"tp_train launched the bf16 mode: {bf16_by_path['tp_train']}")
     tp_training = {k: tp_training[k] + tp_rank_launches[k] for k in wrappers}
     emit({"phase": "main_path_launches", "path": "tp_train_with_ranks", **tp_training}, results)
+    # the last two entry points: the benchmark (its headline batch's tail held against the plain
+    # version first, outside the counted window), then a pipeline killed and resumed
+    check_decoder(torch, F, ops, BENCH_BATCH, 64, gen, results)
+    bench_line, benching = drive("bench", lambda: drive_bench(torch, results), all3)
+    if not all(bf16_by_path["bench"].values()):
+        raise SystemExit(f"bench launched no bf16 mode of a conv kernel: {bf16_by_path['bench']}")
+    fault, fault_injecting = drive("fault_inject", lambda: drive_fault_inject(results), ())
+    if fault_injecting != none or any(bf16_by_path["fault_inject"].values()):
+        raise SystemExit(f"fault_inject launched in this process: {fault_injecting}")
     path_names = ("sampling", "training", "resume", "serve_ckpt", "data", "vae_train", "vae_resume", "encode",
                   "gan_conditioning", "ed_train", "ed_resume", "judge", "gan_with_ed", "serve_reload",
                   "sweep", "sweep_resume", "sweep_halving", "sampling_fast", "training_bf16", "spectral",
                   "cli_pipeline", "cli_resume", "cli_commands", "cli_module",
                   "text_mlp", "roberta", "text_route", "cli_text_eval", "camera_models", "camera_route",
-                  "dp_train", "dp_sample", "dp_cli", "tp_train")
+                  "dp_train", "dp_sample", "dp_cli", "tp_train", "bench", "fault_inject")
     paths = (sampling, training, resuming, serving, loading, vae_training, vae_resuming, encoding,
              conditioning, ed_training, ed_resuming, judging, gan_with_ed, reloading,
              sweeping, sweep_resuming, sweep_halving, sampling_fast, training_bf16, spectral,
              cli_pipeline, cli_resume, cli_commands, cli_module,
              text_mlp_counts, roberta_counts, text_route, cli_text_eval, camera_models, camera_route,
-             dp_training, dp_sampling, dp_cli, tp_training)
+             dp_training, dp_sampling, dp_cli, tp_training, benching, fault_injecting)
     launches = {k: sum(p[k] for p in paths) for k in wrappers}
     launches_bf16 = {k: sum(bf16_by_path[p][k] for p in path_names) for k in moded}
 
@@ -4390,6 +4497,7 @@ def main() -> int:
           "tp_plain_step_median_ms": tp["plain_step_median_ms"], "tp2_step_median_ms": tp["tp2_step_median_ms"],
           "tp2_allreduce_share": tp["tp2_allreduce_share"], "tp_collective_mb": tp["collective_mb_per_group_step"],
           "tp_launches": tp["launches"],
+          "bench": bench_line, "fault_inject": fault,
           "launches_by_path": dict(zip(path_names, paths)), "launches_bf16_by_path": bf16_by_path},
          results)
     emit({"phase": "script", "wall_s": time.perf_counter() - t_script}, results)

@@ -32,6 +32,7 @@ subcommands of one program, run with ``python -m melogan_torch`` (or the
   profile           time (and trace) the sampling hot path
   text-eval         measured accuracy of the offline text-emotion backends
   doctor            bounded environment diagnostic
+  bench             benchmark harness: one JSON line of end-to-end readings
 
 Every subcommand that touches the device runs on the GPU unless the
 top-level ``--device cpu`` is given (``python -m melogan_torch --device cpu
@@ -43,9 +44,9 @@ devices): ``train-ae``, ``train-ed``, ``train-gan``, ``sweep`` and
 each of which runs the subcommand again inside the group; under a group that
 already exists (``torchrun``) the subcommand joins it and starts nothing.
 ``sample`` and ``serve`` split their batches over N local devices in this
-process. The JAX CLI's ``precompile`` (it warms a JAX compile cache)
-and ``bench`` (it runs the JAX package's benchmark) have no counterpart
-here.
+process. ``bench`` runs the port's benchmark (``melogan_torch/bench.py``)
+on the ``--device``. The JAX CLI's ``precompile`` (it warms a JAX compile
+cache) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -1186,6 +1187,14 @@ def cmd_profile(args):
     return out
 
 
+def cmd_bench(args):
+    """The port's benchmark (``melogan_torch/bench.py``) on ``--device``:
+    one JSON line, its CPU baseline from a child process."""
+    from melogan_torch import bench
+
+    bench.main([], device=args.device)
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="python -m melogan_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1405,6 +1414,9 @@ def build_parser():
     s = sub.add_parser("analyze-midi", help="per-file MIDI statistics")
     s.add_argument("files", nargs="+")
     s.set_defaults(fn=cmd_analyze_midi)
+
+    s = sub.add_parser("bench", help="benchmark harness")
+    s.set_defaults(fn=cmd_bench)
 
     s = sub.add_parser("profile", help="time (and trace) the sampling hot path")
     s.add_argument("--steps", type=int, default=20)

@@ -66,6 +66,12 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
+def _to_host(blocks) -> np.ndarray:
+    """The blocks of ``Sampler._forward_blocks`` joined on the host."""
+    outs = [_to_numpy(o) for o in blocks]
+    return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+
 class Sampler:
     """Holds the generator and feature encoder on one device.
 
@@ -188,15 +194,14 @@ class Sampler:
             notes, _ = gen(noise, latent, emb)
         return notes
 
-    def _sample(self, gen, fe, replicas, features: torch.Tensor, noise: torch.Tensor) -> np.ndarray:
-        """Notes of (features, noise) on the first device, or split over
-        the mesh's replicas."""
+    def _forward_blocks(self, gen, fe, replicas, features: torch.Tensor, noise: torch.Tensor):
+        """Notes of (features, noise) left on the devices: one tensor on the
+        first device, or one a non-empty block of the mesh's replicas."""
         if replicas is None:
-            return _to_numpy(self._forward(gen, fe, features, noise))
+            return [self._forward(gen, fe, features, noise)]
         blocks = zip(torch.tensor_split(features, len(replicas)), torch.tensor_split(noise, len(replicas)))
-        outs = [self._forward(g, e, f.to(dev), z.to(dev))
+        return [self._forward(g, e, f.to(dev), z.to(dev))
                 for (dev, g, e), (f, z) in zip(replicas, blocks) if f.shape[0]]  # B < devices: empty blocks
-        return np.concatenate([_to_numpy(o) for o in outs])
 
     def sample_from(self, features, noise) -> np.ndarray:
         """Deterministic core: (B, 6) jittered features and (B, noise_dim)
@@ -205,7 +210,7 @@ class Sampler:
         z = torch.as_tensor(np.asarray(noise, np.float32), device=self.device)
         with self._var_lock:
             gen, fe, replicas = self._gen, self._fe, self._replicas
-        return self._sample(gen, fe, replicas, f, z)
+        return _to_host(self._forward_blocks(gen, fe, replicas, f, z))
 
     def sample_notes(self, emotions, seed: int = 0) -> np.ndarray:
         """Generate (B, max_notes, 4) note arrays for a list of emotion names."""
@@ -215,14 +220,21 @@ class Sampler:
                 f"unknown emotion(s) {unknown}; valid emotions are {list(EMOTIONS)}"
             )
         idx = torch.as_tensor([EMOTIONS.index(e) for e in emotions], device=self.device)
+        return _to_host(self._step(idx, seed))
+
+    def _step(self, idx: torch.Tensor, seed: int):
+        """The device work of ``sample_notes``: jitter and noise drawn for the
+        emotion rows ``idx`` (a device tensor of ``EMOTIONS`` indices) from a
+        generator seeded with ``seed``, then the forward. The notes stay on
+        the devices (``_forward_blocks``); nothing waits for them."""
         with self._var_lock:  # pair the reads (see swap_variables)
             gen, fe, base_all, replicas = self._gen, self._fe, self._base_features, self._replicas
         rng = torch.Generator(device=self.device).manual_seed(seed)
         base = base_all[idx]
         features = base + FEATURE_JITTER_STD * torch.randn(
             base.shape, generator=rng, device=self.device)
-        noise = torch.randn((len(emotions), self.cfg.noise_dim), generator=rng, device=self.device)
-        return self._sample(gen, fe, replicas, features, noise)
+        noise = torch.randn((idx.shape[0], self.cfg.noise_dim), generator=rng, device=self.device)
+        return self._forward_blocks(gen, fe, replicas, features, noise)
 
     def swap_variables(self, gen_variables, fe_variables, emotion_features=None) -> None:
         """Atomically replace the generator + feature-encoder weights

@@ -383,6 +383,38 @@ def _apply(opt: torch.optim.Adam, params: List[torch.Tensor], loss: torch.Tensor
     opt.step()
 
 
+# more than the autograd nodes of one step's gradient penalties' double backwards
+PENALTY_NODES_MARGIN = 10_000
+
+
+def number_forward_above_backward(dev: torch.device) -> None:
+    """Before a step's critic updates on the card: make the calling
+    thread's next autograd node number exceed, by ``PENALTY_NODES_MARGIN``,
+    every number the card's autograd thread has given.
+
+    Autograd adds a tensor's gradient contributions in the order its ready
+    queue runs their nodes, highest sequence number first, and each thread
+    numbers the nodes it makes. On the card a backward runs on the device's
+    own thread, so the penalty's double-backward nodes (made there, by
+    ``create_graph``) and the forward's (made here) are numbered by two
+    counters, whose values depend on what the process did before. Where
+    they overlapped, in a process's first critic updates, the conv weights'
+    gradients were added in another order than later on (the last bits
+    differed), so a run resumed in a fresh process was not the run done in
+    one go (ROADMAP C.10). With this, every update's double-backward nodes
+    sort below its forward nodes, in any process. It costs one tiny
+    backward on the card (about 0.2 ms of host time on the H100's host), so
+    it runs once a step, not once an update. On the CPU one thread numbers
+    every node, and nothing is done."""
+    if dev.type != "cuda":
+        return
+    t = torch.zeros((), device=dev, requires_grad=True)
+    (g,) = torch.autograd.grad(t * t, t, create_graph=True)  # a node numbered on the card's thread
+    x = torch.zeros((), requires_grad=True).view(())  # one numbered on this one
+    for _ in range(g.grad_fn._sequence_nr() + PENALTY_NODES_MARGIN - x.grad_fn._sequence_nr()):
+        x = x.view(())
+
+
 class TrainStepFns(NamedTuple):
     """group(state, batches, draws=None) → (state, metrics): ``critic_iters``
     critic updates and one G+FE update, each batch field stacked to
@@ -535,6 +567,7 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
         return adv.detach(), emo.detach(), fm.detach()
 
     def critic_updates(state, batches, draws):
+        number_forward_above_backward(state.device)
         outs = [critic_update(state, tuple(f[k] for f in batches), None if draws is None else draws[k])
                 for k in range(batches[0].shape[0])]
         return [torch.stack(col) for col in zip(*outs)]

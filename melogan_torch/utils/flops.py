@@ -14,8 +14,14 @@ bounds divide by: IEEE f32 outside the tensor cores; the conv kernels'
 3xTF32 mode, three TF32 products per step, a third of the dense TF32 rate;
 and their one-pass bf16 mode, one TF32 product of bf16-rounded operands per
 step, the dense TF32 rate (``kernel_peak_flops``).
+
+``sampling_flops_per_sample`` and ``chip_peak_bf16_tflops`` are what the
+benchmark (``melogan_torch/bench.py``) turns its rates into TFLOP/s and a
+percent of the card's dense bf16 peak with, as the JAX benchmark does.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 from melogan_torch.config import AEConfig, GANConfig
 
@@ -61,6 +67,11 @@ def generator_flops(cfg: GANConfig) -> int:
     total += _convt1d(2 * reduced, 128, 64, 5)
     total += _convt1d(4 * reduced, 64, cfg.note_dim, 5)
     return total
+
+
+def sampling_flops_per_sample(cfg: GANConfig) -> int:
+    """The sampling path: feature encoder plus generator forward."""
+    return feature_encoder_flops(cfg) + generator_flops(cfg)
 
 
 def critic_flops(cfg: GANConfig) -> int:
@@ -152,3 +163,21 @@ def vae_step_flops(cfg: AEConfig) -> int:
     conv's (its input is data), each as many FLOPs as its forward."""
     first = _conv1d((cfg.max_notes - 1) // 2 + 1, 4, 32, 5)
     return cfg.batch_size * (3 * vae_flops(cfg) - first)
+
+
+# Dense bf16 tensor-core peaks, TFLOP/s, by the words of a CUDA device name
+# (NVIDIA data sheets; the H100 SXM, whose name reads "HBM3", at 700 W).
+_CHIP_PEAKS_BF16 = (
+    (("h100", "hbm3"), 989.4),
+    (("h100", "sxm"), 989.4),
+)
+
+
+def chip_peak_bf16_tflops(device_name: str) -> Optional[float]:
+    """The card's dense bf16 peak for ``torch.cuda.get_device_name()``, or
+    None for a name the table does not hold."""
+    name = device_name.lower()
+    for words, peak in _CHIP_PEAKS_BF16:
+        if all(w in name for w in words):
+            return peak
+    return None

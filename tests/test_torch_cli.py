@@ -1,7 +1,7 @@
 """The port's command line (``melogan_torch/cli.py``) against the JAX CLI
 (``melogan_tpu/cli.py``) on the same inputs, on the CPU.
 
-- the parsers: every JAX subcommand but two has the same option strings,
+- the parsers: every JAX subcommand but one has the same option strings,
   dests, defaults, choices and actions; the port adds only the top-level
   ``--device``;
 - the data subcommands write the same CSV, MIDI and manifest bytes and the
@@ -36,7 +36,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # JAX subcommands the port does not have, and why
 EXCLUDED = {
     "precompile": "it warms the JAX compile cache; the port compiles nothing ahead",
-    "bench": "it runs the JAX package's root bench.py; the port's benchmark is not defined yet",
 }
 
 TINY_AE = "latent_dim: 4\nhidden_dim: 32\nbatch_size: 8\nrecon_save_count: 0\n"
@@ -104,7 +103,7 @@ def test_host_only_fns_exist():
     assert {"cmd_diagnose", "cmd_roll_to_midi"} <= pcli._HOST_ONLY_FNS
     device_fns = {"cmd_train_ae", "cmd_encode", "cmd_train_ed", "cmd_eval_ed", "cmd_train_gan",
                   "cmd_sweep", "cmd_sample", "cmd_eval_gen", "cmd_pipeline", "cmd_serve",
-                  "cmd_profile", "cmd_text_eval"}
+                  "cmd_profile", "cmd_text_eval", "cmd_bench"}
     assert not device_fns & pcli._HOST_ONLY_FNS
     handlers = {a.get_default("fn").__name__ for a in _choices(pcli.build_parser()).values()}
     assert handlers == pcli._HOST_ONLY_FNS | device_fns

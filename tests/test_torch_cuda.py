@@ -22,6 +22,10 @@ and a product of bf16 values is exact in f32: only the summation order
 differs, so the same 1e-4 holds. Its results must differ from the f32
 mode's, and the f32 mode's must not move after bf16 launches (bit for bit).
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -655,3 +659,39 @@ def test_sweep_halving_on_card(cuda, rng, tmp_path):
     (winner,) = report["results"]
     assert [row["epoch"] for row in winner["curve"]] == [1, 2, 3]
     assert all(np.isfinite(v) for row in winner["curve"] for v in row.values())
+
+
+_FIRST_AND_LATER_STEP = """
+import numpy as np, torch
+from melogan_torch.config import EDConfig, GANConfig
+from melogan_torch.train import gan_step
+cfg = GANConfig(noise_dim=16, latent_dim=4, gen_hidden=32, batch_size=4, critic_iters=2)
+ed = EDConfig(notes_hidden=32, mlp_hidden=(32, 16))
+def run():
+    state = gan_step.init_state(cfg, gan_step.build_models(cfg, ed), seed=42, device="cuda")
+    rng = np.random.default_rng(0)
+    k, b = cfg.critic_iters, cfg.batch_size
+    batch = tuple(torch.as_tensor(a, device="cuda") for a in (
+        rng.normal(size=(k, b, cfg.max_notes, 4)).astype(np.float32), rng.integers(0, 4, size=(k, b)),
+        rng.normal(size=(k, b, cfg.latent_dim)).astype(np.float32), rng.normal(size=(k, b, 6)).astype(np.float32)))
+    gan_step.make_train_steps(cfg).group(state, batch)
+    return [p.detach().cpu() for m in (state.critic, state.generator, state.feature_encoder) for p in m.parameters()]
+first, later = run(), run()
+print("differ", [i for i, (a, b) in enumerate(zip(first, later)) if not torch.equal(a, b)])
+"""
+
+
+def test_first_group_step_of_a_process_is_a_later_ones(cuda):
+    """ROADMAP C.10: in a fresh process, the first group step from a state
+    and batches equals the same step taken later in that process, bit for
+    bit. Before ``gan_step.number_forward_above_backward``, the first critic
+    updates added the conv weights' gradient contributions in another order
+    (the autograd node counters of the card's thread and the caller's
+    overlapped), so a run resumed in a fresh process was not the run done in
+    one go."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", _FIRST_AND_LATER_STEP], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "differ []", r.stdout

@@ -243,7 +243,8 @@ def test_port_imports_nothing_of_jax():
         "        'melogan_torch.imaging', 'melogan_torch.imaging.jpeg', 'melogan_torch.imaging.draw',\n"
         "        'melogan_torch.imaging.y4m', 'melogan_torch.imaging.native', 'melogan_torch.models.caffe',\n"
         "        'melogan_torch.models.ssd', 'melogan_torch.models.xception', 'melogan_torch.camera',\n"
-        "        'melogan_torch.serving.video', 'melogan_torch.parallel.tensor'}\n"
+        "        'melogan_torch.serving.video', 'melogan_torch.parallel.tensor', 'melogan_torch.bench',\n"
+        "        'melogan_torch.fault_inject'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "assert len(mods) >= 50, mods\n"
         "assert not bad, bad\n"
