@@ -23,8 +23,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    of 4096 (the decoder-tail kernel), max_notes 1024 (the same kernel at
    M = 128), a config whose max_notes is not a multiple of 8 (the per-layer
    convt kernel), ``generate_midi``, and the HTTP server answering four
-   ``POST /generate`` and one ``GET /healthz``; reads the counts, which must
-   be > 0, and checks the notes of each config against the port's CPU path;
+   ``POST /generate`` (one native MIDI encode each) and one ``GET
+   /healthz``; reads the counts, which must be > 0, and checks the notes of
+   each config against the port's CPU path; then, outside the counts,
+   ``midi_native``: the port's native MIDI encoder built with g++, its
+   bytes equal to the object-model writer's for the card sampler's output
+   (64 rows an emotion) and 200 seeded 512-note arrays, a note before time
+   0 refused with no file left (ROADMAP C.3), and one 512-note piece timed
+   both ways; and ``generate_split``: a pooled server's ``/generate`` round
+   trip split into the pool's take, the encode and the response;
 5. drives the training path with the counts set to 0 again:
    ``train(GANConfig(save_freq=1), EDConfig(), ...)`` at full width on a
    seeded corpus of 384 rows (2 groups and a 2-batch tail per epoch, batch
@@ -81,7 +88,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     λ_fm = 10 for 1 epoch against the ED that ``ed_train`` wrote, then
     ``judge_generated`` of its ``gan_final.ckpt``) and ``serve_reload``
     (``create_server`` with the sample pool and ``watch_ckpt``: ``POST
-    /generate`` from the pool, ``POST /reload`` of ``gan_with_ed``'s
+    /generate`` from the pool (one native MIDI encode each), ``POST /reload`` of ``gan_with_ed``'s
     checkpoint serving its weights bit for bit, ``/metrics``, and the
     watcher swapping in a replaced file); before them, ``kernels_ed``
     holds ``conv1d`` at the ED's four layers and the three input-gradient
@@ -217,7 +224,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ``power_limit``; the rates positive, p50 ≤ p90 ≤ p99, every share of
     the bf16 peak at most 100, this card's name and count, the dp keys null
     on one card; all three kernels and both conv kernels' bf16 mode
-    launched) and ``fault_inject`` (``melogan_torch.fault_inject.main``,
+    launched; one native MIDI encode a direct or pooled request) and ``fault_inject`` (``melogan_torch.fault_inject.main``,
     one trial with seed 3: the pipeline in a child on the card, killed
     before it completes, resumed, every ``.mid`` and ``gan_final.ckpt``
     leaf equal to the uninterrupted run's; the reference wall and the
@@ -524,6 +531,7 @@ def drive_main_path(torch, results):
 
     from melogan_torch import EMOTIONS
     from melogan_torch.config import GANConfig
+    from melogan_torch.midi import native
     from melogan_torch.sampling import Sampler
     from melogan_torch.serving.app import create_server
 
@@ -567,15 +575,18 @@ def drive_main_path(torch, results):
     thread.start()
     try:
         base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        native.encodes = 0
         for emotion in EMOTIONS:
             status, body = http(base, "/generate", json.dumps({"emotion": emotion}).encode())
             if status != 200 or body[:4] != b"MThd":
                 raise SystemExit(f"/generate {emotion}: status {status}")
+        if native.encodes != len(EMOTIONS):
+            raise SystemExit(f"{len(EMOTIONS)} /generate requests, {native.encodes} native MIDI encodes")
         status, body = http(base, "/healthz")
         health = json.loads(body)
         if status != 200 or health["device"]["platform"] != "gpu":
             raise SystemExit(f"/healthz: {status} {health}")
-        emit({"phase": "http", "generate": 4, "healthz": health}, results)
+        emit({"phase": "http", "generate": 4, "native_encodes": native.encodes, "healthz": health}, results)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -602,6 +613,140 @@ def check_against_cpu(torch, samplers, results):
         emit({"phase": "gpu_vs_cpu", "max_notes": s.cfg.max_notes,
               "fused": s.generator.decoder.fuses(), "max_abs_err": err, "max_rel_err": rel},
              results)
+
+
+MIDI_BATCH = 64  # the card sampler's rows an emotion, each encoded both ways
+MIDI_RANDOM = 200  # seeded random 512-note arrays, each encoded both ways
+MIDI_TIMED = 200  # encodes of one 512-note piece timed a path
+
+
+def check_midi_native(np, sampler, results):
+    """``midi_native``: the port's native MIDI encoder (``midi/native.py``
+    over ``midi/midi_codec.cpp``), built with g++ (the card's machine has it:
+    nvcc needs it). ``render_to_bytes`` must go through it and give the
+    object-model writer's bytes (``to_bytes(allow_native=False)``) for the
+    card sampler's ``GANConfig()`` output, ``MIDI_BATCH`` rows an emotion at
+    its bpm and scale, and for ``MIDI_RANDOM`` seeded random 512-note
+    arrays; a note before time 0 must raise ValueError and leave no file
+    (ROADMAP C.3); one 512-note piece is timed both ways, the median of
+    ``MIDI_TIMED`` each. Host code: nothing of it runs on the card."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.constants import EMOTION_BPM
+    from melogan_torch.midi import codec, native
+    from melogan_torch.midi.midifile import MidiInstrument, MidiNote, MidiSong
+    from melogan_torch.sampling import emotion_scale
+
+    t0 = time.perf_counter()
+    try:
+        lib = native.build()
+    except RuntimeError as e:
+        raise SystemExit(f"native MIDI: {e}")
+    if native.get_lib() is None:
+        raise SystemExit(f"native MIDI: {lib} does not load: {native.load_error()}")
+    build_s = time.perf_counter() - t0
+
+    def python_bytes(notes, emotion):
+        return codec.piano_roll_to_song(notes, EMOTION_BPM[emotion], emotion_scale(emotion)).to_bytes(
+            allow_native=False)
+
+    def native_bytes(notes, emotion):
+        return codec.render_to_bytes(notes, bpm=EMOTION_BPM[emotion], scale=emotion_scale(emotion))
+
+    rng = np.random.default_rng(0)
+    cases = [(row, e) for i, e in enumerate(EMOTIONS) for row in sampler.sample_notes([e] * MIDI_BATCH, seed=50 + i)]
+    cases += [(rng.normal(0, 0.8, (512, 4)).astype(np.float32), EMOTIONS[k % 4]) for k in range(MIDI_RANDOM)]
+    native.encodes = 0
+    differ = [k for k, (notes, e) in enumerate(cases) if native_bytes(notes, e) != python_bytes(notes, e)]
+    if differ or native.encodes != len(cases):
+        raise SystemExit(f"native MIDI: {len(differ)} of {len(cases)} songs differ from the object-model "
+                         f"writer's bytes (first {differ[:5]}); {native.encodes} native encodes")
+
+    song = MidiSong(initial_tempo=120.0)
+    song.instruments.append(MidiInstrument(notes=[MidiNote(100, 60, -1.0, 0.5), MidiNote(90, 62, 0.25, 1.0)]))
+    path = os.path.join(WORK_DIR, "before_time_zero.mid")
+    if os.path.exists(path):
+        os.remove(path)
+    try:
+        song.write(path)
+        raise SystemExit("native MIDI: a note before time 0 was encoded")
+    except ValueError as e:
+        refusal = str(e)
+    if os.path.exists(path):
+        raise SystemExit("native MIDI: a refused song left a file")
+
+    piece, emotion = cases[-1]
+
+    def median_ms(fn):
+        walls = []
+        for _ in range(MIDI_TIMED):
+            t = time.perf_counter()
+            fn(piece, emotion)
+            walls.append(time.perf_counter() - t)
+        return float(np.median(walls)) * 1e3
+
+    rec = {"phase": "midi_native", "library": os.path.relpath(lib, ROOT), "build_s": build_s,
+           "songs_equal": len(cases), "sampler_rows": MIDI_BATCH * len(EMOTIONS), "refusal": refusal,
+           "piece_notes": 512, "bytes": len(native_bytes(piece, emotion)),
+           "native_ms": median_ms(native_bytes), "python_ms": median_ms(python_bytes)}
+    rec["speedup"] = rec["python_ms"] / rec["native_ms"]
+    emit(rec, results)
+    return rec
+
+
+SPLIT_REQUESTS = 60  # pooled /generate requests, the four emotions in turn
+
+
+def split_generate(np, results):
+    """``generate_split``: where a pooled ``POST /generate`` spends its time,
+    outside the counts. A ``create_server`` with the sample pool (its refill
+    ladder not warmed, so no refill runs beside the requests) is started;
+    this process first takes ``SPLIT_REQUESTS`` samples from its pool and
+    encodes each with ``render_to_bytes``, as the handler does, while the
+    server is idle (a server thread still closing the previous request
+    would share the interpreter lock with the timed work); then the server
+    answers ``SPLIT_REQUESTS`` requests. The medians of the take, the
+    encode and the client's round trip; the response (the stdlib server's
+    thread, HTTP parsing, the handler's metrics, the socket) is the round
+    trip less the other two."""
+    from melogan_torch import EMOTIONS
+    from melogan_torch.constants import EMOTION_BPM
+    from melogan_torch.midi import codec
+    from melogan_torch.sampling import emotion_scale
+    from melogan_torch.serving.app import create_server
+
+    httpd, state = create_server("127.0.0.1", 0, workdir=os.path.join(WORK_DIR, "no_checkpoint"),
+                                 device="cuda", sample_pool=True, pool_warm=False)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    emotions = [EMOTIONS[i % len(EMOTIONS)] for i in range(SPLIT_REQUESTS)]
+    walls = {"take": [], "encode": [], "round_trip": []}
+    try:
+        for emotion in emotions:
+            t0 = time.perf_counter()
+            notes = state.pool.take(emotion)
+            t1 = time.perf_counter()
+            codec.render_to_bytes(notes, bpm=EMOTION_BPM[emotion], scale=emotion_scale(emotion))
+            walls["take"].append((t1 - t0) * 1e3)
+            walls["encode"].append((time.perf_counter() - t1) * 1e3)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        for emotion in emotions:
+            t0 = time.perf_counter()
+            status, body = http(base, "/generate", json.dumps({"emotion": emotion}).encode())
+            walls["round_trip"].append((time.perf_counter() - t0) * 1e3)
+            if status != 200 or body[:4] != b"MThd":
+                raise SystemExit(f"generate_split: /generate {emotion}: status {status}")
+        stats = state.pool.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        state.close()
+    rec = {"phase": "generate_split", "requests": SPLIT_REQUESTS, "pool": stats,
+           **{f"{k}_median_ms": float(np.median(v)) for k, v in walls.items()},
+           "round_trip_p90_ms": float(np.percentile(walls["round_trip"], 90))}
+    rec["response_median_ms"] = rec["round_trip_median_ms"] - rec["take_median_ms"] - rec["encode_median_ms"]
+    emit(rec, results)
+    return rec
 
 
 def make_corpus(np, n, seed=0):
@@ -1563,6 +1708,7 @@ def drive_serve_reload(torch, np, gan, trained, results):
     import shutil
 
     from melogan_torch import EMOTIONS
+    from melogan_torch.midi import native
     from melogan_torch.sampling import Sampler
     from melogan_torch.serving.app import create_server
 
@@ -1589,6 +1735,7 @@ def drive_serve_reload(torch, np, gan, trained, results):
         rec = {"phase": "serve_reload", "startup_s": startup}
         try:
             base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            native.encodes = 0
             for emotion in EMOTIONS:
                 status, body = http(base, "/generate", json.dumps({"emotion": emotion}).encode())
                 if status != 200 or body[:4] != b"MThd":
@@ -1608,6 +1755,10 @@ def drive_serve_reload(torch, np, gan, trained, results):
             status, body = http(base, "/generate", json.dumps({"emotion": "sad"}).encode())
             if status != 200 or body[:4] != b"MThd":
                 raise SystemExit(f"/generate after /reload: status {status}")
+            if native.encodes != len(EMOTIONS) + 1:
+                raise SystemExit(f"serve_reload: {len(EMOTIONS) + 1} pooled /generate requests, "
+                                 f"{native.encodes} native MIDI encodes")
+            rec["native_encodes"] = native.encodes
             metrics = http(base, "/metrics")[1].decode()
             if "melogan_reloads_total 1" not in metrics:
                 raise SystemExit("serve_reload: /metrics does not count the reload")
@@ -4097,10 +4248,18 @@ def drive_bench(torch, results):
     this process (its launches count), the CPU baseline in its child; the
     line must hold every key of the JAX benchmark's and ``power_limit``,
     positive rates, ordered percentiles, no share of peak above 100, the
-    dp keys null on one card, and this card's name and count."""
+    dp keys null on one card, and this card's name and count; each of its
+    direct and pooled requests one native MIDI encode."""
+    from melogan_torch import bench
+    from melogan_torch.midi import native
+
+    native.encodes = 0
     t0 = time.perf_counter()
     text = run_cli(["bench"], "bench")
     seconds = time.perf_counter() - t0
+    requests = bench.DIRECT_REQUESTS + bench.POOLED_REQUESTS
+    if native.encodes != requests:
+        raise SystemExit(f"bench: {requests} direct and pooled requests, {native.encodes} native MIDI encodes")
     line = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
     missing = (jax_bench_keys() | {"power_limit"}) - set(line)
     positive = ("value", "train_steps_per_sec", "bf16_samples_per_sec", "bf16_train_steps_per_sec",
@@ -4116,7 +4275,7 @@ def drive_bench(torch, results):
         bad.append("dp keys on one card")
     if missing or bad:
         raise SystemExit(f"bench line: missing keys {sorted(missing)}, failed checks {bad}: {line}")
-    emit({"phase": "bench", "seconds": seconds, "line": line}, results)
+    emit({"phase": "bench", "seconds": seconds, "native_encodes": native.encodes, "line": line}, results)
     return line
 
 
@@ -4234,6 +4393,8 @@ def main() -> int:
     samplers, sampling = drive("sampling", lambda: drive_main_path(torch, results),
                                ("decoder_tail", "convt1d"))
     check_against_cpu(torch, samplers, results)
+    midi = check_midi_native(np, samplers[0], results)
+    generate_split = split_generate(np, results)
     trained, training = drive("training", lambda: drive_training_path(torch, np, results),
                               ("conv1d", "convt1d", "decoder_tail"))
     check_checkpoint_files(np, trained, results)
@@ -4497,7 +4658,7 @@ def main() -> int:
           "tp_plain_step_median_ms": tp["plain_step_median_ms"], "tp2_step_median_ms": tp["tp2_step_median_ms"],
           "tp2_allreduce_share": tp["tp2_allreduce_share"], "tp_collective_mb": tp["collective_mb_per_group_step"],
           "tp_launches": tp["launches"],
-          "bench": bench_line, "fault_inject": fault,
+          "midi_native": midi, "generate_split": generate_split, "bench": bench_line, "fault_inject": fault,
           "launches_by_path": dict(zip(path_names, paths)), "launches_bf16_by_path": bf16_by_path},
          results)
     emit({"phase": "script", "wall_s": time.perf_counter() - t_script}, results)

@@ -10,7 +10,8 @@ The port's counterpart of the root ``bench.py``, reading for reading:
   and every batch gathered there, as ``gan_loop`` gathers it;
 - the p50 of one direct ``sample_notes`` call at batch 1 plus its MIDI
   bytes, and the p50/p90/p99 of the serving path (a ``SamplePool`` take
-  plus its MIDI bytes);
+  plus its MIDI bytes), the bytes from ``render_to_bytes`` (the native
+  encoder);
 - the fast-math sampling and bf16 training variants;
 - on more than one card, sampling over a local mesh and training on one
   rank a card (``parallel.launch.spawn``);
@@ -44,6 +45,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU_BASELINE_TIMEOUT = 2100  # seconds
+DIRECT_REQUESTS = 20  # direct /generate-sized calls, for their p50
+POOLED_REQUESTS = 100  # pooled takes, for their p50/p90/p99
 
 
 def _sync(devices) -> None:
@@ -141,7 +144,7 @@ def _dp_train_rank(mesh, kwargs: dict):
     return _bench_train(mesh=mesh, device=mesh.device, **kwargs)[0][0]
 
 
-def _bench_latency(sampler, n: int = 20) -> float:
+def _bench_latency(sampler, n: int = DIRECT_REQUESTS) -> float:
     """The direct path, one device round trip a request (batch 1): the
     median seconds of ``sample_notes`` plus the MIDI bytes."""
     from melogan_torch.constants import EMOTION_BPM
@@ -158,7 +161,7 @@ def _bench_latency(sampler, n: int = 20) -> float:
     return lat[len(lat) // 2]
 
 
-def _bench_latency_pooled(sampler, n: int = 100) -> dict:
+def _bench_latency_pooled(sampler, n: int = POOLED_REQUESTS) -> dict:
     """The serving path: ``/generate`` pops a pre-generated sample from the
     batched prefetch pool, with no device call on the request path. p50,
     p90 and p99 seconds of a take plus its MIDI bytes; the pool is closed

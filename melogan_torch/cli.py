@@ -503,11 +503,11 @@ def cmd_doctor(args):
     subprocess bounded by ``MELOGAN_DOCTOR_PROBE_SECS`` (default 240): a
     diagnostic tool hanging on the very condition it diagnoses would be
     useless, and the doctor itself never initializes CUDA. Exits nonzero if
-    any check FAILs (WARNs don't fail the run). Of the JAX doctor's native
-    codec checks, ``native-jpeg`` is kept (the port builds the same
-    ``native/jpeg_codec.cpp`` with g++ into ``build/melogan_torch/``);
-    ``native-midi`` is left out, as the port writes MIDI in Python (ROADMAP
-    A, "not to be ported"). The text backend is checked by its
+    any check FAILs (WARNs don't fail the run). Both of the JAX doctor's
+    native codec checks are kept, each built with g++ into
+    ``build/melogan_torch/`` at first use: ``native-midi`` (the port's own
+    ``midi/midi_codec.cpp``, which refuses a note before time 0) and
+    ``native-jpeg`` (``native/jpeg_codec.cpp``). The text backend is checked by its
     configuration (loading it would touch the device): its name and, for
     ``torch-roberta``, that the checkpoint directory holds a config and
     weights."""
@@ -607,14 +607,17 @@ def cmd_doctor(args):
           else f"none under {golden or '$MELOGAN_REFERENCE_DIR (unset)'} "
                "(the quality gate's bands are built in)")
 
-    # the native JPEG encoder (g++ at first use; the Python one serves without it)
-    from melogan_torch.imaging.native import LIB_PATH, get_lib, load_error
+    # the native MIDI and JPEG encoders (g++ at first use; the Python ones
+    # serve without them)
+    from melogan_torch.imaging import native as jpeg_native
+    from melogan_torch.midi import native as midi_native
 
-    if get_lib() is not None:
-        check("OK", "native-jpeg", f"built ({LIB_PATH})")
-    else:
-        check("WARN", "native-jpeg", "unavailable (Python fallback serves)"
-              + (f": {load_error()}" if load_error() else ""))
+    for name, lib in (("native-midi", midi_native), ("native-jpeg", jpeg_native)):
+        if lib.get_lib() is not None:
+            check("OK", name, f"built ({lib.LIB_PATH})")
+        else:
+            check("WARN", name, "unavailable (Python fallback serves)"
+                  + (f": {lib.load_error()}" if lib.load_error() else ""))
 
     # the text backend, by its configuration
     from melogan_torch.models.text_emotion import backend_name

@@ -18,44 +18,31 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from melogan_torch.utils import gxx
+
 ROOT = Path(__file__).resolve().parents[2]
 SRC_PATH = ROOT / "native" / "jpeg_codec.cpp"
 LIB_PATH = ROOT / "build" / "melogan_torch" / "libmelojpeg.so"
-CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _LOCK = threading.Lock()
 _loaded = {"tried": False, "lib": None, "error": None}
 
 
 def is_stale() -> bool:
-    return not LIB_PATH.exists() or SRC_PATH.stat().st_mtime > LIB_PATH.stat().st_mtime
+    return gxx.is_stale(SRC_PATH, LIB_PATH)
 
 
 def build() -> Path:
-    """Compile ``native/jpeg_codec.cpp`` into ``LIB_PATH`` when it is missing
-    or older than its source; returns the path. Raises RuntimeError with the
+    """Compile ``native/jpeg_codec.cpp`` into ``LIB_PATH`` when it is missing or
+    older than its source; returns the path. Raises RuntimeError with the
     compiler's output when ``g++`` is missing or fails."""
-    if not is_stale():
-        return LIB_PATH
-    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f".libmelojpeg.{os.getpid()}.so")
-    try:
-        r = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SRC_PATH)],
-                           capture_output=True, text=True, timeout=120)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"g++ could not build {SRC_PATH}: {e}") from e
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed (rc {r.returncode}) on {SRC_PATH}:\n{r.stderr[-2000:]}")
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+    return gxx.build(SRC_PATH, LIB_PATH)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

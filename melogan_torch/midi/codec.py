@@ -13,9 +13,13 @@ Exact output semantics of the reference renderer (src/gan/utils.py:95-161):
 - bpm clamped to [60, 180]; instrument selected by GM name (default piano)
 
 Per-row arithmetic is float32 (the dtype of model output rows) and time
-accumulation float64, as in the JAX package. Bytes come from the object-model
-writer (``midifile.MidiSong.to_bytes``), which the JAX package's native
-encoder matches byte for byte.
+accumulation float64, as in the JAX package. ``render_to_bytes`` goes from
+the rendered arrays to bytes through the native encoder (``native.py``)
+with no Python object a note; the object-model writer
+(``midifile.MidiSong.to_bytes``) serves when the library does not load, and
+the two agree byte for byte. ``render_piano_roll_torch`` is the on-device
+twin of the renderer, as ``render_piano_roll_jax`` is in the JAX package
+(no caller there either).
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from melogan_torch.midi.gm import instrument_name_to_program
-from melogan_torch.midi.midifile import MidiInstrument, MidiNote, MidiSong
+from melogan_torch.midi.midifile import DEFAULT_RESOLUTION, MidiInstrument, MidiNote, MidiSong
+from melogan_torch.midi.native import encode_song_native
 
 # Musical scale interval tables (reference: src/gan/utils.py:14-26).
 SCALES: Dict[str, list] = {
@@ -107,6 +112,46 @@ def render_piano_roll(
     return pitch[keep], velocity[keep], start_sec[keep], end_sec[keep]
 
 
+def render_piano_roll_torch(notes_array, bpm: float = 120.0, scale: str = "major", root_key: int = 0):
+    """On-device twin of :func:`render_piano_roll` with static shapes, the
+    counterpart of JAX's ``render_piano_roll_jax``: float32 throughout, on
+    the device of ``notes_array`` (a tensor; anything else goes to the CPU).
+
+    Accepts (..., N, 4) and returns ``(pitch, velocity, start_sec, end_sec,
+    keep)`` tensors of shape (..., N); rows where ``keep`` is False are rests.
+    bpm / scale / root_key are static Python values.
+    """
+    import torch
+
+    notes = torch.as_tensor(notes_array, dtype=torch.float32)
+    bpm = max(60.0, min(float(bpm), 180.0))
+    seconds_per_beat = 60.0 / bpm
+
+    p, v, d, s = notes.unbind(-1)
+
+    def const(x):  # an f32 operand of p's shape, so each op is one IEEE f32 op, as XLA's
+        return torch.full_like(p, x)
+
+    step_beats = torch.maximum(const(0.1), ((s + const(1.0)) / const(2.0)) * const(MAX_BEAT_TIME))
+    start_beats = torch.cumsum(step_beats, dim=-1) - step_beats  # exclusive prefix sum
+
+    keep = v >= const(VELOCITY_THRESHOLD)
+
+    raw_pitch = torch.trunc((p + const(1.0)) * const(63.5)).to(torch.int32)
+    pitch = torch.clamp(raw_pitch, 36, 96)
+    table = torch.as_tensor(scale_snap_table(scale, root_key), dtype=torch.int32, device=notes.device)
+    pitch = (pitch // 12) * 12 + table[(pitch % 12).long()]
+
+    vel_range = 1.0 - VELOCITY_THRESHOLD
+    velocity = torch.trunc(const(60.0) + ((v - const(VELOCITY_THRESHOLD)) / const(vel_range)) * const(67.0))
+    velocity = torch.clamp(velocity.to(torch.int32), 0, 127)
+
+    duration_beats = torch.maximum(const(0.25), ((d + const(1.0)) / const(2.0)) * const(MAX_BEAT_TIME))
+    start_sec = start_beats * const(seconds_per_beat)
+    end_sec = (start_beats + duration_beats) * const(seconds_per_beat)
+    return pitch, velocity, start_sec, end_sec, keep
+
+
 def piano_roll_to_song(
     notes_array: np.ndarray,
     bpm: float = 120.0,
@@ -141,7 +186,25 @@ def render_to_bytes(
     root_key: int = 0,
     instrument_name: str = "Acoustic Grand Piano",
 ) -> bytes:
-    """Serving path: normalized notes → `.mid` bytes (the reference layout)."""
+    """Serving fast path: normalized notes → `.mid` bytes with no per-note
+    Python objects (vectorized render → tick arrays → native C++ encoder,
+    the object model only when the native library does not load).
+    Byte-identical to :func:`save_piano_roll_to_midi` output."""
+    try:
+        program = instrument_name_to_program(instrument_name)
+    except KeyError:
+        program = 0
+    bpm = max(60.0, min(float(bpm), 180.0))
+    pitch, velocity, start, end = render_piano_roll(notes_array, bpm, scale, root_key)
+
+    ts = 60.0 / (bpm * DEFAULT_RESOLUTION)
+    tempo_us = int(6e7 / (60.0 / (ts * DEFAULT_RESOLUTION)))
+    encoded = encode_song_native(
+        pitch, velocity, np.round(start / ts).astype(np.int64), np.round(end / ts).astype(np.int64),
+        program=program, channel=0, tempo_us=tempo_us, division=DEFAULT_RESOLUTION,
+    )
+    if encoded is not None:
+        return encoded
     return piano_roll_to_song(notes_array, bpm, scale, root_key, instrument_name).to_bytes()
 
 

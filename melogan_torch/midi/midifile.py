@@ -15,9 +15,10 @@ content:
   ``tick_scale = 60 / (bpm · division)`` (pretty_midi ``time_to_tick`` on a
   freshly constructed object)
 
-The port's own copy of ``melogan_tpu/midi/midifile.py`` without the native
-encoder; ``tests/test_torch_sampling.py`` holds its bytes equal to the JAX
-package's ``render_to_bytes``.
+The port's own copy of ``melogan_tpu/midi/midifile.py``. A song of one
+non-drum instrument is written by the native encoder (``native.py``) when
+it loads; ``tests/test_torch_native_midi.py`` holds its bytes equal to the
+object-model writer's and to the JAX package's ``render_to_bytes``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from melogan_torch.midi import smf
+from melogan_torch.midi.native import encode_song_native
 
 DEFAULT_RESOLUTION = 220
 
@@ -100,7 +102,7 @@ class MidiSong:
         return np.round(np.asarray(times, dtype=np.float64) / self.seconds_per_tick).astype(np.int64)
 
     # ------------------------------------------------------------------
-    def to_bytes(self) -> bytes:
+    def to_bytes(self, allow_native: bool = True) -> bytes:
         # µs/beat recovered through the tick-scale exactly as the reference
         # writer does (float64 chain, then truncation); parsed files keep
         # their original value so round-trips are byte-exact.
@@ -110,8 +112,26 @@ class MidiSong:
             ts = self.seconds_per_tick
             tempo_us = int(6e7 / (60.0 / (ts * self.resolution)))
 
-        # this object-model writer is the port's only encoder; the JAX
-        # package's native C++ encoder is byte-identical to it
+        # native fast path: single non-drum instrument (the sampling/serving
+        # hot path); byte-identical to the object-model writer below, and it
+        # refuses what that writer refuses. None: no library, so this writer
+        if (
+            allow_native
+            and len(self.instruments) == 1
+            and not self.instruments[0].is_drum
+        ):
+            notes = self.instruments[0].notes
+            encoded = encode_song_native(
+                np.array([n.pitch for n in notes]),
+                np.array([n.velocity for n in notes]),
+                self._times_to_ticks(np.array([n.start for n in notes])),
+                self._times_to_ticks(np.array([n.end for n in notes])),
+                program=self.instruments[0].program, channel=0,
+                tempo_us=tempo_us, division=self.resolution,
+            )
+            if encoded is not None:
+                return encoded
+
         timing = [
             smf.Event.set_tempo(0, tempo_us),
             smf.Event.time_signature(0, 4, 4, 24, 8),

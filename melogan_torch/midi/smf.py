@@ -5,8 +5,9 @@ byte stream the reference toolchain (pretty_midi → mido) emitted for the shipp
 golden artifacts: format 1, running-status channel messages, note-offs encoded
 as ``note_on`` with velocity 0, meta messages resetting running status.
 
-An optional C++ fast path (native/midi_codec.cpp) accelerates bulk encoding;
-this module is the reference implementation and the fallback.
+The native encoder (``midi_codec.cpp`` beside this module, through
+``native.py``) writes one-instrument songs; this module is the reference
+implementation it is held to, and the fallback.
 """
 from __future__ import annotations
 

@@ -27,7 +27,8 @@ NHWC, as the JAX package's do. ``init_params``, ``load_caffemodel`` and
 weights HWIO), so a seed or a ``.caffemodel`` gives both packages the same
 weights; ``utils/weights.py::ssd_state_from_jax`` maps that tree to the
 module's state dict. ``PRIOR_CONFIG``, ``generate_priors``, ``decode_boxes``
-and ``nms_host`` are copies.
+and ``nms_host`` are copies; ``nms`` is the static-shape NMS on tensors (no
+caller, as in the JAX package).
 
 The convs run ``F.conv2d`` (cuDNN on the card, TF32 off) and the resize
 ``F.interpolate(antialias=True)``: the counterparts of the JAX package's
@@ -393,6 +394,33 @@ def nms_host(boxes: np.ndarray, scores: np.ndarray, iou_threshold=NMS_THRESHOLD)
         iou = inter / np.maximum(area[i] + area[i + 1:] - inter, 1e-9)
         keep[i + 1:] &= iou <= iou_threshold
     return keep
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold=NMS_THRESHOLD, top_k=NMS_TOP_K):
+    """Static-shape NMS over the ``top_k`` best candidates, on the device of
+    ``boxes`` and ``scores``: the counterpart of the JAX package's ``nms``
+    (for fully on-device deployments; ``FaceDetector`` runs ``nms_host``, as
+    the JAX detector does). Returns ``(order, scores, boxes, keep)`` over the
+    top-k: the candidates' indices by descending score (ties in index
+    order), their scores and boxes, and the greedy keep mask."""
+    top_k = min(top_k, scores.shape[0])
+    order = torch.sort(-scores, stable=True).indices[:top_k]
+    b = boxes[order]
+    s = scores[order]
+    area = torch.clamp(b[:, 2] - b[:, 0], min=0) * torch.clamp(b[:, 3] - b[:, 1], min=0)
+    # row i: the IoU of candidate i with every candidate, as JAX's loop body computes it
+    x1 = torch.maximum(b[:, None, 0], b[None, :, 0])
+    y1 = torch.maximum(b[:, None, 1], b[None, :, 1])
+    x2 = torch.minimum(b[:, None, 2], b[None, :, 2])
+    y2 = torch.minimum(b[:, None, 3], b[None, :, 3])
+    inter = torch.clamp(x2 - x1, min=0) * torch.clamp(y2 - y1, min=0)
+    iou = inter / torch.clamp(area[:, None] + area[None, :] - inter, min=1e-9)
+    later = torch.ones(top_k, top_k, dtype=torch.bool, device=b.device).triu(1)
+    over = (iou > iou_threshold) & later
+    keep = torch.ones(top_k, dtype=torch.bool, device=b.device)
+    for i in range(top_k):  # greedy: a suppressed candidate suppresses nothing
+        keep &= ~(over[i] & keep[i])
+    return order, s, b, keep
 
 
 def resize_frame(frame: torch.Tensor) -> torch.Tensor:

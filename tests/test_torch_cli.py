@@ -539,7 +539,9 @@ def test_sample_names_and_tempos_match_jax(corpus, tmp_path, capsys, monkeypatch
 def test_doctor_on_the_cpu_is_bounded_and_fails(tmp_path, capsys, monkeypatch, probe_secs):
     """`doctor` without a card: every check reported, `device` FAIL (the
     probe's error, or its time limit when the probe is cut), exit 1, and
-    CUDA never initialized in this process."""
+    CUDA never initialized in this process; `native-midi` OK where g++
+    builds the port's encoder."""
+    import shutil
     import time
 
     monkeypatch.setenv("MELOGAN_DOCTOR_PROBE_SECS", probe_secs)
@@ -550,9 +552,10 @@ def test_doctor_on_the_cpu_is_bounded_and_fails(tmp_path, capsys, monkeypatch, p
     assert time.perf_counter() - t0 < float(probe_secs) * 2 + 30
     out = capsys.readouterr().out
     for frag in ("device:", "nvcc:", "kernel-cache:", "ae-config:", "ed-config:", "gan-config:",
-                 "splits:", "ae-ckpt:", "ed-ckpt:", "gan-ckpt:", "golden-artifacts:", "native-jpeg:",
-                 "text-backend:", "doctor:"):
+                 "splits:", "ae-ckpt:", "ed-ckpt:", "gan-ckpt:", "golden-artifacts:", "native-midi:",
+                 "native-jpeg:", "text-backend:", "doctor:"):
         assert frag in out, out
+    assert ("[OK] native-midi:" in out) == bool(shutil.which("g++")), out
     assert "[FAIL] device:" in out
     assert ("hung" in out) == (probe_secs == "0.001")
     assert "failing: device" in out

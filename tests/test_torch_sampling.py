@@ -197,7 +197,7 @@ def test_generate_midi_and_many_end_to_end(tmp_path):
 
 def test_port_imports_nothing_of_jax():
     """Every module of melogan_torch imports, in a fresh interpreter, without
-    pulling in jax, flax, optax, msgpack, yaml, melogan_tpu, transformers,
+    building a native library and without pulling in jax, flax, optax, msgpack, yaml, melogan_tpu, transformers,
     safetensors, tokenizers, h5py or PIL (the card's machine has none of the
     last five); with them blocked, the checkpoint codec still writes and
     reads a file, the typed configs read the shipped YAML files, and a
@@ -211,6 +211,8 @@ def test_port_imports_nothing_of_jax():
         "import melogan_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(melogan_torch.__path__, 'melogan_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "for m in ('melogan_torch.midi.native', 'melogan_torch.imaging.native'):\n"
+        "    assert not sys.modules[m]._loaded['tried'], m  # nothing builds at import\n"
         "from melogan_torch.utils.checkpoint import load_checkpoint, save_checkpoint\n"
         "path = os.path.join(tempfile.mkdtemp(), 'a.ckpt')\n"
         "save_checkpoint(path, {'w': np.arange(3.0), 'epoch': 2})\n"
@@ -244,7 +246,7 @@ def test_port_imports_nothing_of_jax():
         "        'melogan_torch.imaging.y4m', 'melogan_torch.imaging.native', 'melogan_torch.models.caffe',\n"
         "        'melogan_torch.models.ssd', 'melogan_torch.models.xception', 'melogan_torch.camera',\n"
         "        'melogan_torch.serving.video', 'melogan_torch.parallel.tensor', 'melogan_torch.bench',\n"
-        "        'melogan_torch.fault_inject'}\n"
+        "        'melogan_torch.fault_inject', 'melogan_torch.midi.native', 'melogan_torch.utils.gxx'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "assert len(mods) >= 50, mods\n"
         "assert not bad, bad\n"
