@@ -110,10 +110,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     counted path, ``sweep_state`` reads the file's size, its load and save
     seconds and those of ``load_sweep_state``/``export_sweep_state``;
 14. the bf16 slice: before the paths, ``kernels_bf16`` holds both conv
-    kernels' one-pass bf16 mode against their plain versions
-    (``bf16=True``) at the decoder's, the ED's and the VAE's layers and as
-    each other's input gradient at batch 32, timed beside the f32 mode and
-    cuDNN on bf16 tensors, bounds at 495 TFLOP/s; every earlier path must
+    kernels' one-pass bf16 mode (the bf16 core, ``csrc/igemm_bf16.cuh``)
+    against their plain versions (``bf16=True``) at the decoder's, the
+    ED's and the VAE's layers and as each other's input gradient at batch
+    32, a second launch bit for bit the first, timed beside the f32 mode
+    and cuDNN on bf16 tensors, bounds at the dense bf16 rate (989.4
+    TFLOP/s) on the f32 bytes; every earlier path must
     show no bf16-mode launch (``main_path_launches_bf16``, a line a path);
     then, each with the counts set to 0 first, ``sampling_fast``
     (``Sampler(fast_math=True)`` at batch 1 and 4096: three ``convt1d``
@@ -2063,9 +2065,10 @@ def measure_sweep_state(torch, np, trained, swept, results):
 def _bf16_record(torch, F, ops, results, kind, layer, b, shape, x, w, bias, geo, iters,
                  phase="kernels_bf16"):
     """One layer in the kernels' one-pass bf16 mode against its plain
-    version (``bf16=True``), timed beside the f32 mode and beside cuDNN on
-    bf16 tensors (the yardstick: bf16 in and out, f32 sums)."""
-    from melogan_torch.utils.flops import PEAK_TF32_FLOPS
+    version (``bf16=True``), a second launch bit for bit the first, timed
+    beside the f32 mode and beside cuDNN on bf16 tensors (the yardstick:
+    bf16 in and out, f32 sums; the kernel reads and writes f32)."""
+    from melogan_torch.utils.flops import PEAK_BF16_FLOPS
 
     if kind == "convt1d":
         s, p, op = geo
@@ -2088,10 +2091,13 @@ def _bf16_record(torch, F, ops, results, kind, layer, b, shape, x, w, bias, geo,
     out = run(True)
     ref = plain()
     again32 = run(False)
+    again = run(True)
     torch.cuda.synchronize()
     err, rel = compare(out, ref, f"{kind} bf16 {layer} B={b}")
     if not torch.equal(again32, out32):
         raise SystemExit(f"{kind} {layer} B={b}: the f32 mode moved after a bf16 launch")
+    if not torch.equal(again, out):
+        raise SystemExit(f"{kind} {layer} B={b}: the bf16 mode did not repeat bit for bit")
     diff = float((out - out32).abs().max()) / max(float(out32.abs().max()), 1e-30)
     if not diff > 0:
         raise SystemExit(f"{kind} {layer} B={b}: bf16 equals f32, the mode was not honoured")
@@ -2103,7 +2109,8 @@ def _bf16_record(torch, F, ops, results, kind, layer, b, shape, x, w, bias, geo,
         "f32_kernel_ms": time_ms(torch, lambda: run(False), iters),
         "plain_ms": time_ms(torch, plain, iters),
         "library_ms": time_ms(torch, library, iters),
-        **bound(flops, nbytes, PEAK_TF32_FLOPS), "flops": flops, "bytes": nbytes,
+        "bit_equal_repeat": True,
+        **bound(flops, nbytes, PEAK_BF16_FLOPS), "flops": flops, "bytes": nbytes,
     }
     emit(rec, results)
     return rec
@@ -2114,9 +2121,9 @@ def check_bf16_kernels(torch, F, ops, gen, results):
     their plain versions (``bf16=True``) at the decoder's layers (batch 1,
     32 and 4096), the ED's (32, 64, 1024), the VAE's (32, 256) and, at 32,
     as the other conv's input gradient; each timed beside its f32 mode and
-    cuDNN on bf16 tensors; bounds at the dense TF32 rate (495 TFLOP/s). The
-    f32 mode's result must not move after the bf16 launches, and the bf16
-    result must differ from it."""
+    cuDNN on bf16 tensors; bounds at the dense bf16 rate (989.4 TFLOP/s) on
+    the f32 bytes. The f32 mode's result must not move after the bf16
+    launches, the bf16 result must differ from it and repeat bit for bit."""
     recs = {"convt1d": [], "conv1d": []}
 
     def rand(*shape, scale=1.0):

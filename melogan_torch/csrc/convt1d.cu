@@ -1,5 +1,6 @@
 // Transposed 1-D convolution, torch ConvTranspose1d geometry, channels last:
-// a thin entry point over the implicit-GEMM core in igemm.cuh.
+// a thin entry point over the implicit-GEMM cores, igemm.cuh (3xTF32) and
+// igemm_bf16.cuh (the one-pass bf16 mode).
 //
 // Replaces: melogan_tpu/ops/pallas/conv1d.py::_convt_kernel (reached through
 // _pallas_convt_fwd_impl / pallas_conv_transpose1d). That kernel computes the
@@ -11,21 +12,33 @@
 //
 // Layout: x (B, L, Cin) f32, w HIO (K, Cin, Cout) f32 as stored by the JAX
 // package, optional bias (Cout,), y (B, Lout, Cout) with
-// Lout = (L-1)*s - 2p + K + op. The plan (ops/igemm.py::convt_plan) carries
-// the tap table of every class; this file only checks that it is one of a
+// Lout = (L-1)*s - 2p + K + op. The plan (ops/igemm.py::convt_plan, with
+// bf16=True a Bf16Plan) carries the tap table of every class; this file only checks that it is one of a
 // transposed conv (input stride 1, one class per output parity).
 
 #include "igemm.cuh"
+#include "igemm_bf16.cuh"
+
+// A plan of a transposed conv: input stride 1, one class per output parity.
+template <class Plan>
+static bool is_convt(const Plan& p) {
+  return p.sigma == 1 && p.classes == p.stride;
+}
 
 // Launches on `stream` (PyTorch's current stream) and returns
 // cudaGetLastError() as an int; the Python wrapper raises if it is not 0.
-// bf16 != 0: the core's one-pass bf16 mode (operands rounded to bf16, f32
-// sums), else 3xTF32.
+// bf16 == 0: 3xTF32 on the core of igemm.cuh, `plan` an igemm::Plan.
+// bf16 != 0: the one-pass bf16 core of igemm_bf16.cuh (x and w rounded to
+// bf16 once, f32 sums), `plan` an igemm_bf16::Plan.
 extern "C" int melogan_convt1d(const float* x, const float* w, const float* bias, float* y,
-                               const igemm::Plan* plan, int device, void* stream, int bf16) {
-  if (plan == nullptr || plan->sigma != 1 || plan->classes != plan->stride) {
-    return (int)cudaErrorInvalidValue;
+                               const void* plan, int device, void* stream, int bf16) {
+  if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    const auto& p = *static_cast<const igemm_bf16::Plan*>(plan);
+    return is_convt(p) ? igemm_bf16::run(x, w, bias, y, p, device, stream)
+                       : (int)cudaErrorInvalidValue;
   }
-  return bf16 ? igemm::run<true>(x, w, bias, y, *plan, /*relu=*/0, device, stream)
-              : igemm::run<false>(x, w, bias, y, *plan, /*relu=*/0, device, stream);
+  const auto& p = *static_cast<const igemm::Plan*>(plan);
+  return is_convt(p) ? igemm::run(x, w, bias, y, p, /*relu=*/0, device, stream)
+                     : (int)cudaErrorInvalidValue;
 }

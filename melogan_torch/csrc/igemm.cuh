@@ -1,6 +1,7 @@
 // Implicit-GEMM core of the port's kernels (convt1d.cu, conv1d.cu,
-// decoder_tail.cu): tensor cores in 3xTF32, or in one bf16 pass, operands
-// staged by cp.async in three stages.
+// decoder_tail.cu): tensor cores in 3xTF32, operands staged by cp.async in
+// three stages. The one-pass bf16 mode of conv1d.cu and convt1d.cu has a
+// core of its own, igemm_bf16.cuh.
 //
 // Replaces, through those entry points:
 //   melogan_tpu/ops/pallas/conv1d.py::_convt_kernel  (transposed conv)
@@ -56,16 +57,6 @@
 // - Accuracy: the tensor cores add with truncation, so the products of each
 //   pair of k-steps are summed from zero and folded into the f32 sum by
 //   IEEE adds.
-// - One-pass bf16 mode (kBf16, conv1d and convt1d only): the counterpart of
-//   the TPU's Precision.DEFAULT pass, which rounds every matrix-unit operand
-//   to bf16 and sums in f32. Each A and B value is rounded to bf16 with
-//   round-to-nearest-even (torch's .to(torch.bfloat16)), two values by one
-//   cvt.rn.bf16x2, and one mma_tf32 takes the rounded values: a bf16 value has 8 significant bits,
-//   so it is exact as a tf32 operand and the products are exact in f32. No
-//   split and one product instead of three per step; the staging, the
-//   fragments and the pairwise fold are those of the f32 mode, which the
-//   mode leaves as it was (decoder_tail.cu instantiates the f32 mode only).
-//   Its bound is the dense TF32 rate, 495 TFLOP/s.
 // - The store works out each column's class and channel once per thread and
 //   writes 8-byte pairs of channels where Cout is even. With `relu` set it
 //   clamps each sum at zero after the bias (the decoder tail's stages).
@@ -125,19 +116,6 @@ __device__ __forceinline__ uint32_t tf32_rna(float a) {
   return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
 }
 
-// a and b rounded to bf16, round-to-nearest-even (torch's
-// .to(torch.bfloat16); inf stays inf, a NaN stays a NaN), as f32 bit patterns
-// whose low 16 bits are zero: one cvt.rn.bf16x2.f32 packs both (a in the
-// high half), then a mask and a shift unpack them. Rounding on the integer
-// bits instead (about seven integer operations a value with the NaN guard)
-// ran slower than the 3xTF32 mode's split (PERF.md §6).
-__device__ __forceinline__ void bf16_rne2(float a, float b, uint32_t& ra, uint32_t& rb) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(a), "f"(b));
-  ra = d & 0xffff0000u;
-  rb = d << 16;
-}
-
 // a = big + small to about 2^-22 relative: both halves are tf32 values.
 __device__ __forceinline__ void split(float a, uint32_t& big, uint32_t& small) {
   big = tf32_rna(a);
@@ -167,8 +145,8 @@ __device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a
 }
 
 // CTA: kWarpsM x kWarpsN warps; a warp takes 32 rows (two m16 tiles) by
-// TN / kWarpsN columns (kWN n8 tiles). kBf16: the one-pass bf16 mode.
-template <int TN, int kWarpsM, int kWarpsN, bool kBf16>
+// TN / kWarpsN columns (kWN n8 tiles).
+template <int TN, int kWarpsM, int kWarpsN>
 __global__ void __launch_bounds__(32 * kWarpsM * kWarpsN)
 igemm_conv(const float* __restrict__ x, const float* __restrict__ w,
            const float* __restrict__ bias, float* __restrict__ y,
@@ -308,47 +286,27 @@ igemm_conv(const float* __restrict__ x, const float* __restrict__ w,
     if (ks + 1 < ksteps) load(xs, ws, ks + 1, f, 1);
   };
   // small*big, big*small, then big*big of one k-step into part (the first
-  // k-step of a pair starts part from zero); in bf16 mode the one product of
-  // the rounded values
+  // k-step of a pair starts part from zero)
   auto step = [&](const Frags& f, int h, float (&part)[kWM][kWN][4]) {
-    if constexpr (kBf16) {
-      uint32_t a[kWM][4];
+    uint32_t a_big[kWM][4], a_small[kWM][4];
+#pragma unroll
+    for (int i = 0; i < kWM; ++i) {
+      split(f.a[h][i][0].x, a_big[i][0], a_small[i][0]);  // (g, k)
+      split(f.a[h][i][1].x, a_big[i][1], a_small[i][1]);  // (g + 8, k)
+      split(f.a[h][i][0].y, a_big[i][2], a_small[i][2]);  // (g, k + 4)
+      split(f.a[h][i][1].y, a_big[i][3], a_small[i][3]);  // (g + 8, k + 4)
+    }
+#pragma unroll
+    for (int j = 0; j < kWN; ++j) {
+      uint32_t b_big[2], b_small[2];
+      split(f.b[h][j][0], b_big[0], b_small[0]);
+      split(f.b[h][j][1], b_big[1], b_small[1]);
 #pragma unroll
       for (int i = 0; i < kWM; ++i) {
-        bf16_rne2(f.a[h][i][0].x, f.a[h][i][0].y, a[i][0], a[i][2]);  // (g, k), (g, k + 4)
-        bf16_rne2(f.a[h][i][1].x, f.a[h][i][1].y, a[i][1], a[i][3]);  // (g + 8, k), (g + 8, k + 4)
-      }
-#pragma unroll
-      for (int j = 0; j < kWN; ++j) {
-        uint32_t b[2];
-        bf16_rne2(f.b[h][j][0], f.b[h][j][1], b[0], b[1]);
-#pragma unroll
-        for (int i = 0; i < kWM; ++i) {
-          if (h == 0) mma_tf32_first(part[i][j], a[i], b);
-          else mma_tf32(part[i][j], a[i], b);
-        }
-      }
-    } else {
-      uint32_t a_big[kWM][4], a_small[kWM][4];
-#pragma unroll
-      for (int i = 0; i < kWM; ++i) {
-        split(f.a[h][i][0].x, a_big[i][0], a_small[i][0]);  // (g, k)
-        split(f.a[h][i][1].x, a_big[i][1], a_small[i][1]);  // (g + 8, k)
-        split(f.a[h][i][0].y, a_big[i][2], a_small[i][2]);  // (g, k + 4)
-        split(f.a[h][i][1].y, a_big[i][3], a_small[i][3]);  // (g + 8, k + 4)
-      }
-#pragma unroll
-      for (int j = 0; j < kWN; ++j) {
-        uint32_t b_big[2], b_small[2];
-        split(f.b[h][j][0], b_big[0], b_small[0]);
-        split(f.b[h][j][1], b_big[1], b_small[1]);
-#pragma unroll
-        for (int i = 0; i < kWM; ++i) {
-          if (h == 0) mma_tf32_first(part[i][j], a_small[i], b_big);
-          else mma_tf32(part[i][j], a_small[i], b_big);
-          mma_tf32(part[i][j], a_big[i], b_small);
-          mma_tf32(part[i][j], a_big[i], b_big);
-        }
+        if (h == 0) mma_tf32_first(part[i][j], a_small[i], b_big);
+        else mma_tf32(part[i][j], a_small[i], b_big);
+        mma_tf32(part[i][j], a_big[i], b_small);
+        mma_tf32(part[i][j], a_big[i], b_big);
       }
     }
   };
@@ -435,10 +393,10 @@ igemm_conv(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int TN, int kWarpsM, int kWarpsN, bool kBf16>
+template <int TN, int kWarpsM, int kWarpsN>
 cudaError_t launch_tile(const float* x, const float* w, const float* bias, float* y,
                         const Plan& p, int vec_x, int vec_w, int relu, cudaStream_t stream) {
-  auto kernel = igemm_conv<TN, kWarpsM, kWarpsN, kBf16>;
+  auto kernel = igemm_conv<TN, kWarpsM, kWarpsN>;
   if (p.smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
@@ -472,8 +430,7 @@ inline bool plan_ok(const Plan& p) {
 }
 
 // One launch on `stream`, y = relu ? max(sum + bias, 0) : sum + bias; returns
-// a cudaError_t as an int (0: launched). kBf16: the one-pass bf16 mode.
-template <bool kBf16 = false>
+// a cudaError_t as an int (0: launched).
 inline int run(const float* x, const float* w, const float* bias, float* y, const Plan& p,
                int relu, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -483,11 +440,11 @@ inline int run(const float* x, const float* w, const float* bias, float* y, cons
   const int vec_x = (p.cin % 4 == 0 && ((uintptr_t)x & 15) == 0) ? 1 : 0;
   const int vec_w = (p.cout % 4 == 0 && ((uintptr_t)w & 15) == 0) ? 1 : 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (p.tile_n == 64 && p.tile_m == 64) err = launch_tile<64, 2, 2, kBf16>(x, w, bias, y, p, vec_x, vec_w, relu, s);
-  else if (p.tile_n == 64 && p.tile_m == 128) err = launch_tile<64, 4, 2, kBf16>(x, w, bias, y, p, vec_x, vec_w, relu, s);
-  else if (p.tile_n == 32 && p.tile_m == 128) err = launch_tile<32, 4, 1, kBf16>(x, w, bias, y, p, vec_x, vec_w, relu, s);
-  else if (p.tile_n == 16 && p.tile_m == 128) err = launch_tile<16, 4, 1, kBf16>(x, w, bias, y, p, vec_x, vec_w, relu, s);
-  else if (p.tile_n == 8 && p.tile_m == 128) err = launch_tile<8, 4, 1, kBf16>(x, w, bias, y, p, vec_x, vec_w, relu, s);
+  if (p.tile_n == 64 && p.tile_m == 64) err = launch_tile<64, 2, 2>(x, w, bias, y, p, vec_x, vec_w, relu, s);
+  else if (p.tile_n == 64 && p.tile_m == 128) err = launch_tile<64, 4, 2>(x, w, bias, y, p, vec_x, vec_w, relu, s);
+  else if (p.tile_n == 32 && p.tile_m == 128) err = launch_tile<32, 4, 1>(x, w, bias, y, p, vec_x, vec_w, relu, s);
+  else if (p.tile_n == 16 && p.tile_m == 128) err = launch_tile<16, 4, 1>(x, w, bias, y, p, vec_x, vec_w, relu, s);
+  else if (p.tile_n == 8 && p.tile_m == 128) err = launch_tile<8, 4, 1>(x, w, bias, y, p, vec_x, vec_w, relu, s);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

@@ -73,8 +73,9 @@ def _lib():
 def conv1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 1,
                 padding: int = 0, bf16: bool = False):
     """Launch ``csrc/conv1d.cu`` (the implicit-GEMM core) on PyTorch's
-    current stream; ``bf16``: in the core's one-pass bf16 mode (x and w
-    rounded to bf16 in the kernel, f32 sums), else 3xTF32.
+    current stream; ``bf16``: on the one-pass bf16 core
+    (``csrc/igemm_bf16.cuh``: x and w rounded to bf16 once, on their way
+    into shared memory, bf16 tensor-core products, f32 sums), else 3xTF32.
 
     Takes CUDA float32 contiguous tensors only and raises on anything else
     (K ≤ 7, stride ≤ 16). Forward only: gradients come from
@@ -104,7 +105,7 @@ def conv1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 1,
         return y
     err = _lib().melogan_conv1d(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), ctypes.byref(conv1d_plan(b, l, cin, cout, k, stride, padding).c_struct()),
+        y.data_ptr(), ctypes.byref(conv1d_plan(b, l, cin, cout, k, stride, padding, bf16).c_struct()),
         dev.index, torch.cuda.current_stream(dev).cuda_stream, int(bf16),
     )
     _build.check(err, "conv1d launch")

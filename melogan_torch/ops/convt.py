@@ -79,8 +79,8 @@ def _lib():
 def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
                  padding: int = 0, output_padding: int = 0, bf16: bool = False):
     """Launch ``csrc/convt1d.cu`` (the implicit-GEMM core, every parity class
-    in one launch) on PyTorch's current stream; ``bf16``: in the core's
-    one-pass bf16 mode, else 3xTF32.
+    in one launch) on PyTorch's current stream; ``bf16``: on the one-pass
+    bf16 core (``csrc/igemm_bf16.cuh``), else 3xTF32.
 
     Takes CUDA float32 contiguous tensors only and raises on anything else
     (K ≤ 7, stride ≤ 16); forward only (no autograd), so it refuses inputs
@@ -109,7 +109,7 @@ def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
     y = torch.empty((b, lout, cout), device=dev, dtype=torch.float32)
     if y.numel() == 0:
         return y
-    plan = convt_plan(b, l, cin, cout, k, stride, padding, output_padding)
+    plan = convt_plan(b, l, cin, cout, k, stride, padding, output_padding, bf16)
     err = _lib().melogan_convt1d(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
         y.data_ptr(), ctypes.byref(plan.c_struct()),

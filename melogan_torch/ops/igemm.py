@@ -19,6 +19,12 @@ classes·t + r, so Y viewed as (B, rows·classes, Cout) is the output:
 The kernel reads w in place through ``Plan.taps`` (class × offset → w tap or
 −1). Everything here is host arithmetic on shapes: the tap table, the tile
 and the shared-memory layout, which the CPU tests check without a card.
+
+Two cores take these plans: ``Plan`` is the 3xTF32 core's (``igemm.cuh``),
+``Bf16Plan`` the one-pass bf16 core's (``igemm_bf16.cuh``, ``bf16=True``):
+the same geometry, with its own tiles, its f32 landing ring and bf16 tiles
+sized in bf16 elements, and its A tile staged as planes of rows (a halo) or
+one flattened (q, ci) row per output row (im2col, Cin ≤ 8).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ STAGES = 3
 SMEM_LIMIT = 227 * 1024  # shared memory one H100 block can use
 STAGE_BUDGET = 48 * 1024  # per stage: three stages leave room for a second CTA
 SMS = 132  # H100 SXM
+BF16_BUDGET = 113 * 1024  # bf16 core, 4-warp tiles: two CTAs an SM
 
 
 def convt_taps(k: int, stride: int, padding: int, r: int) -> List[Tuple[int, int]]:
@@ -157,6 +164,179 @@ def _plan(batch, l, cin, cout, k, stride, classes, rows, lout, sigma, o_min, q, 
                     taps, tile_m, tile_n, cw)
         if plan.stage_floats * 4 <= STAGE_BUDGET:
             break
+    return _checked(plan)
+
+
+class CBf16Plan(ctypes.Structure):
+    """``igemm_bf16::Plan`` of ``csrc/igemm_bf16.cuh``, field for field."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "batch", "l", "cin", "cout", "k", "stride", "n", "classes", "rows", "lout",
+        "sigma", "o_min", "q", "cw", "cw_shift", "chunks", "tile_m", "tile_n", "warp_m", "segs", "seg",
+        "planes", "plane_rows", "a_rows", "a_cols", "a_cols_shift", "a_stride",
+        "w_rows", "w_stride", "stages", "land_floats", "tile_halves", "table_ints", "smem_bytes",
+    )] + [("taps", (ctypes.c_int8 * MAX_Q) * MAX_CLASSES)]
+
+
+def _pow2(v: int) -> int:
+    return 1 << (v - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16Plan:
+    """The bf16 core's plan. Per chunk of ``cw`` input channels, ``stages``
+    f32 landing slots (the A rows and the W' rows as copied) and two bf16
+    tiles (A, W') that the fragments read. Strides are in bf16 elements:
+    ``a_stride`` and ``w_stride`` are odd multiples of 8, so the eight
+    16-byte rows of an ldmatrix phase fall in eight bank groups."""
+    batch: int
+    l: int
+    cin: int
+    cout: int
+    k: int
+    stride: int
+    classes: int
+    rows: int
+    lout: int
+    sigma: int
+    o_min: int
+    q: int
+    taps: Tuple[Tuple[int, ...], ...]
+    tile_m: int
+    tile_n: int
+    cw: int  # 4 or 8: im2col; 16, 32 or 64: halo
+    stages: int  # landing slots, 1 or 2
+    warp_m: int  # rows a warp holds, 32 or 64; columns min(tile_n, 32)
+
+    @property
+    def n(self) -> int:
+        return self.classes * self.cout
+
+    @property
+    def segs(self) -> int:
+        """Samples a row tile holds: whole samples where one has at most half
+        the tile's rows, else one (a run of ``tile_m`` of its rows)."""
+        return self.tile_m // self.rows if 2 * self.rows <= self.tile_m else 1
+
+    @property
+    def seg(self) -> int:
+        """Output rows of each sample in a row tile."""
+        return self.rows if self.segs > 1 else self.tile_m
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """One dimension: row tiles × N tiles, N tiles fastest."""
+        return -(-self.batch // self.segs) * -(-self.rows // self.seg) * -(-self.n // self.tile_n), 1
+
+    @property
+    def im2col(self) -> bool:
+        return self.cw <= 8
+
+    @property
+    def threads(self) -> int:
+        return 32 * (self.tile_m // self.warp_m) * (self.tile_n // min(self.tile_n, 32))
+
+    @property
+    def chunks(self) -> int:
+        return 1 if self.im2col else -(-self.cin // self.cw)
+
+    @property
+    def planes(self) -> int:
+        """Halo: input rows split by row mod σ; the planes some tap reads."""
+        return 0 if self.im2col else min(self.sigma, self.q)
+
+    @property
+    def plane_rows(self) -> int:
+        """Each sample's rows and its halo, ``segs`` times."""
+        return 0 if self.im2col else self.segs * (self.seg + (self.q - 1) // self.sigma)
+
+    @property
+    def a_rows(self) -> int:
+        return self.tile_m if self.im2col else self.planes * self.plane_rows
+
+    @property
+    def a_cols(self) -> int:
+        """Halo: cw channels; im2col: Q·cw flattened, to a power of two ≥ 16."""
+        return max(16, _pow2(self.q * self.cw)) if self.im2col else self.cw
+
+    @property
+    def a_stride(self) -> int:
+        return self.a_cols + 8
+
+    @property
+    def w_rows(self) -> int:
+        return self.a_cols if self.im2col else self.q * self.cw
+
+    @property
+    def w_stride(self) -> int:
+        return self.tile_n if (self.tile_n // 8) % 2 else self.tile_n + 8
+
+    @property
+    def land_floats(self) -> int:
+        return self.a_rows * self.a_cols + self.w_rows * self.tile_n
+
+    @property
+    def tile_halves(self) -> int:
+        return self.a_rows * self.a_stride + self.w_rows * self.w_stride
+
+    @property
+    def table_ints(self) -> int:
+        """The x row of each staged (row, cw-group)."""
+        return self.a_rows * (self.a_cols // self.cw)
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.stages * self.land_floats * 4 + 2 * self.tile_halves * 2 + self.table_ints * 4
+
+    def c_struct(self) -> CBf16Plan:
+        return _c_struct_bf16(self)
+
+
+@functools.lru_cache(maxsize=256)
+def _c_struct_bf16(plan: Bf16Plan) -> CBf16Plan:
+    c = CBf16Plan()
+    shifts = {"cw_shift": plan.cw, "a_cols_shift": plan.a_cols}
+    for f, _ in CBf16Plan._fields_[:-1]:
+        setattr(c, f, shifts[f].bit_length() - 1 if f in shifts else getattr(plan, f))
+    for r in range(MAX_CLASSES):
+        for q in range(MAX_Q):
+            c.taps[r][q] = plan.taps[r][q] if r < plan.classes and q < plan.q else -1
+    return c
+
+
+def _bf16_plan(batch, l, cin, cout, k, stride, classes, rows, lout, sigma, o_min, q,
+               taps) -> Bf16Plan:
+    """N tiles as the f32 core's. Wide N: rows in tiles of 256 (16 warps of
+    32 × 32, one CTA an SM) where those fill every SM, else 128 (4 warps of
+    64 × 32, two CTAs an SM) where those do, else 64 (4 warps of 32 × 32);
+    whole samples a tile where a sample is short. cw: 4 or 8 (im2col) for
+    Cin ≤ 8, else the largest of 64, 32, 16 that leaves two chunks (so the
+    next chunk's copies overlap this one's products) and fits the shared
+    memory the CTAs of an SM share, with two landing stages at 256 rows
+    (measured on an H100 by ``profile_conv_bf16 --part limits``)."""
+    n = classes * cout
+    plan = Bf16Plan(batch, l, cin, cout, k, stride, classes, rows, lout, sigma, o_min, q, taps,
+                    tile_m=128, tile_n=next((tn for tn in (8, 16, 32) if n <= tn), 64), cw=4,
+                    stages=1, warp_m=32)
+    if plan.tile_n == 64:
+        def ctas(tile_m):
+            return dataclasses.replace(plan, tile_m=tile_m).grid[0]
+        tile_m, warp_m = (256, 32) if ctas(256) >= SMS else (128, 64) if ctas(128) >= 2 * SMS else (64, 32)
+        plan = dataclasses.replace(plan, tile_m=tile_m, warp_m=warp_m)
+    budget = SMEM_LIMIT if plan.tile_m == 256 else BF16_BUDGET
+    if cin <= 8:
+        widths = (4 if cin <= 4 else 8,)
+    else:
+        widths = tuple(c for c in (64, 32, 16) if c <= max(16, _pow2(cin) // 2))
+    # a second landing slot pays only where one CTA holds the SM (256 rows)
+    fits = [dataclasses.replace(plan, cw=cw, stages=stages) for cw in widths
+            for stages in ((2, 1) if plan.tile_m == 256 and cin > cw else (1,))]
+    fitted = next((f for f in fits if f.smem_bytes <= budget), fits[-1])
+    if fitted.segs * l * cin >= 2**31:
+        raise ValueError(f"igemm: {fitted.segs} samples of {l} x {cin} exceed int offsets")
+    return _checked(fitted)
+
+
+def _checked(plan):
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"igemm: {plan.smem_bytes} bytes of shared memory exceed {SMEM_LIMIT}")
     gx, gy = plan.grid
@@ -167,16 +347,19 @@ def _plan(batch, l, cin, cout, k, stride, classes, rows, lout, sigma, o_min, q, 
 
 @functools.lru_cache(maxsize=256)
 def conv1d_plan(batch: int, l: int, cin: int, cout: int, k: int, stride: int,
-                padding: int) -> Plan:
+                padding: int, bf16: bool = False):
+    """The plan of a conv1d; ``bf16``: the bf16 core's (``Bf16Plan``)."""
     check_limits("conv1d", k, stride)
     lout = (l + 2 * padding - k) // stride + 1
-    return _plan(batch, l, cin, cout, k, stride, 1, lout, lout, stride, -padding, k,
-                 (tuple(range(k)),))
+    make = _bf16_plan if bf16 else _plan
+    return make(batch, l, cin, cout, k, stride, 1, lout, lout, stride, -padding, k,
+                (tuple(range(k)),))
 
 
 @functools.lru_cache(maxsize=256)
 def convt_plan(batch: int, l: int, cin: int, cout: int, k: int, stride: int, padding: int,
-               output_padding: int) -> Plan:
+               output_padding: int, bf16: bool = False):
+    """The plan of a transposed conv; ``bf16``: the bf16 core's."""
     check_limits("convt1d", k, stride)
     lout = (l - 1) * stride - 2 * padding + k + output_padding
     by_class = [convt_taps(k, stride, padding, r) for r in range(stride)]
@@ -186,5 +369,6 @@ def convt_plan(batch: int, l: int, cin: int, cout: int, k: int, stride: int, pad
         tuple(next((k - 1 - j for j, off in taps if off - o_min == qq), -1) for qq in range(q))
         for taps in by_class
     )
-    return _plan(batch, l, cin, cout, k, stride, stride, -(-lout // stride), lout, 1, o_min, q,
-                 table)
+    make = _bf16_plan if bf16 else _plan
+    return make(batch, l, cin, cout, k, stride, stride, -(-lout // stride), lout, 1, o_min, q,
+                table)

@@ -12,8 +12,9 @@ operations over the f32 peak. ``vae_flops``, ``vae_step_flops`` and
 The peaks of an H100 SXM (NVIDIA data sheet, dense, at 700 W) that the
 bounds divide by: IEEE f32 outside the tensor cores; the conv kernels'
 3xTF32 mode, three TF32 products per step, a third of the dense TF32 rate;
-and their one-pass bf16 mode, one TF32 product of bf16-rounded operands per
-step, the dense TF32 rate (``kernel_peak_flops``).
+and their one-pass bf16 mode, bf16 tensor-core products
+(``mma.m16n8k16``), the dense bf16 rate (``kernel_peak_flops``); and the
+HBM rate, 3.35 TB/s.
 
 ``sampling_flops_per_sample`` and ``chip_peak_bf16_tflops`` are what the
 benchmark (``melogan_torch/bench.py``) turns its rates into TFLOP/s and a
@@ -28,12 +29,14 @@ from melogan_torch.config import AEConfig, GANConfig
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+PEAK_BF16_FLOPS = 989.4e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def kernel_peak_flops(bf16: bool) -> float:
-    """The peak rate of the conv kernels' f32 work: 495 TFLOP/s in the
-    one-pass bf16 mode, 165 in 3xTF32."""
-    return PEAK_TF32_FLOPS if bf16 else PEAK_3XTF32_FLOPS
+    """The peak rate of the conv kernels' work: 989.4 TFLOP/s in the
+    one-pass bf16 mode (bf16 tensor-core products), 165 in 3xTF32."""
+    return PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS
 
 
 def _linear(d_in: int, d_out: int) -> int:

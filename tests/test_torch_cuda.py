@@ -16,11 +16,16 @@ all in different orders over at most 5·Cin products per output. 1e-4
 absolute and relative on O(1) outputs is about 100× that rounding; one-pass
 TF32 would miss it.
 
-The one-pass bf16 mode rounds x and w (and, as an input gradient, g and wᵀ)
-to bf16 as its plain version does (``bf16=True``: ``.to(torch.bfloat16)``),
-and a product of bf16 values is exact in f32: only the summation order
-differs, so the same 1e-4 holds. Its results must differ from the f32
-mode's, and the f32 mode's must not move after bf16 launches (bit for bit).
+The one-pass bf16 mode runs a core of its own (``csrc/igemm_bf16.cuh``):
+it rounds x and w (and, as an input gradient, g and wᵀ) to bf16 once, as
+its plain version does (``bf16=True``: ``.to(torch.bfloat16)``), and a
+product of bf16 values is exact in f32: only the summation order differs,
+so the same 1e-4 holds; at the shapes ``chip_smoke.py`` times it must also
+come within 2e-6 of the scale (the core's emulation in
+``tests/test_torch_igemm.py`` reads 0.8–2.4e-7 against float64, the plain
+version as much again) and repeat bit for bit. Its results must differ from
+the f32 mode's, and the f32 mode's must not move after bf16 launches (bit
+for bit).
 """
 import os
 import subprocess
@@ -254,6 +259,66 @@ def test_conv_backward_at_bf16_runs_the_other_kernel_in_bf16(cuda, rng, b, l, ci
         torch.testing.assert_close(a.cpu(), e, atol=1e-4 * float(e.abs().max()), rtol=1e-4)
     f32 = _grads(ours, x, w, bias, g)
     assert not torch.equal(got[0], f32[0]) and not torch.equal(got[1], f32[1])
+
+
+# the layers chip_smoke.py's kernels_bf16 phase times, at its batches:
+# (kind, b, L, Cin, Cout, K, s, p, op); the decoder's also at bench's 65536
+_DEC = [(64, 256, 128), (128, 128, 64), (256, 64, 4)]
+_ED = [(512, 4, 64, 5, 2), (512, 64, 128, 3, 1), (512, 128, 256, 3, 1), (512, 256, 256, 3, 1)]
+_VAE_ENC = [(512, 4, 32), (256, 32, 64), (128, 64, 128)]
+_VAE_DEC = [(64, 128, 64), (128, 64, 32), (256, 32, 4)]
+BF16_SMOKE_SHAPES = (
+    [("convt1d", b, l, cin, cout, 5, 2, 2, 1) for b in (1, 32, 4096, 65536) for l, cin, cout in _DEC]
+    + [("conv1d", b, l, cin, cout, k, 1, p, 0) for b in (32, 64, 1024) for l, cin, cout, k, p in _ED]
+    + [("conv1d", b, l, cin, cout, 5, 2, 2, 0) for b in (32, 256) for l, cin, cout in _VAE_ENC]
+    + [("convt1d", b, l, cin, cout, 5, 2, 2, 1) for b in (32, 256) for l, cin, cout in _VAE_DEC]
+    # input gradients at batch 32: conv1d's is convt1d on (g, wᵀ), convT's is conv1d
+    + [("convt1d", 32, l + 2 * p - k + 1, cout, cin, k, 1, p, 0) for l, cin, cout, k, p in _ED]
+    + [("conv1d", 32, 2 * l, cout, cin, 5, 2, 2, 0) for l, cin, cout in _DEC]
+)
+
+
+def _bf16_run(kind, x, w, bias, s, p, op):
+    if kind == "convt1d":
+        return convt1d_cuda(x, w, bias, s, p, op, bf16=True), convt1d_plain(x, w, bias, s, p, op, bf16=True)
+    return conv1d_cuda(x, w, bias, s, p, bf16=True), conv1d_plain(x, w, bias, s, p, bf16=True)
+
+
+@pytest.mark.parametrize("kind,b,l,cin,cout,k,s,p,op", BF16_SMOKE_SHAPES)
+def test_bf16_mode_at_the_smoke_shapes_repeats_bit_for_bit(cuda, rng, kind, b, l, cin, cout, k, s, p, op):
+    """The bf16 core at every layer ``kernels_bf16`` times (Cin = 4 in
+    im2col rows, Cout = 4 in 8-wide tiles, stride 2, short samples sharing
+    a 256-row tile, both input-gradient routes) and at the benchmark's
+    batch of 65536: within 2e-6 of the scale of its plain version, and a
+    second launch on the same inputs equal bit for bit (no reduction is
+    split across CTAs)."""
+    gen = torch.Generator(device=cuda).manual_seed(b * 1000 + l + cin + cout)
+    x = torch.randn((b, l, cin), device=cuda, generator=gen)  # up to 4.3 GB: made on the card
+    w = _t(rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin), cuda)
+    bias = _t(rng.normal(size=(cout,)) * 0.1, cuda)
+    wrapper = convt1d_cuda if kind == "convt1d" else conv1d_cuda
+    before = wrapper.launches_bf16
+    out, want = _bf16_run(kind, x, w, bias, s, p, op)
+    again, _ = _bf16_run(kind, x, w, bias, s, p, op)
+    torch.cuda.synchronize()
+    assert wrapper.launches_bf16 == before + 2
+    assert float((out - want).abs().max()) <= 2e-6 * float(want.abs().max())
+    assert torch.equal(out, again)
+
+
+def test_conv_kernels_take_unaligned_operands_in_bf16(cuda, rng):
+    """The bf16 core with operands one float past a 16-byte boundary (its
+    4-byte copies and scalar rounding), Cin and Cout not multiples of 4."""
+    def unaligned(shape):
+        a = _t(rng.normal(size=(int(np.prod(shape)) + 1,)), cuda)[1:].view(shape)
+        assert a.data_ptr() % 16 and a.is_contiguous()
+        return a
+
+    for (cin, cout) in ((8, 12), (6, 10), (20, 36)):
+        x, w = unaligned((3, 40, cin)), unaligned((5, cin, cout))
+        for kind, geo in (("convt1d", (2, 2, 1)), ("conv1d", (2, 2, 0))):
+            got, want = _bf16_run(kind, x, w, None, *geo)
+            torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=1e-4)
 
 
 def test_fast_sampler_on_card_runs_bf16_convt_and_no_tail(cuda, rng):

@@ -9,10 +9,14 @@ algebra: gather rows by σ·t + o_q, multiply by the table's taps, mask the
 store) against ``convt1d_plain`` and ``conv1d_plain``, chain the decoder
 tail's three plans with the ReLU of its store against ``decoder_tail_plain``
 and JAX's ``fused_decoder_tail``, emulate its 3xTF32 arithmetic at full
-width, and check its shared-memory envelope and its C mirror. The kernels
-themselves are held against the plain versions on the card by
+width, and check its shared-memory envelope and its C mirror. The one-pass
+bf16 core (``csrc/igemm_bf16.cuh``) has a plan of its own (``Bf16Plan``):
+its strides, tiles and envelope, its C mirror, and a float64 emulation of
+its reduction order held against both plain versions and JAX's XLA conv.
+The kernels themselves are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
+import dataclasses
 import importlib.util
 import os
 import re
@@ -22,8 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from melogan_tpu.ops import conv as jax_conv
 from melogan_tpu.ops.pallas import decoder as jax_decoder
 from melogan_tpu.ops.pallas.conv1d import _convt_taps
 
@@ -31,6 +37,7 @@ from melogan_torch.ops import _build, igemm
 from melogan_torch.ops.conv1d import conv1d_plain, conv_out_len
 from melogan_torch.ops.convt import convt1d_plain, convt_out_len
 from melogan_torch.ops.decoder import decoder_tail_plain, stage_plans
+from melogan_torch.precision import round_bf16
 
 ROOT = Path(__file__).resolve().parents[1]
 GRID = [(k, s) for k in range(1, 8) for s in range(1, 5)]
@@ -249,24 +256,33 @@ def _chip_smoke():
     return mod
 
 
-def _chip_smoke_plans():
+def _chip_smoke_plans(bf16=False, big=()):
+    """The plans of the layers ``chip_smoke.py`` launches (``bf16``: the
+    bf16 core's, at its ``kernels_bf16`` batches and at ``big`` too)."""
     cs = _chip_smoke()
-    for b, m in cs.DECODER_CASES:  # B = 1 and 4096 at M = 64, M = 128
-        yield from stage_plans(b, m, cs.DECODER_WIDTHS)
-    for b in cs.CONVT_BATCHES:
+    if not bf16:
+        for b, m in cs.DECODER_CASES:  # B = 1 and 4096 at M = 64, M = 128
+            yield from stage_plans(b, m, cs.DECODER_WIDTHS)
+    for b in cs.CONVT_BATCHES + tuple(big):
         for l, cin, cout in cs.CONVT_LAYERS:
-            yield igemm.convt_plan(b, l, cin, cout, 5, 2, 2, 1)
-    for b in cs.CONV1D_BATCHES:
+            yield igemm.convt_plan(b, l, cin, cout, 5, 2, 2, 1, bf16)
+    for b in (cs.CONV1D_BATCHES + (cs.ED_BATCH,) + tuple(big)) if bf16 else cs.CONV1D_BATCHES:
         for l, cin, cout, k, s, p, _ in cs.CONV1D_LAYERS:
-            yield igemm.conv1d_plan(b, l, cin, cout, k, s, p)
+            yield igemm.conv1d_plan(b, l, cin, cout, k, s, p, bf16)
+    if bf16:
+        for b in cs.VAE_BATCHES + tuple(big):
+            for l, cin, cout, k, s, p, _ in cs.VAE_ENCODER:
+                yield igemm.conv1d_plan(b, l, cin, cout, k, s, p, True)
+            for l, cin, cout in cs.VAE_DECODER:
+                yield igemm.convt_plan(b, l, cin, cout, 5, 2, 2, 1, True)
     for (l, cin, cout, k, s, p, op), transposed, _ in cs.BACKWARD_LAYERS:
-        b = cs.TRAIN_BATCH
-        if transposed:  # dx = conv1d(g, wᵀ): g has the convT's output shape
-            lg = convt_out_len(l, k, s, p, op)
-            yield igemm.conv1d_plan(b, lg, cout, cin, k, s, p)
-        else:  # dx = convT(g, wᵀ)
-            lg = conv_out_len(l, k, s, p)
-            yield igemm.convt_plan(b, lg, cout, cin, k, s, p, (l + 2 * p - k) % s)
+        for b in (cs.TRAIN_BATCH,) + tuple(big):
+            if transposed:  # dx = conv1d(g, wᵀ): g has the convT's output shape
+                lg = convt_out_len(l, k, s, p, op)
+                yield igemm.conv1d_plan(b, lg, cout, cin, k, s, p, bf16)
+            else:  # dx = convT(g, wᵀ)
+                lg = conv_out_len(l, k, s, p)
+                yield igemm.convt_plan(b, lg, cout, cin, k, s, p, (l + 2 * p - k) % s, bf16)
 
 
 def test_shared_memory_envelope():
@@ -352,3 +368,225 @@ def test_headers_make_every_library_stale(tmp_path, monkeypatch):
     os.utime(header, (900, 900))
     os.utime(csrc / "a.cu", (1100, 1100))
     assert _build.is_stale("a") and not _build.is_stale("b")
+
+
+# --- the one-pass bf16 core (csrc/igemm_bf16.cuh) ---------------------------
+
+
+def _corner_plans(bf16):
+    for k in (1, 3, 7):
+        for s in (1, 2, 16):
+            for cin in (4, 6, 17, 256):
+                for cout in (4, 66, 256):
+                    yield igemm.conv1d_plan(8, 600, cin, cout, k, s, k // 2, bf16)
+                    yield igemm.convt_plan(8, 600, cin, cout, k, s, k // 2, s - 1, bf16)
+
+
+def test_bf16_plan_geometry_and_envelope():
+    """Every bf16 plan ``chip_smoke.py`` launches, at batches up to 65536,
+    and the corners of the limits: shared memory within 227 KB, the grid
+    within one launch, bf16 row strides that keep ldmatrix rows 16-byte
+    aligned and put the 8 rows of a phase (consecutive A rows, consecutive
+    W' rows) in 8 distinct 16-byte bank groups, and the tile arithmetic the
+    kernel's ``plan_ok`` checks."""
+    plans = list(_chip_smoke_plans(bf16=True, big=(65536,))) + list(_corner_plans(True))
+    assert len(plans) > 200
+    assert all(isinstance(p, igemm.Bf16Plan) for p in plans)
+    for p in plans:
+        assert p.smem_bytes <= igemm.SMEM_LIMIT, p
+        gx, gy = p.grid
+        assert gx < 2**31 and gy == 1
+        assert p.threads in (128, 256, 512) and p.tile_m % p.warp_m == 0
+        for stride in (p.a_stride, p.w_stride):
+            assert stride % 8 == 0 and (stride // 8) % 2 == 1  # 16-byte rows, odd count of them
+            assert len({(r * stride * 2 // 16) % 8 for r in range(8)}) == 8
+        assert p.a_cols * 4 % 16 == 0 and p.land_floats % 4 == 0 and p.tile_halves % 8 == 0
+        assert p.segs * p.seg <= p.tile_m and (p.segs == 1 or p.seg == p.rows)
+        assert p.segs * p.l * p.cin < 2**31
+        if p.im2col:
+            assert p.cin <= p.cw <= 8 and p.chunks == 1 and p.a_rows == p.tile_m
+            assert p.a_cols >= max(16, p.q * p.cw) and p.w_rows == p.a_cols
+        else:
+            assert p.cw in (16, 32, 64) and p.chunks == -(-p.cin // p.cw) and p.w_rows == p.q * p.cw
+            assert p.planes == min(p.sigma, p.q)
+            # the last row any lane reads: segment, row and halo of the last tap
+            last = (p.planes - 1) * p.plane_rows + p.segs * (p.seg + (p.q - 1) // p.sigma) - 1
+            assert last < p.a_rows
+        assert p.stages in (1, 2) and (p.stages == 1 or p.chunks > 1)
+
+
+def test_bf16_tiles_follow_the_shape():
+    """At the main path's largest batches wide layers take 256-row tiles of
+    16 warps (32 × 32), short samples share a tile, Cin = 4 stages im2col
+    rows, and narrow N keeps its 8-wide tile; a batch-1 layer takes 64."""
+    dec1 = igemm.convt_plan(4096, 64, 256, 128, 5, 2, 2, 1, bf16=True)
+    assert (dec1.tile_m, dec1.tile_n, dec1.warp_m, dec1.threads) == (256, 64, 32, 512)
+    assert (dec1.segs, dec1.seg, dec1.cw, dec1.chunks, dec1.stages) == (4, 64, 32, 8, 2)
+    ed1 = igemm.conv1d_plan(1024, 512, 4, 64, 5, 1, 2, bf16=True)
+    assert (ed1.im2col, ed1.cw, ed1.a_cols, ed1.w_rows, ed1.chunks) == (True, 4, 32, 32, 1)
+    dec3 = igemm.convt_plan(4096, 256, 64, 4, 5, 2, 2, 1, bf16=True)
+    assert (dec3.tile_m, dec3.tile_n, dec3.n) == (128, 8, 8)
+    vae1 = igemm.conv1d_plan(256, 512, 4, 32, 5, 2, 2, bf16=True)
+    assert (vae1.im2col, vae1.tile_n, vae1.sigma) == (True, 32, 2)
+    enc3 = igemm.conv1d_plan(32, 128, 64, 128, 5, 2, 2, bf16=True)
+    assert (enc3.planes, enc3.plane_rows, enc3.sigma) == (2, 66, 2)
+    one = igemm.convt_plan(1, 64, 256, 128, 5, 2, 2, 1, bf16=True)
+    assert (one.tile_m, one.warp_m, one.grid) == (64, 32, (4, 1))
+    assert igemm.convt_plan(4096, 64, 256, 128, 5, 2, 2, 1) != dec1  # the 3xTF32 plan is its own
+
+
+def test_bf16_c_plan_mirrors_the_header():
+    """``CBf16Plan`` has the int fields of ``igemm_bf16::Plan`` in the
+    header's order, then the 16 × 8 tap table, and carries the plan's
+    values (log2 fields included)."""
+    header = (ROOT / "melogan_torch" / "csrc" / "igemm_bf16.cuh").read_text()
+    body = re.search(r"struct Plan \{(.*?)\};", header, re.S).group(1)
+    ints = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if line.startswith("int "):
+            ints += [n.strip() for n in line[4:].rstrip(";").split(",")]
+    assert "signed char taps[kMaxClasses][kMaxQ];" in body
+    assert [f for f, _ in igemm.CBf16Plan._fields_] == ints + ["taps"]
+    plan = igemm.convt_plan(4096, 64, 256, 128, 5, 2, 2, 1, bf16=True)
+    c = plan.c_struct()
+    for f in ints:
+        want = {"cw_shift": 5, "a_cols_shift": 5}.get(f, getattr(plan, f, None))
+        assert getattr(c, f) == want, f
+    table = bytes(c)[-igemm.MAX_CLASSES * igemm.MAX_Q:]
+    assert list(np.frombuffer(table, np.int8)[:16]) == [4, 2, 0, -1, -1, -1, -1, -1,
+                                                        -1, 3, 1, -1, -1, -1, -1, -1]
+
+
+def _rz32(v):
+    """float64 to float32 rounded toward zero, as the tensor cores add."""
+    f = v.float()
+    return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def emulate_bf16(plan, x, w, bias=None, fold=True):
+    """The bf16 core's arithmetic in its reduction order: x and w rounded
+    to bf16; per N tile its active offsets; per chunk of cw channels the
+    (offset, channel) rows in k16 steps, each step's 16 products summed
+    exactly and added into the pair's partial sum rounded toward zero to
+    f32 (the first from zero); each pair's partial sum folded into the f32
+    sum by an IEEE add (``fold``; else every step into one chain toward
+    zero); bias by an f32 add."""
+    xr, wr = round_bf16(x).double(), round_bf16(w).double()
+    b = x.shape[0]
+    y = torch.zeros((b, plan.rows, plan.n), dtype=torch.float32)
+    t = torch.arange(plan.rows)
+    for n0 in range(0, plan.n, plan.tile_n):
+        cols = torch.arange(n0, min(n0 + plan.tile_n, plan.n))
+        r_of, co_of = cols // plan.cout, cols % plan.cout
+        act = [q for q in range(plan.q) if any(plan.taps[r][q] >= 0 for r in set(r_of.tolist()))]
+        depth = len(act) * plan.cw
+        ksteps = -(-depth // 16)
+        kk = torch.arange(ksteps * 16)
+        qs = torch.tensor([act[i] if i < len(act) else 0 for i in (kk // plan.cw).tolist()])
+        taps = torch.tensor([[plan.taps[r][q] for r in r_of.tolist()] for q in qs.tolist()])
+        rows = plan.sigma * t[:, None] + plan.o_min + qs[None, :]
+        acc = torch.zeros((b, plan.rows, len(cols)), dtype=torch.float32)
+        for c in range(plan.chunks if depth else 0):
+            ch = c * plan.cw + kk % plan.cw
+            valid = (kk < depth) & (ch < plan.cin)
+            chc = ch.clamp(max=plan.cin - 1)
+            a = xr[:, rows.clamp(0, plan.l - 1), chc] * ((rows >= 0) & (rows < plan.l) & valid)
+            wk = wr[taps.clamp(min=0), chc[:, None], co_of[None, :]] * ((taps >= 0) & valid[:, None])
+            part = None
+            for s in range(ksteps):
+                prod = a[..., 16 * s:16 * s + 16] @ wk[16 * s:16 * s + 16]
+                if not fold:
+                    acc = _rz32(acc.double() + prod)
+                    continue
+                part = _rz32(prod if s % 2 == 0 else part.double() + prod)
+                if s % 2 == 1 or s == ksteps - 1:
+                    acc = acc + part
+        y[..., cols] = acc
+    if bias is not None:
+        y = y + bias.repeat(plan.classes)
+    return y.reshape(b, plan.rows * plan.classes, plan.cout)[:, :plan.lout]
+
+
+BF16_FULL_WIDTH = [
+    # (op, main-path batch, L, Cin, Cout, K, s, p, op): the decoder's three
+    # convts, the ED's four convs, the VAE encoder's first (Cin = 4, s2), the
+    # ED's widest input gradient (a stride-1 convT 256 → 256) and decoder
+    # stage 3's (a conv on g with Cin 4)
+    ("convt", 4096, 64, 256, 128, 5, 2, 2, 1),
+    ("convt", 4096, 128, 128, 64, 5, 2, 2, 1),
+    ("convt", 4096, 256, 64, 4, 5, 2, 2, 1),
+    ("conv1d", 1024, 512, 4, 64, 5, 1, 2, 0),
+    ("conv1d", 1024, 512, 64, 128, 3, 1, 1, 0),
+    ("conv1d", 1024, 512, 128, 256, 3, 1, 1, 0),
+    ("conv1d", 1024, 512, 256, 256, 3, 1, 1, 0),
+    ("conv1d", 256, 512, 4, 32, 5, 2, 2, 0),
+    ("convt", 32, 512, 256, 256, 3, 1, 1, 0),
+    ("conv1d", 32, 512, 4, 64, 5, 2, 2, 0),
+]
+
+
+@pytest.mark.parametrize("op,batch,l,cin,cout,k,s,p,opad", BF16_FULL_WIDTH)
+def test_bf16_core_emulation_at_full_width(op, batch, l, cin, cout, k, s, p, opad):
+    """The bf16 core's reduction order (the plan of the main path's batch:
+    its N tiles, chunks, k16 steps and pairwise fold, with the tensor
+    cores' adds toward zero), emulated at full width on 2 samples: within
+    1e-6 of the output scale of a float64 sum of the same bf16-rounded
+    products (the card's gate in ``chip_smoke.py``), and within 2e-6 of
+    the plain version (``bf16=True``) and of JAX's XLA conv on the rounded
+    operands (on the CPU XLA computes DEFAULT as HIGHEST, so the operands
+    are rounded first): f32 sums of the same products in other orders."""
+    rng = np.random.default_rng(l + cin + cout + k)
+    x = _t(rng.normal(size=(2, l, cin)))
+    w = _t(rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin))
+    bias = _t(0.1 * rng.normal(size=(cout,)))
+    if op == "convt":
+        plan = igemm.convt_plan(batch, l, cin, cout, k, s, p, opad, bf16=True)
+        plain = convt1d_plain(x, w, bias, s, p, opad, bf16=True)
+        theirs = jax_conv.conv_transpose1d(jnp.asarray(round_bf16(x).numpy()), jnp.asarray(round_bf16(w).numpy()),
+                                           s, p, opad, precision=jax.lax.Precision.HIGHEST, pallas=False)
+    else:
+        plan = igemm.conv1d_plan(batch, l, cin, cout, k, s, p, bf16=True)
+        plain = conv1d_plain(x, w, bias, s, p, bf16=True)
+        theirs = jax_conv.conv1d(jnp.asarray(round_bf16(x).numpy()), jnp.asarray(round_bf16(w).numpy()),
+                                 s, p, precision=jax.lax.Precision.HIGHEST, pallas=False)
+    theirs = torch.from_numpy(np.array(theirs)) + bias
+    plan = dataclasses.replace(plan, batch=2)
+    got = emulate_bf16(plan, x, w, bias)
+    exact = run_plan(plan, round_bf16(x).double(), round_bf16(w).double(), bias.double())
+    scale = float(exact.abs().max())
+    assert got.shape == plain.shape == theirs.shape == exact.shape
+    assert float((got.double() - exact).abs().max()) <= 1e-6 * scale
+    for want in (plain, theirs):
+        assert float((got - want).abs().max()) <= 2e-6 * scale
+
+
+def test_bf16_fold_keeps_the_deep_sums_accurate():
+    """At the ED's deepest layer (768 products a sum) one chain of
+    truncating tensor-core adds drifts further from the float64 sum than
+    the pairwise fold does; the fold stays within 1e-6 of the scale."""
+    rng = np.random.default_rng(7)
+    x = _t(rng.normal(size=(2, 512, 256)))
+    w = _t(rng.normal(size=(3, 256, 256)) / np.sqrt(3 * 256))
+    plan = dataclasses.replace(igemm.conv1d_plan(1024, 512, 256, 256, 3, 1, 1, bf16=True), batch=2)
+    exact = run_plan(plan, round_bf16(x).double(), round_bf16(w).double())
+    scale = float(exact.abs().max())
+    folded = float((emulate_bf16(plan, x, w).double() - exact).abs().max())
+    chained = float((emulate_bf16(plan, x, w, fold=False).double() - exact).abs().max())
+    assert folded <= 1e-6 * scale and folded < chained
+
+
+def test_bf16_ablation_patches_apply_to_the_core():
+    """``profile_conv_bf16 --part ablate`` builds copies of the bf16 core
+    with one phase taken out by text patches; each patch still finds its
+    text in ``csrc/igemm_bf16.cuh`` and changes it."""
+    from melogan_torch import profile_conv_bf16
+
+    text = (ROOT / "melogan_torch" / "csrc" / "igemm_bf16.cuh").read_text()
+    assert profile_conv_bf16.ABLATIONS["full"] == []
+    for name, patches in profile_conv_bf16.ABLATIONS.items():
+        patched = text
+        for old, new in patches:
+            assert old in patched and old != new, name
+            patched = patched.replace(old, new)
+        assert (patched != text) == (name != "full")
