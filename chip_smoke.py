@@ -17,7 +17,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and 1024, plus the VAE encoder's stride-2 layer;
    every kernel's bound is taken at the 3xTF32 rate; then the two backward
    routes (each conv's input gradient runs the other conv's kernel) against
-   autograd through the plain versions;
+   autograd through the plain versions. Every f32 conv launch there (and in
+   ``kernels_ed``, ``kernels_vae`` and ``kernels_tp``) runs twice and must
+   repeat bit for bit; its record names how the core's producer copied x
+   (``x_path``: "tma", or "cp.async" where no tensor map describes x);
 4. drives the sampling path with every launch count set to 0:
    ``Sampler(GANConfig(), device="cuda")`` for the four emotions and a batch
    of 4096 (the decoder-tail kernel), max_notes 1024 (the same kernel at
@@ -356,6 +359,22 @@ def compare(out, ref, what, tol=TOL_REL):
     return err, err / scale if scale else 0.0
 
 
+def bit_equal_repeat(torch, first, second, what):
+    """A second launch of an f32 kernel on the same inputs must give the
+    first one's bits: the f32 core's split-K parts are summed in a fixed
+    order (resume and fault injection rely on it)."""
+    if not torch.equal(first, second):
+        raise SystemExit(f"{what}: a second launch differs from the first (not bit for bit)")
+
+
+def x_path(plan, x):
+    """How the f32 core's producer copied x for this plan and tensor: "tma"
+    or "cp.async" (``ops/igemm.py::tf32_x_path``)."""
+    from melogan_torch.ops.igemm import tf32_x_path
+
+    return tf32_x_path(plan, x.data_ptr())
+
+
 def check_decoder(torch, F, ops, b, m, gen, results):
     from melogan_torch.profile_sample import device_kernels_per_call
 
@@ -408,15 +427,18 @@ def check_convt(torch, F, ops, b, gen, results, layers=CONVT_LAYERS, phase=None)
         bias = 0.1 * torch.randn((cout,), device="cuda", generator=gen)
         out = ops["convt"].convt1d_cuda(x, w, bias, 2, 2, 1)
         ref = ops["convt"].convt1d_plain(x, w, bias, 2, 2, 1)
+        again = ops["convt"].convt1d_cuda(x, w, bias, 2, 2, 1)
         torch.cuda.synchronize()
         err, rel = compare(out, ref, f"convt1d B={b} L={l} {cin}->{cout}")
+        bit_equal_repeat(torch, out, again, f"convt1d B={b} L={l} {cin}->{cout}")
         xn, wt = x.transpose(1, 2).contiguous(), w.permute(1, 2, 0).contiguous()
         iters = 20 if b > 64 else 200
         flops = ops["convt"].convt_flops(b, l, cin, cout, 5, 2, 2, 1)
         nbytes = 4 * (x.numel() + w.numel() + bias.numel() + out.numel())
         rec = {
             "kernel": "convt1d", "layer": f"dec{i + 1}", "batch": b, "shape": [b, l, cin, cout],
-            "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL,
+            "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL, "bit_equal_repeat": True,
+            "x_path": x_path(ops["convt"].convt_plan(b, l, cin, cout, 5, 2, 2, 1), x),
             "kernel_ms": time_ms(torch, lambda: ops["convt"].convt1d_cuda(x, w, bias, 2, 2, 1), iters),
             "plain_ms": time_ms(torch, lambda: ops["convt"].convt1d_plain(x, w, bias, 2, 2, 1), iters),
             "library_ms": time_ms(torch, lambda: F.conv_transpose1d(xn, wt, bias, 2, 2, 1), iters),
@@ -440,15 +462,18 @@ def check_conv1d(torch, F, ops, b, gen, results, layers=CONV1D_LAYERS, phase=Non
         c1 = ops["conv1d"]
         out = c1.conv1d_cuda(x, w, bias, s, p)
         ref = c1.conv1d_plain(x, w, bias, s, p)
+        again = c1.conv1d_cuda(x, w, bias, s, p)
         torch.cuda.synchronize()
         err, rel = compare(out, ref, f"conv1d B={b} {what}")
+        bit_equal_repeat(torch, out, again, f"conv1d B={b} {what}")
         xn, wt = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
         iters = 10 if b > 64 else 100
         flops = c1.conv1d_flops(b, l, cin, cout, k, s, p)
         nbytes = 4 * (x.numel() + w.numel() + bias.numel() + out.numel())
         rec = {
             "kernel": "conv1d", "layer": what, "batch": b, "shape": [b, l, cin, cout, k, s, p],
-            "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL,
+            "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL, "bit_equal_repeat": True,
+            "x_path": x_path(c1.conv1d_plan(b, l, cin, cout, k, s, p), x),
             "kernel_ms": time_ms(torch, lambda: c1.conv1d_cuda(x, w, bias, s, p), iters),
             "plain_ms": time_ms(torch, lambda: c1.conv1d_plain(x, w, bias, s, p), iters),
             "library_ms": time_ms(torch, lambda: F.conv1d(xn, wt, bias, s, p), iters),
@@ -503,13 +528,18 @@ def check_backward_routes(torch, F, ops, b, gen, results, layers=BACKWARD_LAYERS
             library = lambda: torch.nn.grad.conv1d_input((b, cin, l), wl, gn, s, p)  # noqa: E731
             flops = ct.convt_flops(b, g.shape[1], cout, cin, k, s, p, opx)
         lib_out = library()
-        compare(lib_out.transpose(1, 2), route(), f"{what} library dx")  # the same function
+        dx = route()
+        compare(lib_out.transpose(1, 2), dx, f"{what} library dx")  # the same function
+        bit_equal_repeat(torch, dx, route(), f"{what} dx route")
+        plan = (c1.conv1d_plan(b, g.shape[1], cout, cin, k, s, p) if transposed
+                else ct.convt_plan(b, g.shape[1], cout, cin, k, s, p, (l + 2 * p - k) % s))
         iters = 50
         nbytes = 4 * (g.numel() + w.numel() + x.numel())
         rec = {
             "phase": phase, "layer": what, "batch": b,
             "dx_runs": "conv1d kernel" if transposed else "convt1d kernel",
-            "max_abs_err_dx_dw_db": errs, "tol_rel": TOL_REL,
+            "max_abs_err_dx_dw_db": errs, "tol_rel": TOL_REL, "bit_equal_repeat": True,
+            "x_path": x_path(plan, g),
             "dx_kernel_ms": time_ms(torch, route, iters),
             "dx_plain_ms": time_ms(torch, route_plain, iters),
             "dx_library_ms": time_ms(torch, library, iters),

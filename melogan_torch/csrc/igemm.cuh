@@ -1,11 +1,9 @@
-// Implicit-GEMM core of the port's kernels (convt1d.cu, conv1d.cu,
-// decoder_tail.cu): tensor cores in 3xTF32, operands staged by cp.async in
-// three stages. The one-pass bf16 mode of conv1d.cu and convt1d.cu has a
-// core of its own, igemm_bf16.cuh.
+// Implicit-GEMM core of the decoder tail (decoder_tail.cu): tensor cores in
+// 3xTF32 by mma.sync, operands staged by cp.async in three stages. The convs
+// have cores of their own: igemm_tf32x3.cuh (their f32 mode: TMA, wgmma,
+// persistent CTAs) and igemm_bf16.cuh (their one-pass bf16 mode).
 //
-// Replaces, through those entry points:
-//   melogan_tpu/ops/pallas/conv1d.py::_convt_kernel  (transposed conv)
-//   melogan_tpu/ops/pallas/conv1d.py::_conv1d_kernel (strided conv)
+// Replaces, through decoder_tail.cu:
 //   melogan_tpu/ops/pallas/decoder.py::_decoder_kernel (three transposed
 //     convs, bias and ReLU after the first two: three launches)
 //
@@ -60,7 +58,7 @@
 // - The store works out each column's class and channel once per thread and
 //   writes 8-byte pairs of channels where Cout is even. With `relu` set it
 //   clamps each sum at zero after the bias (the decoder tail's stages).
-// Later work: wgmma with TMA, and a persistent CTA per SM.
+// Later work: the decoder tail on the core of igemm_tf32x3.cuh (ROADMAP B.8).
 
 #pragma once
 

@@ -1,17 +1,27 @@
-"""SHA-256 digests of the 3xTF32 kernels' outputs at ``chip_smoke.py``'s
-``kernels`` shapes, to hold two trees' f32 kernels bit for bit equal.
+"""SHA-256 digests of the kernels' outputs at ``chip_smoke.py``'s shapes, to
+hold two trees' kernels bit for bit.
 
     python -m melogan_torch.kernel_digests
 
-Runs ``decoder_tail`` (batch 1 and 4096 at M = 64, 2048 at M = 128),
-``convt1d`` (the decoder's layers at batch 1, 32 and 4096), ``conv1d`` (the
-ED's layers and the VAE encoder's first at batch 32 and 1024) and both
-input-gradient routes at batch 32, all in the f32 mode, on inputs drawn on
-the card from one seed, and prints one JSON object a launch (kernel, shape,
-digest of the output's bytes) and last the digest of all of them. It calls
-only the wrappers' f32 signatures, so the same file runs in a checkout from
-before the bf16 core (copy it into that tree's ``melogan_torch/``). Needs
-CUDA.
+What holds now, and what the output lets one check (copy this file into a
+parent tree's ``melogan_torch/``, a ``git archive`` under ``build/``, and run
+it from both roots in one call):
+
+- ``decoder_tail`` (batch 1 and 4096 at M = 64, 2048 at M = 128, on the
+  ``mma.sync`` core of ``csrc/igemm.cuh``) and the one-pass bf16 mode of
+  ``convt1d`` and ``conv1d`` (``csrc/igemm_bf16.cuh``, at the
+  ``kernels_bf16`` shapes: the decoder's layers at batch 1, 32 and 4096, the
+  ED's at 32, 64 and 1024, the VAE's at 32 and 256, both input-gradient
+  routes at 32) are bit-identical to the parent's: ``unchanged_sha256``, one
+  digest over all of them, is the same in both trees;
+- the f32 convs (``csrc/igemm_tf32x3.cuh``, at the ``kernels`` shapes) are
+  a new core, whose sums run in another order than the parent's: their
+  digest (``f32_sha256``) differs between the trees, and each f32 launch
+  repeats bit for bit within a tree (``f32_repeats_bit_for_bit``).
+
+Inputs are drawn on the card from one seed; one JSON object a launch
+(kernel, mode, shape, digest), then the summary. It calls only the
+wrappers' public signatures. Needs CUDA.
 """
 from __future__ import annotations
 
@@ -21,8 +31,11 @@ import json
 import torch
 
 DECODER = [(64, 256, 128), (128, 128, 64), (256, 64, 4)]
-CONV1D = [(512, 4, 64, 5, 1, 2), (512, 64, 128, 3, 1, 1), (512, 128, 256, 3, 1, 1),
-          (512, 256, 256, 3, 1, 1), (512, 4, 32, 5, 2, 2)]
+ED = [(512, 4, 64, 5, 1, 2), (512, 64, 128, 3, 1, 1), (512, 128, 256, 3, 1, 1), (512, 256, 256, 3, 1, 1)]
+VAE_ENCODER = [(512, 4, 32, 5, 2, 2), (256, 32, 64, 5, 2, 2), (128, 64, 128, 5, 2, 2)]
+VAE_DECODER = [(64, 128, 64), (128, 64, 32), (256, 32, 4)]
+CONV1D = ED + VAE_ENCODER[:1]
+GROUP = {"bf16": "unchanged", "f32": "f32"}
 
 
 def main() -> None:
@@ -37,36 +50,61 @@ def main() -> None:
     def rand(*shape, scale=1.0):
         return scale * torch.randn(shape, device="cuda", generator=gen)
 
-    whole = hashlib.sha256()
+    digests = {"unchanged": hashlib.sha256(), "f32": hashlib.sha256()}
+    repeats = []
 
-    def emit(kernel, shape, out):
+    def emit(kernel, mode, shape, run, group):
+        """One launch's digest into ``group``: "unchanged" (the parent's
+        bits) or "f32" (the new core, whose launches must repeat)."""
+        out = run()
         torch.cuda.synchronize()
         digest = hashlib.sha256(out.contiguous().cpu().numpy().tobytes()).hexdigest()
-        whole.update(digest.encode())
-        print(json.dumps({"kernel": kernel, "shape": shape, "sha256": digest}), flush=True)
+        if group == "f32":
+            repeats.append(bool(torch.equal(out, run())))
+        digests[group].update(digest.encode())
+        print(json.dumps({"kernel": kernel, "mode": mode, "shape": shape, "sha256": digest}), flush=True)
 
     for b, m in ((1, 64), (4096, 64), (2048, 128)):
         widths = (256, 128, 64, 4)
         x = rand(b, m, widths[0])
         stages = [(rand(5, cin, cout, scale=(5 * cin) ** -0.5), rand(cout, scale=0.1))
                   for cin, cout in zip(widths[:-1], widths[1:])]
-        emit("decoder_tail", [b, m], fused_decoder_tail(x, stages))
-    for b in (1, 32, 4096):
+        emit("decoder_tail", "f32", [b, m], lambda: fused_decoder_tail(x, stages), "unchanged")
+
+    def convt(b, l, cin, cout, mode, k=5, s=2, p=2, op=1, bias=True):
+        x, w = rand(b, l, cin), rand(k, cin, cout, scale=(k * cin) ** -0.5)
+        bb = rand(cout, scale=0.1) if bias else None
+        emit("convt1d", mode, [b, l, cin, cout, k, s, p, op],
+             lambda: convt1d_cuda(x, w, bb, s, p, op, bf16=mode == "bf16"), GROUP[mode])
+
+    def conv(b, l, cin, cout, k, s, p, mode, bias=True):
+        x, w = rand(b, l, cin), rand(k, cin, cout, scale=(k * cin) ** -0.5)
+        bb = rand(cout, scale=0.1) if bias else None
+        emit("conv1d", mode, [b, l, cin, cout, k, s, p],
+             lambda: conv1d_cuda(x, w, bb, s, p, bf16=mode == "bf16"), GROUP[mode])
+
+    for mode in ("bf16", "f32"):
+        for b in (1, 32, 4096):
+            for l, cin, cout in DECODER:
+                convt(b, l, cin, cout, mode)
+        for b in ((32, 64, 1024) if mode == "bf16" else (32, 1024)):
+            for shape in (ED if mode == "bf16" else CONV1D):
+                conv(b, *shape, mode)
+        if mode == "bf16":
+            for b in (32, 256):
+                for shape in VAE_ENCODER:
+                    conv(b, *shape, mode)
+                for l, cin, cout in VAE_DECODER:
+                    convt(b, l, cin, cout, mode)
+        # the input gradients at batch 32: conv1d's is convt1d on (g, wᵀ), convT's conv1d
+        for l, cin, cout, k, s, p in ED:
+            convt(32, (l + 2 * p - k) // s + 1, cout, cin, mode, k, s, p, (l + 2 * p - k) % s, bias=False)
         for l, cin, cout in DECODER:
-            x, w, bias = rand(b, l, cin), rand(5, cin, cout, scale=(5 * cin) ** -0.5), rand(cout, scale=0.1)
-            emit("convt1d", [b, l, cin, cout], convt1d_cuda(x, w, bias, 2, 2, 1))
-    for b in (32, 1024):
-        for l, cin, cout, k, s, p in CONV1D:
-            x, w, bias = rand(b, l, cin), rand(k, cin, cout, scale=(k * cin) ** -0.5), rand(cout, scale=0.1)
-            emit("conv1d", [b, l, cin, cout, k, s, p], conv1d_cuda(x, w, bias, s, p))
-    # the input gradients at batch 32: conv1d's is convt1d on (g, wᵀ), convT's conv1d
-    for l, cin, cout, k, s, p in CONV1D[:4]:
-        g, wt = rand(32, (l + 2 * p - k) // s + 1, cout), rand(k, cout, cin, scale=(k * cin) ** -0.5)
-        emit("convt1d", [32, "dx", l, cin, cout], convt1d_cuda(g, wt, None, s, p, (l + 2 * p - k) % s))
-    for l, cin, cout in DECODER:
-        g, wt = rand(32, 2 * l, cout), rand(5, cout, cin, scale=(5 * cin) ** -0.5)
-        emit("conv1d", [32, "dx", l, cin, cout], conv1d_cuda(g, wt, None, 2, 2))
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "all_sha256": whole.hexdigest()}), flush=True)
+            conv(32, 2 * l, cout, cin, 5, 2, 2, mode, bias=False)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "unchanged_sha256": digests["unchanged"].hexdigest(),
+                      "f32_sha256": digests["f32"].hexdigest(),
+                      "f32_repeats_bit_for_bit": all(repeats)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -133,6 +133,14 @@ def count_launch(wrapper, bf16: bool = False) -> None:
             wrapper.launches_bf16 += 1
 
 
+def scratch_for(plan, dev):
+    """The f32 core's scratch for one launch (``Tf32x3Plan.scratch_floats``:
+    W' split once, split-K partials and counters) from the caching
+    allocator on the current stream, or None for a plan without any."""
+    floats = getattr(plan, "scratch_floats", 0)
+    return torch.empty(floats, device=dev, dtype=torch.float32) if floats else None
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")

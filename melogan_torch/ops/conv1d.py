@@ -64,7 +64,7 @@ def _lib():
     lib = _build.load("conv1d")
     if not getattr(lib, "_melogan_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.melogan_conv1d.argtypes = [p, p, p, p, p, i, p, i]
+        lib.melogan_conv1d.argtypes = [p, p, p, p, p, p, i, p, i]
         lib.melogan_conv1d.restype = ctypes.c_int
         lib._melogan_typed = True
     return lib
@@ -75,7 +75,10 @@ def conv1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 1,
     """Launch ``csrc/conv1d.cu`` (the implicit-GEMM core) on PyTorch's
     current stream; ``bf16``: on the one-pass bf16 core
     (``csrc/igemm_bf16.cuh``: x and w rounded to bf16 once, on their way
-    into shared memory, bf16 tensor-core products, f32 sums), else 3xTF32.
+    into shared memory, bf16 tensor-core products, f32 sums), else in
+    3xTF32 on the f32 core (``csrc/igemm_tf32x3.cuh``: w split once by a
+    prologue launch into scratch from the caching allocator, x by TMA,
+    wgmma, persistent CTAs, split-K in a fixed order).
 
     Takes CUDA float32 contiguous tensors only and raises on anything else
     (K ≤ 7, stride ≤ 16). Forward only: gradients come from
@@ -103,9 +106,11 @@ def conv1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 1,
     y = torch.empty((b, lout, cout), device=dev, dtype=torch.float32)
     if y.numel() == 0:
         return y
+    plan = conv1d_plan(b, l, cin, cout, k, stride, padding, bf16)
+    scratch = _build.scratch_for(plan, dev)
     err = _lib().melogan_conv1d(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), ctypes.byref(conv1d_plan(b, l, cin, cout, k, stride, padding, bf16).c_struct()),
+        y.data_ptr(), ctypes.byref(plan.c_struct()), scratch.data_ptr() if scratch is not None else None,
         dev.index, torch.cuda.current_stream(dev).cuda_stream, int(bf16),
     )
     _build.check(err, "conv1d launch")

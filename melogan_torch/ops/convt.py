@@ -70,7 +70,7 @@ def _lib():
     lib = _build.load("convt1d")
     if not getattr(lib, "_melogan_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.melogan_convt1d.argtypes = [p, p, p, p, p, i, p, i]
+        lib.melogan_convt1d.argtypes = [p, p, p, p, p, p, i, p, i]
         lib.melogan_convt1d.restype = ctypes.c_int
         lib._melogan_typed = True
     return lib
@@ -80,7 +80,8 @@ def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
                  padding: int = 0, output_padding: int = 0, bf16: bool = False):
     """Launch ``csrc/convt1d.cu`` (the implicit-GEMM core, every parity class
     in one launch) on PyTorch's current stream; ``bf16``: on the one-pass
-    bf16 core (``csrc/igemm_bf16.cuh``), else 3xTF32.
+    bf16 core (``csrc/igemm_bf16.cuh``), else in 3xTF32 on the f32 core
+    (``csrc/igemm_tf32x3.cuh``).
 
     Takes CUDA float32 contiguous tensors only and raises on anything else
     (K ≤ 7, stride ≤ 16); forward only (no autograd), so it refuses inputs
@@ -110,9 +111,10 @@ def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
     if y.numel() == 0:
         return y
     plan = convt_plan(b, l, cin, cout, k, stride, padding, output_padding, bf16)
+    scratch = _build.scratch_for(plan, dev)
     err = _lib().melogan_convt1d(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), ctypes.byref(plan.c_struct()),
+        y.data_ptr(), ctypes.byref(plan.c_struct()), scratch.data_ptr() if scratch is not None else None,
         dev.index, torch.cuda.current_stream(dev).cuda_stream, int(bf16),
     )
     _build.check(err, "convt1d launch")

@@ -89,7 +89,7 @@ def _lib():
 def stage_plans(b: int, m: int, widths: Sequence[int]) -> Tuple[igemm.Plan, ...]:
     """The core's plan of each stage: a k5/s2/p2/op1 transposed conv from
     length m·2^i and widths[i] channels to widths[i + 1] (cached)."""
-    return tuple(igemm.convt_plan(b, m << i, widths[i], widths[i + 1], K, STRIDE, PADDING, 1)
+    return tuple(igemm.tail_plan(b, m << i, widths[i], widths[i + 1], K, STRIDE, PADDING, 1)
                  for i in range(3))
 
 

@@ -7,11 +7,12 @@ installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerance: the kernels (the two convs and the decoder tail, all on one
-core) sum in 3xTF32 on the tensor cores (each operand split into two TF32
-halves, three products into one f32 sum), which is f32-accurate (about 5e-7
-of the output scale against float64 at full width, as IEEE f32 is;
-tests/test_torch_igemm.py); the plain versions sum in IEEE f32 (TF32 off),
+Tolerance: the kernels (the two convs' f32 mode on ``csrc/igemm_tf32x3.cuh``,
+the decoder tail on ``csrc/igemm.cuh``) sum in 3xTF32 on the tensor cores
+(each operand split into two TF32 halves, three products into one f32 sum),
+which is f32-accurate (about 5e-7 of the output scale against float64 at
+full width, as IEEE f32 is; tests/test_torch_igemm.py); the plain versions
+sum in IEEE f32 (TF32 off),
 all in different orders over at most 5·Cin products per output. 1e-4
 absolute and relative on O(1) outputs is about 100× that rounding; one-pass
 TF32 would miss it.
@@ -303,6 +304,48 @@ def test_bf16_mode_at_the_smoke_shapes_repeats_bit_for_bit(cuda, rng, kind, b, l
     torch.cuda.synchronize()
     assert wrapper.launches_bf16 == before + 2
     assert float((out - want).abs().max()) <= 2e-6 * float(want.abs().max())
+    assert torch.equal(out, again)
+
+
+# every f32 layer chip_smoke.py launches in its kernel phases (kernels, kernels_ed,
+# kernels_vae, backward_route, kernels_tp) and the decoder's at bench's 65536
+_TP_CONV1D = [(512, 128, 128, 3, 1), (512, 128, 256, 3, 1)]
+F32_SMOKE_SHAPES = (
+    BF16_SMOKE_SHAPES
+    + [("conv1d", b, 512, 4, 32, 5, 2, 2, 0) for b in (32, 1024)]
+    + [("convt1d", 64, l + 2 * p - k + 1, cout, cin, k, 1, p, 0) for l, cin, cout, k, p in _ED[1:]]
+    + [("convt1d", 32, (l + 4 - 5) // 2 + 1, cout, cin, 5, 2, 2, (l + 4 - 5) % 2) for l, cin, cout in _VAE_ENC]
+    + [("conv1d", 32, 2 * l, cout, cin, 5, 2, 2, 0) for l, cin, cout in _VAE_DEC]
+    + [("convt1d", 32, 64, 128, 128, 5, 2, 2, 1), ("conv1d", 32, 128, 128, 128, 5, 2, 2, 0)]
+    + [("conv1d", 32, l, cin, cout, k, 1, p, 0) for l, cin, cout, k, p in _TP_CONV1D]
+    + [("convt1d", 32, l + 2 * p - k + 1, cout, cin, k, 1, p, 0) for l, cin, cout, k, p in _TP_CONV1D]
+)
+
+
+@pytest.mark.parametrize("kind,b,l,cin,cout,k,s,p,op", F32_SMOKE_SHAPES)
+def test_f32_mode_at_the_smoke_shapes_repeats_bit_for_bit(cuda, rng, kind, b, l, cin, cout, k, s, p, op):
+    """The f32 core (``csrc/igemm_tf32x3.cuh``) at every f32 layer of
+    ``chip_smoke.py``'s kernel phases (split-K parts at batch 1 and at the
+    tensor-parallel shards, im2col at Cin = 4, 8-wide tiles at Cout = 4,
+    stride 2) and at the benchmark's batch of 65536: within 1e-6 of the
+    scale of the plain version run in float64 (3xTF32 is f32-accurate), and
+    a second launch on the same inputs equal bit for bit (split-K parts are
+    summed in a fixed order), one counted launch each, none in bf16 mode."""
+    gen = torch.Generator(device=cuda).manual_seed(b * 1000 + l + cin + cout)
+    x = torch.randn((b, l, cin), device=cuda, generator=gen)  # up to 4.3 GB: made on the card
+    w = _t(rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin), cuda)
+    bias = _t(rng.normal(size=(cout,)) * 0.1, cuda)
+    wrapper = convt1d_cuda if kind == "convt1d" else conv1d_cuda
+    before, before_bf16 = wrapper.launches, wrapper.launches_bf16
+    if kind == "convt1d":
+        out, again = (convt1d_cuda(x, w, bias, s, p, op) for _ in range(2))
+        want = convt1d_plain(x.double(), w.double(), bias.double(), s, p, op)
+    else:
+        out, again = (conv1d_cuda(x, w, bias, s, p) for _ in range(2))
+        want = conv1d_plain(x.double(), w.double(), bias.double(), s, p)
+    torch.cuda.synchronize()
+    assert (wrapper.launches - before, wrapper.launches_bf16 - before_bf16) == (2, 0)
+    assert float((out.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
     assert torch.equal(out, again)
 
 

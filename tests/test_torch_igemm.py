@@ -9,10 +9,17 @@ algebra: gather rows by σ·t + o_q, multiply by the table's taps, mask the
 store) against ``convt1d_plain`` and ``conv1d_plain``, chain the decoder
 tail's three plans with the ReLU of its store against ``decoder_tail_plain``
 and JAX's ``fused_decoder_tail``, emulate its 3xTF32 arithmetic at full
-width, and check its shared-memory envelope and its C mirror. The one-pass
-bf16 core (``csrc/igemm_bf16.cuh``) has a plan of its own (``Bf16Plan``):
-its strides, tiles and envelope, its C mirror, and a float64 emulation of
-its reduction order held against both plain versions and JAX's XLA conv.
+width, and check its shared-memory envelope and its C mirror. The f32 mode's
+core (``csrc/igemm_tf32x3.cuh``) has a plan of its own (``Tf32x3Plan``): its
+envelope, its static list of work items and split-K parts, its C mirror, and
+a float64 emulation of its reduction order (TF32 halves split once, k8
+steps of three products, tensor-core adds toward zero, the pairwise fold,
+split-K parts summed in part order) held against both plain versions and
+JAX's Pallas kernels in interpret mode. The decoder tail's ``mma.sync`` core
+(``csrc/igemm.cuh``) keeps ``Plan`` (``tail_plan``). The one-pass bf16 core
+(``csrc/igemm_bf16.cuh``) has a plan of its own (``Bf16Plan``): its
+strides, tiles and envelope, its C mirror, and a float64 emulation of its
+reduction order held against both plain versions and JAX's XLA conv.
 The kernels themselves are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
@@ -285,47 +292,71 @@ def _chip_smoke_plans(bf16=False, big=()):
                 yield igemm.convt_plan(b, lg, cout, cin, k, s, p, (l + 2 * p - k) % s, bf16)
 
 
-def test_shared_memory_envelope():
-    """Every plan ``chip_smoke.py`` launches (the decoder tail's three
-    stages among them), and the corners of the limits (K ≤ 7, stride ≤ 16),
-    fit 227 KB of shared memory in three stages."""
-    plans = list(_chip_smoke_plans())
-    assert len(plans) > 29
-    assert igemm.convt_plan(2048, 512, 64, 4, 5, 2, 2, 1) in plans  # M = 128, stage 3
+CORES = ("mma", "tf32x3")  # the decoder tail's Plan, the f32 convs' Tf32x3Plan
+
+
+def _corners(core):
     for k in (1, 3, 7):
         for s in (1, 2, 16):
             for cin in (4, 17, 256):
                 for cout in (4, 66, 256):
-                    plans.append(igemm.conv1d_plan(8, 600, cin, cout, k, s, k // 2))
-                    plans.append(igemm.convt_plan(8, 600, cin, cout, k, s, k // 2, s - 1))
+                    if core == "mma":
+                        yield igemm.tail_plan(8, 600, cin, cout, k, s, k // 2, s - 1)
+                    else:
+                        yield igemm.conv1d_plan(8, 600, cin, cout, k, s, k // 2)
+                        yield igemm.convt_plan(8, 600, cin, cout, k, s, k // 2, s - 1)
+
+
+@pytest.mark.parametrize("core", CORES)
+def test_shared_memory_envelope(core):
+    """Every plan ``chip_smoke.py`` launches, and the corners of the limits
+    (K ≤ 7, stride ≤ 16), fit 227 KB of shared memory: the decoder tail's
+    three stages on the ``mma.sync`` core in three stages, the f32 convs on
+    the core of ``igemm_tf32x3.cuh`` in its ring."""
+    plans = [p for p in _chip_smoke_plans() if isinstance(p, igemm.Plan) == (core == "mma")]
+    assert len(plans) > (8 if core == "mma" else 25)
+    plans += list(_corners(core))
+    if core == "mma":
+        assert igemm.tail_plan(2048, 512, 64, 4, 5, 2, 2, 1) in plans  # M = 128, stage 3
     for plan in plans:
         assert plan.smem_bytes <= igemm.SMEM_LIMIT, plan
-        assert plan.x_rows == (plan.tile_m - 1) * plan.sigma + plan.q
-        assert plan.stage_floats % 4 == 0 and plan.x_stride % 4 == 0  # 16-byte copies
-        assert plan.w_rows >= plan.q * plan.cw and plan.w_rows % 8 == 0
+        if core == "mma":
+            assert plan.x_rows == (plan.tile_m - 1) * plan.sigma + plan.q
+            assert plan.stage_floats % 4 == 0 and plan.x_stride % 4 == 0  # 16-byte copies
+            assert plan.w_rows >= plan.q * plan.cw and plan.w_rows % 8 == 0
+        else:
+            assert isinstance(plan, igemm.Tf32x3Plan) and plan.stages in (2, 3)
+            assert plan.stage_floats % 32 == 0 and plan.land_rows * plan.cw * 4 % 128 == 0  # TMA boxes
 
 
-def test_tiles_follow_the_shape():
+@pytest.mark.parametrize("core", CORES)
+def test_tiles_follow_the_shape(core):
     """Narrow N takes a narrow tile (the decoder's 4-channel layer straddles
     both parity classes in one 8-wide tile); Cin = 4 stages 4 channels a
-    chunk, so 5 taps reduce 24 deep, not 5·8; wide layers take 64 columns."""
-    last = igemm.convt_plan(4096, 256, 64, 4, 5, 2, 2, 1)
+    chunk, so 5 taps reduce 24 deep (the f32 core: im2col planes, to 32 for
+    its pairs of k8 steps), not 5·8; wide layers take 64 columns (the f32
+    core 128)."""
+    plan = igemm.tail_plan if core == "mma" else igemm.convt_plan
+    last = plan(4096, 256, 64, 4, 5, 2, 2, 1)
     assert (last.n, last.tile_n, last.tile_m) == (8, 8, 128)
-    ed1 = igemm.conv1d_plan(32, 512, 4, 64, 5, 1, 2)
-    assert (ed1.cw, ed1.w_rows, ed1.tile_n) == (4, 24, 64)
-    dec1 = igemm.convt_plan(4096, 64, 256, 128, 5, 2, 2, 1)
-    assert (dec1.n, dec1.tile_n, dec1.q, dec1.o_min) == (256, 64, 3, -1)
+    dec1 = plan(4096, 64, 256, 128, 5, 2, 2, 1)
+    assert (dec1.n, dec1.tile_n, dec1.q, dec1.o_min) == (256, 64 if core == "mma" else 128, 3, -1)
     assert dec1.taps == ((4, 2, 0), (-1, 3, 1))
+    if core == "mma":
+        ed1 = igemm._mma_plan(32, 512, 4, 64, 5, 1, 1, 512, 512, 1, -2, 5, (tuple(range(5)),))
+        assert (ed1.cw, ed1.w_rows, ed1.tile_n) == (4, 24, 64)
+    else:
+        ed1 = igemm.conv1d_plan(32, 512, 4, 64, 5, 1, 2)
+        assert (ed1.cw, ed1.im2col, ed1.depth(0), ed1.a_planes, ed1.tile_n) == (4, True, 32, 8, 64)
+        assert [dec1.depth(t) for t in range(dec1.n_tiles)] == [48, 32]  # class 1 skips an offset
     with pytest.raises(ValueError, match="K <= 7"):
-        igemm.convt_plan(2, 9, 4, 4, 8, 2, 0, 0)
+        plan(2, 9, 4, 4, 8, 2, 0, 0)
     with pytest.raises(ValueError, match="stride <= 16"):
         igemm.conv1d_plan(2, 90, 4, 4, 3, 17, 0)
 
 
-def test_c_plan_mirrors_the_header():
-    """``CPlan`` has the int fields of ``igemm::Plan`` in the header's order,
-    then the 16 × 8 tap table, and carries the plan's values."""
-    header = (ROOT / "melogan_torch" / "csrc" / "igemm.cuh").read_text()
+def _header_ints(name):
+    header = (ROOT / "melogan_torch" / "csrc" / name).read_text()
     body = re.search(r"struct Plan \{(.*?)\};", header, re.S).group(1)
     ints = []
     for line in body.splitlines():
@@ -333,10 +364,25 @@ def test_c_plan_mirrors_the_header():
         if line.startswith("int "):
             ints += [n.strip() for n in line[4:].rstrip(";").split(",")]
     assert "signed char taps[kMaxClasses][kMaxQ];" in body
-    assert [f for f, _ in igemm.CPlan._fields_] == ints + ["taps"]
-    plan = igemm.convt_plan(4096, 64, 256, 128, 5, 2, 2, 1)
+    return ints
+
+
+@pytest.mark.parametrize("core", CORES)
+def test_c_plan_mirrors_the_header(core):
+    """``CPlan`` (``CTf32x3Plan``) has the int fields of ``igemm::Plan``
+    (``igemm_tf32x3::Plan``) in the header's order, then the 16 × 8 tap
+    table, and carries the plan's values."""
+    header, cls = ("igemm.cuh", igemm.CPlan) if core == "mma" else ("igemm_tf32x3.cuh", igemm.CTf32x3Plan)
+    ints = _header_ints(header)
+    assert [f for f, _ in cls._fields_] == ints + ["taps"]
+    plan = (igemm.tail_plan if core == "mma" else igemm.convt_plan)(4096, 64, 256, 128, 5, 2, 2, 1)
     c = plan.c_struct()
-    assert (c.n, c.classes, c.rows, c.q, c.o_min, c.cw, c.cw_shift) == (256, 2, 64, 3, -1, 32, 5)
+    assert (c.n, c.classes, c.rows, c.q, c.o_min) == (256, 2, 64, 3, -1)
+    if core == "mma":
+        assert (c.cw, c.cw_shift) == (32, 5)
+    for f in ints:
+        want = {"cw_shift": plan.cw.bit_length() - 1}.get(f, getattr(plan, f, None))
+        assert getattr(c, f) == want, f
     assert c.smem_bytes == plan.smem_bytes
     table = bytes(c)[-igemm.MAX_CLASSES * igemm.MAX_Q:]
     assert list(np.frombuffer(table, np.int8)[:16]) == [4, 2, 0, -1, -1, -1, -1, -1,
@@ -368,6 +414,252 @@ def test_headers_make_every_library_stale(tmp_path, monkeypatch):
     os.utime(header, (900, 900))
     os.utime(csrc / "a.cu", (1100, 1100))
     assert _build.is_stale("a") and not _build.is_stale("b")
+
+
+# --- the f32 mode's core (csrc/igemm_tf32x3.cuh) ----------------------------
+
+
+def _f32_conv_plans():
+    """The f32 plans of every conv ``chip_smoke.py`` launches on the card:
+    ``kernels`` (and the decoder's layers at 65536, the ``bench`` batch),
+    ``kernels_ed``, ``kernels_vae``, ``backward_route`` and ``kernels_tp``."""
+    cs = _chip_smoke()
+
+    def dx(layers, b):
+        for (l, cin, cout, k, s, p, op), transposed, _ in layers:
+            if transposed:
+                yield igemm.conv1d_plan(b, convt_out_len(l, k, s, p, op), cout, cin, k, s, p)
+            else:
+                yield igemm.convt_plan(b, conv_out_len(l, k, s, p), cout, cin, k, s, p, (l + 2 * p - k) % s)
+
+    for b in cs.CONVT_BATCHES + (65536,):
+        for l, cin, cout in cs.CONVT_LAYERS:
+            yield igemm.convt_plan(b, l, cin, cout, 5, 2, 2, 1)
+    for b in cs.CONV1D_BATCHES + (cs.ED_BATCH,):
+        for l, cin, cout, k, s, p, _ in cs.CONV1D_LAYERS:
+            yield igemm.conv1d_plan(b, l, cin, cout, k, s, p)
+    for b in cs.VAE_BATCHES:
+        for l, cin, cout, k, s, p, _ in cs.VAE_ENCODER:
+            yield igemm.conv1d_plan(b, l, cin, cout, k, s, p)
+        for l, cin, cout in cs.VAE_DECODER:
+            yield igemm.convt_plan(b, l, cin, cout, 5, 2, 2, 1)
+    for l, cin, cout in cs.TP_CONVT_LAYERS:
+        yield igemm.convt_plan(cs.TRAIN_BATCH, l, cin, cout, 5, 2, 2, 1)
+    for l, cin, cout, k, s, p, _ in cs.TP_CONV1D_LAYERS:
+        yield igemm.conv1d_plan(cs.TRAIN_BATCH, l, cin, cout, k, s, p)
+    yield from dx(cs.BACKWARD_LAYERS + cs.VAE_BACKWARD + cs.TP_BACKWARD_LAYERS, cs.TRAIN_BATCH)
+    yield from dx(cs.ED_BACKWARD, cs.ED_BATCH)
+
+
+def test_tf32x3_plan_geometry_and_envelope():
+    """Every f32 conv plan of ``chip_smoke.py`` (the decoder's layers up to
+    B = 65536, the tensor-parallel shards) and the corners of the limits:
+    shared memory within 227 KB, at most one persistent CTA an SM, TMA boxes
+    of at most 256 rows landing 128-byte aligned, halo planes whose 16-byte
+    rows put the split's 8 lanes in 8 bank groups, and the arithmetic the
+    kernel's ``plan_ok`` checks. Every shipped shape's rows of Cin floats
+    allow a tensor map (Cin % 4 == 0), and split-K parts appear where the
+    items alone fill less than the card."""
+    shipped = list(_f32_conv_plans())
+    assert len(shipped) > 60 and all(p.cin % 4 == 0 for p in shipped)
+    for p in shipped + list(_corners("tf32x3")):
+        assert isinstance(p, igemm.Tf32x3Plan) and p.smem_bytes <= igemm.SMEM_LIMIT, p
+        assert 1 <= p.grid <= igemm.SMS and p.grid <= p.units == p.items * p.parts
+        assert p.items == p.n_tiles * -(-p.batch * -(-p.rows // 64) // 2)
+        assert 1 <= p.parts <= p.chunks and (p.parts == 1 or p.items < igemm.SMS)
+        assert p.box_rows % 8 == 0 and p.box_rows <= 256 and p.land_rows >= p.win_rows == 63 * p.sigma + p.q
+        assert p.d_max % 16 == 0 and all(p.depth(t) <= p.d_max for t in range(p.n_tiles))
+        if p.im2col:
+            assert p.cw == 4 and p.a_planes >= p.d_max // 4
+        else:
+            g = p.cw // 4
+            assert p.planes == min(p.sigma, p.q) and p.plane_rows >= 64 + (p.q - 1) // p.sigma
+            assert len({(c * p.plane_rows + j) % 8 for c in range(g) for j in range(8 // g)}) == 8
+        assert p.smem_bytes == 4 * (p.stages * p.stage_floats + 2 * p.a_floats) + igemm.TF32_BARRIER_BYTES
+
+
+def test_tf32x3_work_list_covers_each_tile_once():
+    """The persistent CTAs' static walk (CTA i takes units i, i + grid, ...)
+    visits every unit once; the units' items cover every (64-row tile, N
+    tile) pair once, N tiles first (consecutive items share their N tile);
+    an item's split-K parts cover its chunks once, in order."""
+    cs = _chip_smoke()
+    plans = [igemm.convt_plan(1, 64, 256, 128, 5, 2, 2, 1), igemm.convt_plan(32, 64, 128, 128, 5, 2, 2, 1),
+             igemm.conv1d_plan(32, 128, 128, 128, 5, 2, 2), igemm.conv1d_plan(7, 100, 20, 70, 3, 1, 1),
+             igemm.conv1d_plan(cs.TRAIN_BATCH, 512, 256, 256, 3, 1, 1), igemm.convt_plan(3, 37, 12, 6, 7, 3, 3, 2)]
+    assert any(p.parts > 1 for p in plans) and any(p.parts == 1 for p in plans)
+    for p in plans:
+        walked = sorted(u for cta in range(p.grid) for u in range(cta, p.units, p.grid))
+        assert walked == list(range(p.units))
+        tiles = {}
+        for u in walked:
+            item, part = divmod(u, p.parts)
+            nt, ri = divmod(item, p.row_items)
+            for wt in (2 * ri, 2 * ri + 1):
+                if wt < p.wg_tiles:
+                    tiles.setdefault((wt, nt), []).append(part)
+        assert sorted(tiles) == [(wt, nt) for wt in range(p.wg_tiles) for nt in range(p.n_tiles)]
+        assert all(parts == list(range(p.parts)) for parts in tiles.values())
+        bounds = [p.part_chunks(q) for q in range(p.parts)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == p.chunks
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(bounds, bounds[1:] + [(p.chunks, None)]))
+
+
+def emulate_tf32x3(plan, x, w, bias=None, arrival=None, in_arrival_order=False, split=("x", "w")):
+    """The f32 core's arithmetic in its reduction order, in float64 where the
+    card is exact: x and w each split once into big = rna(a) and small =
+    rna(a − big) (``split`` names the operands that are, the other keeps
+    its big half alone); per N tile its active offsets; per split-K part its
+    chunks, per chunk of cw channels the (offset, channel) rows in k8 steps,
+    each step's three products (small·big, big·small, big·big) of 8 terms
+    summed exactly and added into the pair's partial sum rounded toward zero
+    to f32 (the first from zero); each pair's partial sum folded into the
+    part's f32 sum by an IEEE add; the parts summed in part order (or in
+    ``arrival`` order, ``in_arrival_order``: the mutant); bias by an f32 add."""
+    def halves(a, on):
+        big = tf32_rna(a)
+        return big.double(), (tf32_rna(a - big) if on else torch.zeros_like(a)).double()
+
+    (xb, xs), (wb, ws) = halves(x, "x" in split), halves(w, "w" in split)
+    b = x.shape[0]
+    y = torch.zeros((b, plan.rows, plan.n), dtype=torch.float32)
+    t = torch.arange(plan.rows)
+    for nt in range(plan.n_tiles):
+        cols = torch.arange(nt * plan.tile_n, min((nt + 1) * plan.tile_n, plan.n))
+        r_of, co_of = cols // plan.cout, cols % plan.cout
+        act, depth = plan.active(nt), plan.depth(nt)
+        kk = torch.arange(depth)
+        qi = kk // plan.cw
+        qs = torch.tensor([act[min(i, len(act) - 1)] for i in qi.tolist()])
+        taps = torch.tensor([[plan.taps[r][q] for r in r_of.tolist()] for q in qs.tolist()])
+        rows = plan.sigma * t[:, None] + plan.o_min + qs[None, :]
+        inside = (rows >= 0) & (rows < plan.l)
+        sums = []
+        for part in range(plan.parts):
+            acc = torch.zeros((b, plan.rows, len(cols)), dtype=torch.float32)
+            lo, hi = plan.part_chunks(part)
+            for c in range(lo, hi):
+                ch = c * plan.cw + kk % plan.cw
+                valid = (qi < len(act)) & (ch < plan.cin)
+                chc = ch.clamp(max=plan.cin - 1)
+                mask_a = inside & valid
+                ab = xb[:, rows.clamp(0, plan.l - 1), chc] * mask_a
+                as_ = xs[:, rows.clamp(0, plan.l - 1), chc] * mask_a
+                mask_w = (taps >= 0) & valid[:, None]
+                wkb = wb[taps.clamp(min=0), chc[:, None], co_of[None, :]] * mask_w
+                wks = ws[taps.clamp(min=0), chc[:, None], co_of[None, :]] * mask_w
+                for s in range(0, depth // 8, 2):
+                    part_sum = None
+                    for h in (0, 1):
+                        sl = slice(8 * (s + h), 8 * (s + h) + 8)
+                        for a, bm in ((as_, wkb), (ab, wks), (ab, wkb)):
+                            prod = a[..., sl] @ bm[sl]
+                            part_sum = _rz32(prod if part_sum is None else part_sum.double() + prod)
+                    acc = acc + part_sum
+            sums.append(acc)
+        order = list(arrival) if in_arrival_order else list(range(plan.parts))
+        total = sums[order[0]]
+        for q in order[1:]:
+            total = total + sums[q]
+        y[..., cols] = total
+    if bias is not None:
+        y = y + bias.repeat(plan.classes)
+    return y.reshape(b, plan.rows * plan.classes, plan.cout)[:, :plan.lout]
+
+
+TF32X3_SHAPES = [
+    # (op, batch the plan is made for, L, Cin, Cout, K, s, p, op): a halo conv at
+    # stride 2 split into parts, im2col (Cin = 4), a transposed conv whose N
+    # tile straddles both classes, one whose classes use different offsets,
+    # and the decoder's stage 1 at batch 1 (256 deep, 32 parts)
+    ("conv1d", 2, 40, 24, 20, 5, 2, 2, 0),
+    ("conv1d", 2, 33, 4, 12, 5, 1, 2, 0),
+    ("convt", 2, 16, 32, 4, 5, 2, 2, 1),
+    ("convt", 2, 12, 20, 40, 5, 2, 2, 1),
+    ("convt", 1, 64, 256, 128, 5, 2, 2, 1),
+]
+
+
+@pytest.mark.parametrize("op,batch,l,cin,cout,k,s,p,opad", TF32X3_SHAPES)
+def test_tf32x3_emulation_matches_plain_and_jax_pallas(op, batch, l, cin, cout, k, s, p, opad):
+    """The f32 core's reduction order, emulated on the plan of the shape's
+    own batch (split-K parts included), within 1e-6 of the output scale of
+    a float64 conv of the same f32 data, of the plain version and of JAX's
+    Pallas kernel in interpret mode (as the JAX tests run it on the CPU):
+    f32-accurate sums of the same products in other orders."""
+    rng = np.random.default_rng(l + cin + cout + k)
+    x = _t(rng.normal(size=(batch, l, cin)))
+    w = _t(rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin))
+    bias = _t(0.1 * rng.normal(size=(cout,)))
+    if op == "convt":
+        plan = igemm.convt_plan(batch, l, cin, cout, k, s, p, opad)
+        plain = convt1d_plain(x, w, bias, s, p, opad)
+        theirs = jax_conv.conv_transpose1d(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), s, p, opad, pallas=True)
+    else:
+        plan = igemm.conv1d_plan(batch, l, cin, cout, k, s, p)
+        plain = conv1d_plain(x, w, bias, s, p)
+        theirs = jax_conv.conv1d(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), s, p, pallas=True)
+    theirs = torch.from_numpy(np.array(theirs)) + bias
+    got = emulate_tf32x3(plan, x, w, bias)
+    exact = run_plan(plan, x.double(), w.double(), bias.double())
+    scale = float(exact.abs().max())
+    assert got.shape == plain.shape == theirs.shape == exact.shape
+    for want in (exact, plain, theirs):
+        assert float((got.double() - want.double()).abs().max()) <= 1e-6 * scale
+
+
+def test_tf32x3_emulation_mutants_fail():
+    """The emulation's checks catch the faults the design rules out: summed
+    in the order the split-K parts arrive, two launches whose parts arrive
+    in other orders differ in their bits (the card's launches must repeat
+    bit for bit); with only one operand split into TF32 halves, the sums
+    miss 1e-6 of the scale."""
+    rng = np.random.default_rng(11)
+    x = _t(rng.normal(size=(1, 64, 256)))
+    w = _t(rng.normal(size=(5, 256, 128)) / np.sqrt(5 * 256))
+    plan = igemm.convt_plan(1, 64, 256, 128, 5, 2, 2, 1)
+    assert plan.parts > 2
+    first, later = list(range(plan.parts)), list(reversed(range(plan.parts)))
+    fixed = [emulate_tf32x3(plan, x, w, arrival=order) for order in (first, later)]
+    assert torch.equal(*fixed)
+    moved = [emulate_tf32x3(plan, x, w, arrival=order, in_arrival_order=True) for order in (first, later)]
+    assert not torch.equal(*moved)
+    exact = run_plan(plan, x.double(), w.double())
+    scale = float(exact.abs().max())
+    assert float((fixed[0].double() - exact).abs().max()) <= 1e-6 * scale
+    for split in (("x",), ("w",)):
+        one = emulate_tf32x3(plan, x, w, split=split)
+        assert float((one.double() - exact).abs().max()) > 1e-5 * scale, split
+
+
+def test_tf32x3_x_path_follows_the_tensor_map_rule():
+    """x goes by TMA where a tensor map can describe it (rows of Cin floats
+    a multiple of 16 bytes, a 16-byte aligned base), else by 4-byte
+    ``cp.async``: Cin 17, or a base one float past a 16-byte boundary."""
+    plan = igemm.conv1d_plan(2, 70, 16, 12, 3, 1, 1)
+    assert igemm.tf32_x_path(plan, 4096) == "tma"
+    assert igemm.tf32_x_path(plan, 4100) == "cp.async"
+    assert igemm.tf32_x_path(igemm.conv1d_plan(2, 70, 17, 12, 3, 1, 1), 4096) == "cp.async"
+
+
+def test_f32_ablation_patches_apply_to_the_cores():
+    """``profile_conv_bf16 --mode f32 --part ablate`` builds copies of the f32
+    core with one phase taken out by text patches: this tree's
+    ``igemm_tf32x3.cuh``, or the ``mma.sync`` core (``igemm.cuh``) where the
+    file runs in a tree from before it. Each patch finds its text once and
+    changes it."""
+    from melogan_torch import profile_conv_bf16 as tool
+
+    assert tool.f32_core() == ("igemm_tf32x3.cuh", tool.ABLATIONS_TF32X3)
+    for header, ablations in (("igemm_tf32x3.cuh", tool.ABLATIONS_TF32X3), ("igemm.cuh", tool.ABLATIONS_MMA)):
+        text = (ROOT / "melogan_torch" / "csrc" / header).read_text()
+        assert ablations["full"] == []
+        for name, patches in ablations.items():
+            patched = text
+            for old, new in patches:
+                assert patched.count(old) == 1 and old != new, (header, name)
+                patched = patched.replace(old, new)
+            assert (patched != text) == (name != "full")
 
 
 # --- the one-pass bf16 core (csrc/igemm_bf16.cuh) ---------------------------
