@@ -9,18 +9,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the main paths' shapes and times kernel, plain version and one PyTorch
    library call (a yardstick the port never calls) with CUDA events:
    ``decoder_tail`` at batch 1 and 4096 with M = 64 and at batch 2048 with
-   M = 128 (max_notes 1024; the sampling path; one call must show three
-   device launches of the implicit-GEMM core in a ``torch.profiler``
-   trace), ``convt1d`` at the decoder's three layers at batch 1, 32 (the
+   M = 128 (max_notes 1024; the sampling path; on stages that hold their
+   W' planes, as the sampler's folded stages do, a warm call must show
+   three ``igemm_tf32x3_conv`` launches and no ``prep_w`` in a
+   ``torch.profiler`` trace, and repeat bit for bit), ``convt1d`` at the decoder's three layers at batch 1, 32 (the
    generator forward of a training step) and 4096, ``conv1d`` at the
    emotion discriminator's four layers at batch 32 (the training batch)
    and 1024, plus the VAE encoder's stride-2 layer;
    every kernel's bound is taken at the 3xTF32 rate; then the two backward
    routes (each conv's input gradient runs the other conv's kernel) against
    autograd through the plain versions. Every f32 conv launch there (and in
-   ``kernels_ed``, ``kernels_vae`` and ``kernels_tp``) runs twice and must
-   repeat bit for bit; its record names how the core's producer copied x
-   (``x_path``: "tma", or "cp.async" where no tensor map describes x);
+   ``kernels_ed``, ``kernels_vae`` and ``kernels_tp``) and every
+   ``decoder_tail`` call runs twice and must repeat bit for bit; its record
+   names how the core's producer copied x (``x_path``: "tma", or
+   "cp.async" where no tensor map describes x);
 4. drives the sampling path with every launch count set to 0:
    ``Sampler(GANConfig(), device="cuda")`` for the four emotions and a batch
    of 4096 (the decoder-tail kernel), max_notes 1024 (the same kernel at
@@ -270,7 +272,7 @@ MAIN_BATCH = 4096
 # (batch, M) of decoder_tail: /generate, bulk sampling, and max_notes 1024
 DECODER_CASES = [(1, 64), (MAIN_BATCH, 64), (2048, 128)]
 DECODER_WIDTHS = (256, 128, 64, 4)
-DECODER_LAUNCHES = 3  # igemm_conv launches a decoder_tail call must show in the trace
+DECODER_LAUNCHES = 3  # igemm_tf32x3_conv launches a warm decoder_tail call must show in the trace
 CONVT_LAYERS = [(64, 256, 128), (128, 128, 64), (256, 64, 4)]  # (L, Cin, Cout)
 # (L, Cin, Cout, K, stride, padding, name): the ED's four conv blocks, the
 # training path's shapes, and the VAE encoder's first (stride-2) layer
@@ -376,25 +378,40 @@ def x_path(plan, x):
 
 
 def check_decoder(torch, F, ops, b, m, gen, results):
+    """``decoder_tail`` against its plain version on stages that hold their
+    W' (``TailStages``, as ``folded_stages`` gives them): the first call
+    makes W', a second must give its bits, and a warm call must show three
+    ``igemm_tf32x3_conv`` launches and no ``prep_w`` in a ``torch.profiler``
+    trace. Timed warm (``kernel_ms``) and with W' made on every call from a
+    plain list of stages (``cold_ms``)."""
     from melogan_torch.profile_sample import device_kernels_per_call
 
+    dec = ops["decoder"]
     widths = DECODER_WIDTHS
     x = torch.randn((b, m, widths[0]), device="cuda", generator=gen)
     stages = []
     for cin, cout in zip(widths[:-1], widths[1:]):
         w = torch.randn((5, cin, cout), device="cuda", generator=gen) / (5 * cin) ** 0.5
         stages.append((w, 0.1 * torch.randn((cout,), device="cuda", generator=gen)))
-    out = ops["decoder"].decoder_tail_cuda(x, stages)
-    ref = ops["decoder"].decoder_tail_plain(x, stages)
+    held = dec.TailStages(stages)
+    out = dec.decoder_tail_cuda(x, held)
+    ref = dec.decoder_tail_plain(x, stages)
+    again = dec.decoder_tail_cuda(x, held)
     torch.cuda.synchronize()
     err, rel = compare(out, ref, f"decoder_tail B={b} M={m}")
+    bit_equal_repeat(torch, out, again, f"decoder_tail B={b} M={m}")
+
+    def warm():
+        return dec.decoder_tail_cuda(x, held)
+
     # the most of three traces: a trace can lose a kernel's record (one of six
     # went missing once at batch 4096), never invent one
-    launches = max(device_kernels_per_call(lambda: ops["decoder"].decoder_tail_cuda(x, stages),
-                                           "igemm_conv") for _ in range(3))
-    if launches != DECODER_LAUNCHES:
-        raise SystemExit(f"decoder_tail B={b} M={m}: {launches} igemm_conv launches a call "
-                         f"in the trace, want {DECODER_LAUNCHES}")
+    prepares = dec.decoder_tail_cuda.prepares
+    launches = max(device_kernels_per_call(warm, "igemm_tf32x3_conv") for _ in range(3))
+    prep_launches = max(device_kernels_per_call(warm, "prep_w") for _ in range(3))
+    if launches != DECODER_LAUNCHES or prep_launches != 0 or dec.decoder_tail_cuda.prepares != prepares:
+        raise SystemExit(f"decoder_tail B={b} M={m}: a warm call shows {launches} igemm_tf32x3_conv and "
+                         f"{prep_launches} prep_w launches in the trace, want {DECODER_LAUNCHES} and 0")
     xn = x.transpose(1, 2).contiguous()
     wt = [(w.permute(1, 2, 0).contiguous(), bias) for w, bias in stages]
 
@@ -404,14 +421,16 @@ def check_decoder(torch, F, ops, b, m, gen, results):
         return F.conv_transpose1d(y, wt[2][0], wt[2][1], 2, 2, 1)
 
     iters = 20 if b > 64 else 200
-    flops = ops["decoder"].decoder_tail_flops(b, m, widths)
+    flops = dec.decoder_tail_flops(b, m, widths)
     nbytes = 4 * (x.numel() + out.numel() + sum(w.numel() + bb.numel() for w, bb in stages))
     rec = {
         "kernel": "decoder_tail", "batch": b, "shape": [b, m, *widths],
-        "device_launches_per_call": launches,
-        "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL,
-        "kernel_ms": time_ms(torch, lambda: ops["decoder"].decoder_tail_cuda(x, stages), iters),
-        "plain_ms": time_ms(torch, lambda: ops["decoder"].decoder_tail_plain(x, stages), iters),
+        "device_launches_per_call": launches, "prep_w_per_warm_call": prep_launches,
+        "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_REL, "bit_equal_repeat": True,
+        "x_path": x_path(dec.stage_plans(b, m, widths)[0], x),
+        "kernel_ms": time_ms(torch, warm, iters),
+        "cold_ms": time_ms(torch, lambda: dec.decoder_tail_cuda(x, stages), iters),
+        "plain_ms": time_ms(torch, lambda: dec.decoder_tail_plain(x, stages), iters),
         "library_ms": time_ms(torch, library, iters),
         **bound(flops, nbytes, PEAK_3XTF32_FLOPS), "flops": flops, "bytes": nbytes,
     }
@@ -4629,6 +4648,7 @@ def main() -> int:
             "replaces": "melogan_tpu/ops/pallas/decoder.py:73",
             "launches": launches["decoder_tail"],
             "device_launches_per_call": min(r["device_launches_per_call"] for r in dec.values()),
+            "prep_w_per_warm_call": max(r["prep_w_per_warm_call"] for r in dec.values()),
             "max_abs_err": max(r["max_abs_err"] for r in dec.values()),
             "ms": big_d["kernel_ms"], "plain_ms": big_d["plain_ms"],
             "bound_ms": big_d["bound_ms"], "bound_by": big_d["bound_by"],

@@ -8,13 +8,13 @@
 //   melogan_tpu/ops/pallas/conv1d.py::_convt_kernel  (transposed conv)
 //   melogan_tpu/ops/pallas/conv1d.py::_conv1d_kernel (strided conv)
 //
-// What it computes: the generalised conv of igemm.cuh,
+// What it computes: the generalised conv of ops/igemm.py,
 //   Y[b, t, n] = bias[n mod Cout]
 //              + sum_{q < Q} sum_ci R(X[b, sigma*t + o_min + q, ci]) * R(W'[q, ci, n])
 // with R the rounding of an f32 to bf16, to nearest with ties to even
 // (torch's .to(torch.bfloat16): inf stays inf, a NaN stays a NaN). A product
 // of two bf16 values is exact in f32; the sums are f32, bias and Y f32. The
-// tap table, the classes and the column order are those of igemm.cuh; the
+// tap table, the classes and the column order are those of igemm_tf32x3.cuh; the
 // plan (ops/igemm.py::Bf16Plan) arrives by value.
 //
 // Bound on an H100 SXM: x, w and y stay f32 at the port's public functions,
@@ -400,7 +400,7 @@ igemm_bf16_conv(const float* __restrict__ x, const float* __restrict__ w,
   }
   cp_async_wait<0>();
 
-  // The store of igemm.cuh: the thread's columns n = n0 + wn0 + 8*j + 2*tig
+  // The store of igemm_tf32x3.cuh: the thread's columns n = n0 + wn0 + 8*j + 2*tig
   // + e, class, channel and bias worked out once; with Cout even, columns
   // 2*tig and 2*tig + 1 are one class and adjacent channels: one 8-byte store.
   const bool pairs = p.cout % 2 == 0 && ((uintptr_t)y & 7) == 0;

@@ -1,15 +1,18 @@
 // The 3xTF32 implicit-GEMM core of the conv kernels' f32 mode (convt1d.cu and
-// conv1d.cu with their bf16 flag clear), built for Hopper: operands split
-// into TF32 halves once, x by TMA into an mbarrier ring fed by a producer
-// warp, wgmma tf32 products, persistent CTAs, and a split of the reduction
-// whose parts are summed in a fixed order.
+// conv1d.cu with their bf16 flag clear) and of the decoder tail
+// (decoder_tail.cu), built for Hopper: operands split into TF32 halves once,
+// x by TMA into an mbarrier ring fed by a producer warp, wgmma tf32 products,
+// persistent CTAs, and a split of the reduction whose parts are summed in a
+// fixed order.
 //
 // Replaces, through those entry points (the TPU's Precision.HIGHEST passes
 // of the same products):
 //   melogan_tpu/ops/pallas/conv1d.py::_convt_kernel  (transposed conv)
 //   melogan_tpu/ops/pallas/conv1d.py::_conv1d_kernel (strided conv)
+// and, through decoder_tail.cu's three launches with the ReLU in the store,
+//   melogan_tpu/ops/pallas/decoder.py::_decoder_kernel
 //
-// What it computes: the generalised conv of igemm.cuh,
+// What it computes: the generalised conv of ops/igemm.py,
 //   Y[b, t, n] = bias[n mod Cout]
 //              + sum_{q < Q} sum_ci X[b, sigma*t + o_min + q, ci] * W'[q, ci, n]
 // (rows outside [0, L) are zero), column n of tap class r = n div Cout and
@@ -30,7 +33,10 @@
 //   wgmma's K-major core matrices (8 columns x 4 reduction rows, 128 bytes).
 //   An N tile's block holds only the offsets q its columns use (depth
 //   nact*cw rounded up to 16, a pair of k8 steps), so a class never
-//   multiplies structural zeros of offsets it does not use.
+//   multiplies structural zeros of offsets it does not use. The convs run
+//   it before every conv launch into their scratch (run); the decoder tail
+//   (decoder_tail.cu) runs it once per folded weights and W' layout
+//   (prepare) and then only the conv (conv), on W' its caller holds.
 // - A CTA: one producer warp and two consumer warpgroups. A consumer
 //   warpgroup holds 64 output rows of one sample by TN columns (one wgmma
 //   m64nTNk8, TN = 8 ... 128); a work item is two such row tiles by one N
@@ -68,11 +74,14 @@
 //   tensor-parallel shards; at most 4 parts): each part writes its partial
 //   tile to a
 //   workspace, and the CTA that finishes an item's last part (a counter an
-//   item, reset by it) sums the parts in part order 0 .. parts-1 from the
-//   workspace, whatever order they arrived in. No float is added by an
-//   atomic: launches repeat bit for bit.
+//   item, zeroed before every launch) sums the parts in part order
+//   0 .. parts-1 from the workspace, whatever order they arrived in. No
+//   float is added by an atomic: launches repeat bit for bit.
 // - The store works out each column's class and channel and writes
-//   8-byte pairs where Cout is even.
+//   8-byte pairs where Cout is even. With `relu` set it stores
+//   max(sum + bias, 0) (the decoder tail's first two stages): only the CTA
+//   that stores a whole sum applies it, never to a split-K partial tile,
+//   and the flag stays out of the products' straight-line code.
 // What limits it (PERF.md, profile_conv_bf16 --mode f32 --part ablate): at
 // the widest layers the W' blocks, fetched again from L2 for every item,
 // and x's windows keep L2 near its rate with the products taken out; the
@@ -201,7 +210,7 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
 }
 
-// cvt.rna.tf32.f32 on finite values (igemm.cuh::tf32_rna).
+// cvt.rna.tf32.f32 on finite values: add half of the dropped 13 bits, cut.
 __device__ __forceinline__ float tf32_rna(float a) {
   return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xffffe000u);
 }
@@ -295,14 +304,14 @@ __device__ __forceinline__ int w_offset(int kk, int nl, int tile_n) {
 }
 
 // Prologue: the W' blocks of every (N tile, chunk), split into big and small
-// planes (big at 0, small at depth * tile_n), and the split-K counters at 0.
-__global__ void __launch_bounds__(256) prep_w(const float* __restrict__ w, float* __restrict__ scratch,
-                                              const __grid_constant__ Plan p) {
+// planes (big at 0, small at depth * tile_n), and, where `counters` is not
+// null, the split-K counters at 0.
+__global__ void __launch_bounds__(256) prep_w(const float* __restrict__ w, float* __restrict__ wprep,
+                                              int* __restrict__ counters, const __grid_constant__ Plan p) {
   const long long total = (long long)p.n_tiles * p.chunks * p.d_max * p.tile_n;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p.parts > 1) {
-    int* counters = reinterpret_cast<int*>(scratch + p.wprep_floats + p.ws_floats);
+  if (counters != nullptr && p.parts > 1) {
     for (long long i = first; i < p.items; i += stride) counters[i] = 0;
   }
   for (long long i = first; i < total; i += stride) {
@@ -325,7 +334,7 @@ __global__ void __launch_bounds__(256) prep_w(const float* __restrict__ w, float
       if (tap >= 0) v = w[((long long)tap * p.cin + ch) * p.cout + co];
     }
     const float big = tf32_rna(v);
-    float* block = scratch + ((long long)nt * p.chunks + c) * p.w_stage_floats;
+    float* block = wprep + ((long long)nt * p.chunks + c) * p.w_stage_floats;
     const int off = w_offset(kk, nl, p.tile_n);
     block[off] = big;
     block[depth * p.tile_n + off] = tf32_rna(v - big);
@@ -354,8 +363,9 @@ __device__ __forceinline__ Unit decode(const Plan& p, const signed char* taps, i
 template <int TN>
 __global__ void __launch_bounds__(kThreads, 1)
 igemm_tf32x3_conv(const float* __restrict__ x, const float* __restrict__ bias, float* __restrict__ y,
-                  float* __restrict__ scratch, const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ Plan p, int use_tma) {
+                  const float* __restrict__ wprep, float* __restrict__ ws, int* __restrict__ counters,
+                  const __grid_constant__ CUtensorMap xmap, const __grid_constant__ Plan p, int use_tma,
+                  int relu) {
   constexpr int R = TN / 2;  // sums a consumer thread holds
   extern __shared__ __align__(128) float smem[];
   float* ring = smem;
@@ -378,9 +388,6 @@ igemm_tf32x3_conv(const float* __restrict__ x, const float* __restrict__ bias, f
   }
   __syncthreads();
 
-  const float* wprep = scratch;
-  float* ws = scratch + p.wprep_floats;
-  int* counters = reinterpret_cast<int*>(scratch + p.wprep_floats + p.ws_floats);
   const int rt64 = (p.rows + kWgRows - 1) / kWgRows;  // 64-row tiles of a sample
   int act[kMaxQ];
 
@@ -571,9 +578,7 @@ igemm_tf32x3_conv(const float* __restrict__ x, const float* __restrict__ bias, f
       __threadfence();
       named_barrier(1, kConsumerThreads);
       if (tid == 0) {
-        const int last = atomicAdd(counters + w.item, 1) == p.parts - 1;
-        if (last) counters[w.item] = 0;  // ready for the next launch on this scratch
-        s_last[iter & 1] = last;
+        s_last[iter & 1] = atomicAdd(counters + w.item, 1) == p.parts - 1;
       }
       named_barrier(1, kConsumerThreads);
       store = store && s_last[iter & 1];
@@ -620,7 +625,11 @@ igemm_tf32x3_conv(const float* __restrict__ x, const float* __restrict__ bias, f
         for (int h = 0; h < 2; ++h) {
           const int t = t0 + 16 * wwarp + g8 + 8 * h;
           if (t >= p.rows) continue;
-          const float v0 = acc[4 * j + 2 * h] + bs[0], v1 = acc[4 * j + 2 * h + 1] + bs[1];
+          float v0 = acc[4 * j + 2 * h] + bs[0], v1 = acc[4 * j + 2 * h + 1] + bs[1];
+          if (relu) {  // uniform over the grid; a whole sum (split-K parts summed above)
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
           const int yrow0 = p.classes * t + r[0];
           if (pairs) {
             if (yrow0 < p.lout)
@@ -695,56 +704,96 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int TN>
-cudaError_t launch(const float* x, const float* w, const float* bias, float* y, float* scratch, const Plan& p,
-                   const CUtensorMap& map, int use_tma, cudaStream_t stream) {
-  auto kernel = igemm_tf32x3_conv<TN>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
-  if (err != cudaSuccess) return err;
+// x's tensor map where one can describe x (the rule of
+// ops/igemm.py::tf32_x_path: rows of Cin floats a multiple of 16 bytes, a
+// 16-byte aligned base), else *use_tma = 0 and the producer's cp.async.
+inline cudaError_t x_map(const float* x, const Plan& p, CUtensorMap* map, int* use_tma) {
+  memset(map, 0, sizeof(*map));
+  *use_tma = (p.cin % 4 == 0 && ((uintptr_t)x & 15) == 0) ? 1 : 0;
+  if (!*use_tma) return cudaSuccess;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)p.cin, (cuuint64_t)p.l, (cuuint64_t)p.batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)p.cin * 4, (cuuint64_t)p.l * p.cin * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)p.cw, (cuuint32_t)p.box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(x), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t launch_prep(const float* w, float* wprep, int* counters, const Plan& p, cudaStream_t stream) {
   const long long prep = (long long)p.n_tiles * p.chunks * p.d_max * p.tile_n;
   const int prep_blocks = (int)((prep + 255) / 256 < 1056 ? (prep + 255) / 256 : 1056);
-  prep_w<<<prep_blocks, 256, 0, stream>>>(w, scratch, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  kernel<<<p.grid, kThreads, p.smem_bytes, stream>>>(x, bias, y, scratch, map, p, use_tma);
+  prep_w<<<prep_blocks, 256, 0, stream>>>(w, wprep, counters, p);
   return cudaGetLastError();
 }
 
-// One call on `stream`: the W' prologue, then the conv, y = sum + bias.
-// `scratch` holds p.scratch_floats floats (the wrapper's torch.empty).
+template <int TN>
+cudaError_t launch_conv(const float* x, const float* bias, float* y, const float* wprep, float* ws, int* counters,
+                        const Plan& p, const CUtensorMap& map, int use_tma, int relu, cudaStream_t stream) {
+  auto kernel = igemm_tf32x3_conv<TN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<p.grid, kThreads, p.smem_bytes, stream>>>(x, bias, y, wprep, ws, counters, map, p, use_tma, relu);
+  return cudaGetLastError();
+}
+
+// The prologue alone on `stream`: W' of plan p (p.wprep_floats floats at
+// `wprep`, 16-byte aligned) from w, to be read by later conv() calls.
 // Returns a cudaError_t as an int (0: launched).
+inline int prepare(const float* w, float* wprep, const Plan& p, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!plan_ok(p) || w == nullptr || wprep == nullptr || ((uintptr_t)wprep & 15)) return (int)cudaErrorInvalidValue;
+  return (int)launch_prep(w, wprep, nullptr, p, (cudaStream_t)stream);
+}
+
+// The conv alone on `stream`, y = sum + bias (relu: max(sum + bias, 0)), on
+// W' a prologue made for this plan's layout. Split-K plans (p.parts > 1)
+// need p.ws_floats floats at `ws` (16-byte aligned) and p.items counters at
+// `counters` that are 0 when the launch starts. Returns a cudaError_t as an
+// int (0: launched).
+inline int conv(const float* x, const float* wprep, const float* bias, float* y, float* ws, int* counters,
+                const Plan& p, int relu, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!plan_ok(p) || wprep == nullptr || ((uintptr_t)wprep & 15)) return (int)cudaErrorInvalidValue;
+  if (p.parts > 1 && (ws == nullptr || ((uintptr_t)ws & 15) || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)p.batch * p.lout * p.cout == 0) return 0;
+  CUtensorMap map;
+  int use_tma = 0;
+  err = x_map(x, p, &map, &use_tma);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (p.tile_n) {
+    case 8: err = launch_conv<8>(x, bias, y, wprep, ws, counters, p, map, use_tma, relu, s); break;
+    case 16: err = launch_conv<16>(x, bias, y, wprep, ws, counters, p, map, use_tma, relu, s); break;
+    case 32: err = launch_conv<32>(x, bias, y, wprep, ws, counters, p, map, use_tma, relu, s); break;
+    case 64: err = launch_conv<64>(x, bias, y, wprep, ws, counters, p, map, use_tma, relu, s); break;
+    case 128: err = launch_conv<128>(x, bias, y, wprep, ws, counters, p, map, use_tma, relu, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// One call of a conv on `stream`: the W' prologue (which also zeroes the
+// split-K counters), then the conv, y = sum + bias. `scratch` holds
+// p.scratch_floats floats (the wrapper's torch.empty): W', the split-K
+// partials, then the counters. Returns a cudaError_t as an int (0: launched).
 inline int run(const float* x, const float* w, const float* bias, float* y, float* scratch, const Plan& p,
                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!plan_ok(p) || scratch == nullptr || ((uintptr_t)scratch & 15)) return (int)cudaErrorInvalidValue;
   if ((long long)p.batch * p.lout * p.cout == 0) return 0;
-  // the rule of ops/igemm.py::tf32_x_path
-  const int use_tma = (p.cin % 4 == 0 && ((uintptr_t)x & 15) == 0) ? 1 : 0;
-  CUtensorMap map;
-  memset(&map, 0, sizeof(map));
-  if (use_tma) {
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return (int)cudaErrorNotSupported;
-    const cuuint64_t dims[3] = {(cuuint64_t)p.cin, (cuuint64_t)p.l, (cuuint64_t)p.batch};
-    const cuuint64_t strides[2] = {(cuuint64_t)p.cin * 4, (cuuint64_t)p.l * p.cin * 4};
-    const cuuint32_t box[3] = {(cuuint32_t)p.cw, (cuuint32_t)p.box_rows, 1};
-    const cuuint32_t elem[3] = {1, 1, 1};
-    const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(x), dims, strides, box,
-                              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (p.tile_n) {
-    case 8: err = launch<8>(x, w, bias, y, scratch, p, map, use_tma, s); break;
-    case 16: err = launch<16>(x, w, bias, y, scratch, p, map, use_tma, s); break;
-    case 32: err = launch<32>(x, w, bias, y, scratch, p, map, use_tma, s); break;
-    case 64: err = launch<64>(x, w, bias, y, scratch, p, map, use_tma, s); break;
-    case 128: err = launch<128>(x, w, bias, y, scratch, p, map, use_tma, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  float* ws = scratch + p.wprep_floats;
+  int* counters = reinterpret_cast<int*>(ws + p.ws_floats);
+  err = launch_prep(w, scratch, counters, p, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return conv(x, scratch, bias, y, ws, counters, p, /*relu=*/0, device, stream);
 }
 
 }  // namespace igemm_tf32x3

@@ -7,17 +7,19 @@ What holds now, and what the output lets one check (copy this file into a
 parent tree's ``melogan_torch/``, a ``git archive`` under ``build/``, and run
 it from both roots in one call):
 
-- ``decoder_tail`` (batch 1 and 4096 at M = 64, 2048 at M = 128, on the
-  ``mma.sync`` core of ``csrc/igemm.cuh``) and the one-pass bf16 mode of
-  ``convt1d`` and ``conv1d`` (``csrc/igemm_bf16.cuh``, at the
-  ``kernels_bf16`` shapes: the decoder's layers at batch 1, 32 and 4096, the
-  ED's at 32, 64 and 1024, the VAE's at 32 and 256, both input-gradient
-  routes at 32) are bit-identical to the parent's: ``unchanged_sha256``, one
-  digest over all of them, is the same in both trees;
-- the f32 convs (``csrc/igemm_tf32x3.cuh``, at the ``kernels`` shapes) are
-  a new core, whose sums run in another order than the parent's: their
-  digest (``f32_sha256``) differs between the trees, and each f32 launch
-  repeats bit for bit within a tree (``f32_repeats_bit_for_bit``).
+- the f32 convs (``csrc/igemm_tf32x3.cuh``, at the ``kernels`` shapes) and
+  the one-pass bf16 mode of ``convt1d`` and ``conv1d``
+  (``csrc/igemm_bf16.cuh``, at the ``kernels_bf16`` shapes: the decoder's
+  layers at batch 1, 32 and 4096, the ED's at 32, 64 and 1024, the VAE's at
+  32 and 256, both input-gradient routes at 32) are bit-identical to the
+  parent's: ``unchanged_sha256``, one digest over all of them, is the same
+  in both trees;
+- ``decoder_tail`` (batch 1 and 4096 at M = 64, 2048 at M = 128) runs on
+  the f32 core of ``csrc/igemm_tf32x3.cuh`` now, whose sums run in another
+  order than the parent's ``mma.sync`` core: its digest
+  (``decoder_tail_sha256``) differs between the trees;
+- every f32 launch (convs and tail) repeats bit for bit within a tree
+  (``f32_repeats_bit_for_bit``).
 
 Inputs are drawn on the card from one seed; one JSON object a launch
 (kernel, mode, shape, digest), then the summary. It calls only the
@@ -35,7 +37,7 @@ ED = [(512, 4, 64, 5, 1, 2), (512, 64, 128, 3, 1, 1), (512, 128, 256, 3, 1, 1), 
 VAE_ENCODER = [(512, 4, 32, 5, 2, 2), (256, 32, 64, 5, 2, 2), (128, 64, 128, 5, 2, 2)]
 VAE_DECODER = [(64, 128, 64), (128, 64, 32), (256, 32, 4)]
 CONV1D = ED + VAE_ENCODER[:1]
-GROUP = {"bf16": "unchanged", "f32": "f32"}
+GROUP = {"bf16": "unchanged", "f32": "unchanged"}
 
 
 def main() -> None:
@@ -50,16 +52,16 @@ def main() -> None:
     def rand(*shape, scale=1.0):
         return scale * torch.randn(shape, device="cuda", generator=gen)
 
-    digests = {"unchanged": hashlib.sha256(), "f32": hashlib.sha256()}
+    digests = {"unchanged": hashlib.sha256(), "decoder_tail": hashlib.sha256()}
     repeats = []
 
     def emit(kernel, mode, shape, run, group):
         """One launch's digest into ``group``: "unchanged" (the parent's
-        bits) or "f32" (the new core, whose launches must repeat)."""
+        bits) or "decoder_tail" (on a new core); an f32 launch must repeat."""
         out = run()
         torch.cuda.synchronize()
         digest = hashlib.sha256(out.contiguous().cpu().numpy().tobytes()).hexdigest()
-        if group == "f32":
+        if mode == "f32":
             repeats.append(bool(torch.equal(out, run())))
         digests[group].update(digest.encode())
         print(json.dumps({"kernel": kernel, "mode": mode, "shape": shape, "sha256": digest}), flush=True)
@@ -69,7 +71,7 @@ def main() -> None:
         x = rand(b, m, widths[0])
         stages = [(rand(5, cin, cout, scale=(5 * cin) ** -0.5), rand(cout, scale=0.1))
                   for cin, cout in zip(widths[:-1], widths[1:])]
-        emit("decoder_tail", "f32", [b, m], lambda: fused_decoder_tail(x, stages), "unchanged")
+        emit("decoder_tail", "f32", [b, m], lambda: fused_decoder_tail(x, stages), "decoder_tail")
 
     def convt(b, l, cin, cout, mode, k=5, s=2, p=2, op=1, bias=True):
         x, w = rand(b, l, cin), rand(k, cin, cout, scale=(k * cin) ** -0.5)
@@ -103,7 +105,7 @@ def main() -> None:
             conv(32, 2 * l, cout, cin, 5, 2, 2, mode, bias=False)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "unchanged_sha256": digests["unchanged"].hexdigest(),
-                      "f32_sha256": digests["f32"].hexdigest(),
+                      "decoder_tail_sha256": digests["decoder_tail"].hexdigest(),
                       "f32_repeats_bit_for_bit": all(repeats)}), flush=True)
 
 

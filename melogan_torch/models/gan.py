@@ -42,7 +42,7 @@ from melogan_torch.models.layers import (
     default_precision,
     trim_or_pad_length,
 )
-from melogan_torch.ops.decoder import fold_bn_affine, fused_decoder_tail
+from melogan_torch.ops.decoder import TailStages, fold_bn_affine, fused_decoder_tail
 
 _CONVT = dict(kernel_size=5, stride=2, padding=2, output_padding=1)
 
@@ -68,10 +68,11 @@ class GeneratorDecoder(nn.Module):
 
     In eval mode at f32 precision, the three transposed convs with their
     BatchNorm affines folded in run as one kernel call
-    (``ops/decoder.py``: three launches of the implicit-GEMM core, the bias
-    and ReLU in its store). Otherwise — training, which must update the BN
-    statistics per stage, or a lower-precision request — the layered path
-    runs each conv through ``ops/conv.py``.
+    (``ops/decoder.py``: three launches of the f32 conv core, the bias and
+    ReLU in its store, on W' planes held with the folded stages).
+    Otherwise — training, which must update the BN statistics per stage, or
+    a lower-precision request — the layered path runs each conv through
+    ``ops/conv.py``.
     """
 
     def __init__(self, latent_dim: int = 128, max_notes: int = 512, out_channels: int = 4):
@@ -116,9 +117,12 @@ class GeneratorDecoder(nn.Module):
             out += [bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.num_batches_tracked]
         return out
 
-    def folded_stages(self) -> Sequence[tuple]:
+    def folded_stages(self) -> TailStages:
         """The three (HIO weight, bias) pairs with eval BN folded into the
-        first two, as the fused kernel takes them.
+        first two, as the fused kernel takes them: a ``TailStages``, which
+        also holds the W' planes the kernel makes from them on the card, one
+        set per W' layout (batch 1 and batch 4096 take two), so a warm call
+        launches no prologue.
 
         Without grad mode they are cached, keyed on the version counter and
         data pointer of every source tensor: ``load_state_dict``, in-place
@@ -126,8 +130,14 @@ class GeneratorDecoder(nn.Module):
         train-mode BatchNorm updates its running statistics without bumping
         their version counters, but it bumps ``num_batches_tracked``'s. The
         entry holds the source tensors, so a parameter replaced by a new
-        one cannot pass its address on while the entry lives. With grad mode
-        on they are folded afresh, so that gradients flow to the parameters."""
+        one cannot pass its address on while the entry lives. A new key
+        makes a new ``TailStages``, and with it new W': W' is tied to the
+        entry, never to the folded tensors' version counters (under
+        ``torch.inference_mode``, as ``Sampler`` folds them, they have none).
+        With grad mode on they are folded afresh, so that gradients flow to
+        the parameters; each such fold is a new ``TailStages`` whose W' is
+        made afresh (on the card the kernel refuses weights that require
+        grad, so only grad-free weights get that far)."""
         if torch.is_grad_enabled():
             return self._fold()
         sources = self._fold_sources()
@@ -138,7 +148,7 @@ class GeneratorDecoder(nn.Module):
             self._folded = cached
         return cached[2]
 
-    def _fold(self) -> List[tuple]:
+    def _fold(self) -> TailStages:
         convs = [self.deconv[0], self.deconv[3], self.deconv[6]]
         bns = [self.deconv[1], self.deconv[4]]
         stages = []
@@ -148,7 +158,7 @@ class GeneratorDecoder(nn.Module):
                 bn = bns[i]
                 w, b = fold_bn_affine(w, b, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
             stages.append((w.contiguous(), b.contiguous()))
-        return stages
+        return TailStages(stages)
 
     def forward(self, latent: torch.Tensor) -> torch.Tensor:
         y = self.pre(latent)

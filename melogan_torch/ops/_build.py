@@ -133,6 +133,13 @@ def count_launch(wrapper, bf16: bool = False) -> None:
             wrapper.launches_bf16 += 1
 
 
+def count(wrapper, attr: str) -> None:
+    """Add one to the plain-int count ``wrapper.<attr>`` (besides the
+    launches: the decoder tail's W' preparations)."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
 def scratch_for(plan, dev):
     """The f32 core's scratch for one launch (``Tf32x3Plan.scratch_floats``:
     W' split once, split-K partials and counters) from the caching

@@ -44,12 +44,11 @@ bound takes the operations at 3xTF32 (165 TFLOP/s):
 2. ``limits``: the decoder's layers at batch 4096 and the ED's at 1024 with
    the plan's N tile, cw and ring stages varied (the core of
    ``csrc/igemm_tf32x3.cuh`` only).
-3. ``ablate``: ``conv1d`` at the ED's three widest layers (batch 1024) on
-   patched copies of the f32 core that ``csrc/conv1d.cu`` includes: this
-   tree's ``igemm_tf32x3.cuh``, or ``igemm.cuh`` where the file is copied
-   into a tree from before it (the parent's ``mma.sync`` core). Without the
-   products, without the per-chunk copies of x, of w or both, the copies
-   alone, without the split into TF32 halves, and without the fold.
+3. ``ablate``: ``conv1d`` at the ED's three widest layers (batch 1024) and
+   ``convt1d`` at the decoder's (batch 4096) on patched copies of the f32
+   core (``csrc/igemm_tf32x3.cuh``): without the products, without the
+   per-chunk copies of x, of w or both, the copies alone, without the split
+   into TF32 halves, without the W' prologue, and without the fold.
 
 Prints one JSON object a line; needs CUDA.
 """
@@ -436,7 +435,7 @@ _T_SPLIT_HALO = "            for (int e = wtid; e < (need_rows << g_shift); e +=
 _T_W = "        const uint32_t w_bytes = 2u * w.depth * TN * 4;"
 _T_X = "        const int x_windows = kConsumers;"
 _T_FIRST_TWO = "c < w.c_lo + 2"  # a unit's first two chunks: their data stays for the rest
-_T_PROLOGUE = "  prep_w<<<prep_blocks, 256, 0, stream>>>(w, scratch, p);\n"
+_T_PROLOGUE = "  prep_w<<<prep_blocks, 256, 0, stream>>>(w, wprep, counters, p);\n"
 ABLATIONS_TF32X3 = {  # text patches of csrc/igemm_tf32x3.cuh
     "full": [],
     "no_products": [(_T_PRODUCTS, _T_PRODUCTS.replace("h < 2", "h < 0"))],
@@ -456,41 +455,12 @@ ABLATIONS_TF32X3 = {  # text patches of csrc/igemm_tf32x3.cuh
 }
 
 
-# the parent's f32 core (csrc/igemm.cuh: mma.sync, cp.async by every warp,
-# fragments split at every k-step), where this file runs in a tree from before
-# csrc/igemm_tf32x3.cuh
-_M_LOOP = "    for (int ks = 0; ks < ksteps; ks += 4) {"
-_M_XCOPY = "    for (int rr = xr0; rr < p.x_rows; rr += xr_step) {"
-_M_WCOPY = "    for (int kk = wr0; kk < ksteps * 8; kk += wr_step) {"
-_M_SPLIT = "  big = tf32_rna(a);\n  small = tf32_rna(a - __uint_as_float(big));"
-ABLATIONS_MMA = {
-    "full": [],
-    "no_products": [(_M_LOOP, "    for (int ks = 0; ks < 0; ks += 4) {")],
-    "no_x_copies": [(_M_XCOPY, _M_XCOPY.replace("rr < p.x_rows", "rr < (c < 2 ? p.x_rows : 0)"))],
-    "no_w_copies": [(_M_WCOPY, _M_WCOPY.replace("kk < ksteps * 8", "kk < (c < 2 ? ksteps * 8 : 0)"))],
-    "no_copies": [(_M_XCOPY, _M_XCOPY.replace("rr < p.x_rows", "rr < (c < 2 ? p.x_rows : 0)")),
-                  (_M_WCOPY, _M_WCOPY.replace("kk < ksteps * 8", "kk < (c < 2 ? ksteps * 8 : 0)"))],
-    "copies_only": [(_M_LOOP, "    for (int ks = 0; ks < 0; ks += 4) {")],
-    "no_split": [(_M_SPLIT, "  big = __float_as_uint(a);\n  small = big;")],
-    "no_fold": [("    float part[kWM][kWN][4];\n", "    auto& part = acc;\n"),
-                ("        if (h == 0) mma_tf32_first", "        if (false) mma_tf32_first"),
-                ("for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];", "for (int e = 0; e < 4; ++e) (void)0;")],
-}
-
-
-def f32_core():
-    """(header, ablations) of the f32 core ``csrc/conv1d.cu`` includes."""
-    if "igemm_tf32x3.cuh" in (_build.CSRC / "conv1d.cu").read_text():
-        return "igemm_tf32x3.cuh", ABLATIONS_TF32X3
-    return "igemm.cuh", ABLATIONS_MMA
-
-
 def ablate(gen, repeats: int, bf16: bool = True):
     """Time patched copies of a core: the bf16 one on ``conv1d`` at the ED's
     layers 2–4 (batch 1024), or with ``bf16`` False the f32 one
-    (``f32_core``) there and on ``convt1d`` at the decoder's layers (batch
-    4096)."""
-    header, ablations = ("igemm_bf16.cuh", ABLATIONS) if bf16 else f32_core()
+    (``igemm_tf32x3.cuh``) there and on ``convt1d`` at the decoder's layers
+    (batch 4096)."""
+    header, ablations = ("igemm_bf16.cuh", ABLATIONS) if bf16 else ("igemm_tf32x3.cuh", ABLATIONS_TF32X3)
     root = _build.BUILD_DIR.parent / ("ablate" if bf16 else "ablate_f32")
     kinds = ("conv1d",) if bf16 else ("conv1d", "convt1d")
     nvcc = _build.find_nvcc()

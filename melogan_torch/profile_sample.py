@@ -1,10 +1,10 @@
 """Where one ``Sampler.sample_notes`` call spends its time on the GPU.
 
-    python -m melogan_torch.profile_sample [--batch 4096] [--repeats 5] [--fast-math]
+    python -m melogan_torch.profile_sample [--batch 4096] [--repeats 5] [--fast-math] [--max-notes 512]
 
-Builds ``Sampler(GANConfig(), device="cuda")`` with seeded random weights
-(``--fast-math``: ``Sampler(fast_math=True)``, the one-pass bf16 products),
-warms it up, then
+Builds ``Sampler(GANConfig(max_notes=...), device="cuda")`` with seeded
+random weights (``--fast-math``: ``Sampler(fast_math=True)``, the one-pass
+bf16 products), warms it up, then
 
 1. times the stages of the sample step with CUDA events, each over
    ``--repeats`` runs of the same inputs, at the sampler's precision: jitter
@@ -18,9 +18,12 @@ warms it up, then
 3. traces one ``sample_notes`` call with ``torch.profiler`` and lists device
    time by kernel name;
 4. (f32 only) times the decoder-tail stage with the folded BN stages from
-   their cache against folding them on every call, in turn over three
-   rounds: CUDA-event ms and host-clock ms a call, and the device kernels of
-   one call.
+   their cache (and, where the tree holds it there, their W') against
+   folding them on every call, in turn over three rounds: CUDA-event ms and
+   host-clock ms a call, and the device kernels of one call;
+5. (f32 only) the decoder tail on the sampler's folded stages against its
+   yardstick, three ``F.conv_transpose1d`` calls with the ReLUs (cuDNN, TF32
+   off), each in CUDA-event ms and in device µs a call (``torch.profiler``).
 
 Prints one JSON object per part; needs CUDA.
 """
@@ -141,6 +144,54 @@ def fold_cost(sampler: Sampler, batch: int, repeats: int, rounds: int = 3) -> di
     return out
 
 
+def device_us_per_call(fn, calls: int = 5) -> float:
+    """Device time (µs) of the kernels and copies one ``fn()`` launches, read
+    from a ``torch.profiler`` trace of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            total += getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
+    return total / calls
+
+
+def tail_vs_library(sampler: Sampler, batch: int, repeats: int, rounds: int = 3) -> dict:
+    """The fused tail on the sampler's folded stages (warm) against three
+    cuDNN transposed convs with the ReLUs on the same stages, in turn."""
+    import torch.nn.functional as F
+
+    dec = sampler.generator.decoder
+    rng = torch.Generator(device=sampler.device).manual_seed(0)
+    y = torch.randn((batch, dec.reduced_len, 256), generator=rng, device=sampler.device)
+    with torch.inference_mode():
+        stages = dec.folded_stages()
+        wt = [(w.permute(1, 2, 0).contiguous(), b) for w, b in stages]
+        yn = y.transpose(1, 2).contiguous()
+
+        def kernel():
+            fused_decoder_tail(y, stages)
+
+        def library():
+            h = F.conv_transpose1d(yn, wt[0][0], wt[0][1], 2, 2, 1).relu_()
+            h = F.conv_transpose1d(h, wt[1][0], wt[1][1], 2, 2, 1).relu_()
+            F.conv_transpose1d(h, wt[2][0], wt[2][1], 2, 2, 1)
+
+        kernel()
+        library()
+        out = {k: {"event_ms": [], "device_us": []} for k in ("kernel", "library")}
+        for _ in range(rounds):
+            for k, fn in (("kernel", kernel), ("library", library)):
+                out[k]["event_ms"].append(_event_ms(fn, repeats))
+                out[k]["device_us"].append(device_us_per_call(fn))
+    return out
+
+
 def kernel_table(sampler: Sampler, batch: int, top: int = 12) -> list:
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,17 +217,20 @@ def main(argv=None) -> None:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--fast-math", action="store_true",
                     help="sample with the one-pass bf16 products (Sampler(fast_math=True))")
+    ap.add_argument("--max-notes", type=int, default=GANConfig().max_notes,
+                    help="GANConfig.max_notes (1024: the decoder tail at M = 128)")
     args = ap.parse_args(argv)
-    sampler = Sampler(GANConfig(), seed=0, fast_math=args.fast_math, device="cuda")
+    sampler = Sampler(GANConfig(max_notes=args.max_notes), seed=0, fast_math=args.fast_math, device="cuda")
     sampler.sample_notes(["happy"] * args.batch, seed=0)  # build and warm up
     info = {"device": torch.cuda.get_device_name(sampler.device), "batch": args.batch,
-            "fast_math": args.fast_math}
+            "max_notes": args.max_notes, "fast_math": args.fast_math}
     print(json.dumps({**info, "stages": stage_times(sampler, args.batch, args.repeats)}))
     print(json.dumps({**info, "sample_notes_wall_ms": wall_times(sampler, args.batch, args.repeats)}))
     table = kernel_table(sampler, args.batch)
     print(json.dumps({**info, "profiler_top_kernels": table}))
     if not args.fast_math:
         print(json.dumps({**info, "decoder_tail_fold": fold_cost(sampler, args.batch, args.repeats)}))
+        print(json.dumps({**info, "decoder_tail_vs_library": tail_vs_library(sampler, args.batch, args.repeats)}))
 
 
 if __name__ == "__main__":

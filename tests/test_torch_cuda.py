@@ -7,8 +7,8 @@ installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerance: the kernels (the two convs' f32 mode on ``csrc/igemm_tf32x3.cuh``,
-the decoder tail on ``csrc/igemm.cuh``) sum in 3xTF32 on the tensor cores
+Tolerance: the kernels (the two convs' f32 mode and the decoder tail's three
+launches, all on ``csrc/igemm_tf32x3.cuh``) sum in 3xTF32 on the tensor cores
 (each operand split into two TF32 halves, three products into one f32 sum),
 which is f32-accurate (about 5e-7 of the output scale against float64 at
 full width, as IEEE f32 is; tests/test_torch_igemm.py); the plain versions
@@ -40,7 +40,8 @@ from melogan_torch.config import GANConfig
 from melogan_torch.ops import conv as conv_ops
 from melogan_torch.ops.conv1d import conv1d_cuda, conv1d_plain
 from melogan_torch.ops.convt import convt1d_cuda, convt1d_plain
-from melogan_torch.ops.decoder import decoder_tail_cuda, decoder_tail_plain, fused_decoder_tail
+from melogan_torch.models.gan import GeneratorDecoder
+from melogan_torch.ops.decoder import TailStages, decoder_tail_cuda, decoder_tail_plain, fused_decoder_tail
 from melogan_torch.precision import using
 from melogan_torch.sampling import Sampler
 
@@ -415,6 +416,65 @@ def test_decoder_tail_kernel_matches_plain(cuda, rng, b, m, widths):
     assert decoder_tail_cuda.launches == before + 1
     assert convt1d_cuda.launches == before_convt
     torch.testing.assert_close(out, decoder_tail_plain(x, stages), atol=1e-4, rtol=1e-4)
+
+
+def _device_kernels(fn, name):
+    """Device kernels whose name holds ``name`` that one ``fn()`` launches
+    (a ``torch.profiler`` trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA") and name in ev.key)
+
+
+@pytest.mark.parametrize("b,m", [(1, 64), (4096, 64), (2048, 128)])
+def test_decoder_tail_repeats_and_warm_calls_make_no_wprep(cuda, rng, b, m):
+    """On stages that hold their W' (``TailStages``) the first call makes it
+    (three ``prep_w`` launches) and a warm call launches only the three
+    convs of the core: no ``prep_w``, no new W'. A second launch gives the
+    first one's bits (split-K parts summed in part order at batch 1), held
+    and fresh W' give the same bits, and the output is the plain
+    version's."""
+    widths = (256, 128, 64, 4)
+    x = _t(rng.normal(size=(b, m, widths[0])), cuda)
+    stages = TailStages(_decoder_stages(rng, widths, cuda))
+    before = decoder_tail_cuda.prepares
+    out = decoder_tail_cuda(x, stages)
+    assert decoder_tail_cuda.prepares == before + 1 and len(stages.layouts) == 1
+    again = decoder_tail_cuda(x, stages)
+    assert decoder_tail_cuda.prepares == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out, decoder_tail_cuda(x, list(stages)))
+    torch.testing.assert_close(out, decoder_tail_plain(x, stages), atol=1e-4, rtol=1e-4)
+    assert _device_kernels(lambda: decoder_tail_cuda(x, stages), "prep_w") == 0
+    assert _device_kernels(lambda: decoder_tail_cuda(x, stages), "igemm_tf32x3_conv") == 3
+    assert decoder_tail_cuda.prepares == before + 2  # the fresh list's call alone
+
+
+def test_fused_decoder_follows_an_in_place_weight_update(cuda, rng):
+    """The eval decoder's W', held with its folded stages, is made again
+    after an in-place change of a conv weight: the fused output follows the
+    new weights, as the layered path computes them."""
+    dec = GeneratorDecoder(latent_dim=16, max_notes=512).to(cuda).eval()
+    latent = _t(rng.normal(size=(3, 16)), cuda)
+    with torch.inference_mode():
+        before = dec(latent)
+        held = dec.folded_stages()
+    with torch.no_grad():
+        dec.deconv[3].weight.mul_(-1.5)
+    with torch.inference_mode():
+        after = dec(latent)
+        assert dec.folded_stages() is not held
+        dec.fuses = lambda: False
+        layered = dec(latent)
+    del dec.fuses
+    assert not torch.allclose(before, after)
+    torch.testing.assert_close(after, layered, atol=1e-4, rtol=1e-4)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

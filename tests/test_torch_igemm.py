@@ -1,27 +1,27 @@
-"""The geometry of the conv kernels' implicit-GEMM core (``ops/igemm.py``)
-on the CPU, without a card.
+"""The geometry of the implicit-GEMM cores of the conv kernels and the
+decoder tail (``ops/igemm.py``) on the CPU, without a card.
 
-The CUDA core (``csrc/igemm.cuh``) computes
+The CUDA cores compute
 Y[b, t, n] = bias[n mod Cout] + Σ_q Σ_ci X[b, σ·t + o_min + q, ci] · W'[q, ci, n]
 from a plan made here. These tests hold the plan's tap table against the JAX
-package's ``_convt_taps``, execute the plan with torch matmuls (the core's
+package's ``_convt_taps``, execute the plan with torch matmuls (the cores'
 algebra: gather rows by σ·t + o_q, multiply by the table's taps, mask the
 store) against ``convt1d_plain`` and ``conv1d_plain``, chain the decoder
 tail's three plans with the ReLU of its store against ``decoder_tail_plain``
-and JAX's ``fused_decoder_tail``, emulate its 3xTF32 arithmetic at full
-width, and check its shared-memory envelope and its C mirror. The f32 mode's
-core (``csrc/igemm_tf32x3.cuh``) has a plan of its own (``Tf32x3Plan``): its
-envelope, its static list of work items and split-K parts, its C mirror, and
-a float64 emulation of its reduction order (TF32 halves split once, k8
-steps of three products, tensor-core adds toward zero, the pairwise fold,
-split-K parts summed in part order) held against both plain versions and
-JAX's Pallas kernels in interpret mode. The decoder tail's ``mma.sync`` core
-(``csrc/igemm.cuh``) keeps ``Plan`` (``tail_plan``). The one-pass bf16 core
-(``csrc/igemm_bf16.cuh``) has a plan of its own (``Bf16Plan``): its
-strides, tiles and envelope, its C mirror, and a float64 emulation of its
-reduction order held against both plain versions and JAX's XLA conv.
-The kernels themselves are held against the plain versions on the card by
-``tests/test_torch_cuda.py``.
+and JAX's ``fused_decoder_tail``, and emulate 3xTF32 at full width. The f32
+core (``csrc/igemm_tf32x3.cuh``: the convs' f32 mode and the decoder tail's
+three stages) has a plan of its own (``Tf32x3Plan``): its envelope, its
+static list of work items and split-K parts, its C mirror, and a float64
+emulation of its reduction order (TF32 halves split once, k8 steps of three
+products, tensor-core adds toward zero, the pairwise fold, split-K parts
+summed in part order, the tail's ReLU in the store after the part sum) held
+against both plain versions and JAX's Pallas kernels in interpret mode; the
+W' the tail holds with its folded weights follows the weights' changes and
+the layouts. The one-pass bf16 core (``csrc/igemm_bf16.cuh``) has a plan of
+its own (``Bf16Plan``): its strides, tiles and envelope, its C mirror, and a
+float64 emulation of its reduction order held against both plain versions
+and JAX's XLA conv. The kernels themselves are held against the plain
+versions on the card by ``tests/test_torch_cuda.py``.
 """
 import dataclasses
 import importlib.util
@@ -43,6 +43,8 @@ from melogan_tpu.ops.pallas.conv1d import _convt_taps
 from melogan_torch.ops import _build, igemm
 from melogan_torch.ops.conv1d import conv1d_plain, conv_out_len
 from melogan_torch.ops.convt import convt1d_plain, convt_out_len
+from melogan_torch.models.gan import GeneratorDecoder
+from melogan_torch.ops import decoder as decoder_ops
 from melogan_torch.ops.decoder import decoder_tail_plain, stage_plans
 from melogan_torch.precision import round_bf16
 
@@ -189,9 +191,9 @@ def test_3xtf32_is_f32_accurate_at_full_width(op, l, cin, cout, k, s, p, opad):
 
 
 def run_tail(x, stages, matmul=torch.matmul):
-    """The decoder tail as ``decoder_tail_cuda`` runs it: the three
-    ``stage_plans`` chained through the core's arithmetic, the ReLU of the
-    first two stages in the store."""
+    """The decoder tail as ``decoder_tail_cuda`` runs it: the f32 core's
+    three ``stage_plans`` (``convt_plan``) chained through the core's
+    algebra, the ReLU of the first two stages in the store."""
     b, m, c0 = x.shape
     widths = [c0] + [int(w.shape[-1]) for w, _ in stages]
     y = x
@@ -248,6 +250,7 @@ def test_3xtf32_decoder_tail_is_f32_accurate_at_full_width():
     output scale of the same chain in float64; one-pass TF32 misses it."""
     x, stages = _tail_inputs(np.random.default_rng(5), 2, 64, (256, 128, 64, 4))
     tstages = [(_t(w), _t(bias)) for w, bias in stages]
+    assert all(isinstance(p, igemm.Tf32x3Plan) for p in stage_plans(2, 64, (256, 128, 64, 4)))
     exact = run_tail(_t(x).double(), [(w.double(), bias.double()) for w, bias in tstages])
     scale = float(exact.abs().max())
     err3 = float((run_tail(_t(x), tstages, matmul_3xtf32).double() - exact).abs().max())
@@ -292,7 +295,7 @@ def _chip_smoke_plans(bf16=False, big=()):
                 yield igemm.convt_plan(b, lg, cout, cin, k, s, p, (l + 2 * p - k) % s, bf16)
 
 
-CORES = ("mma", "tf32x3")  # the decoder tail's Plan, the f32 convs' Tf32x3Plan
+CORES = ("tf32x3",)  # the f32 core's Tf32x3Plan (the bf16 core's Bf16Plan: its own tests below)
 
 
 def _corners(core):
@@ -300,55 +303,42 @@ def _corners(core):
         for s in (1, 2, 16):
             for cin in (4, 17, 256):
                 for cout in (4, 66, 256):
-                    if core == "mma":
-                        yield igemm.tail_plan(8, 600, cin, cout, k, s, k // 2, s - 1)
-                    else:
-                        yield igemm.conv1d_plan(8, 600, cin, cout, k, s, k // 2)
-                        yield igemm.convt_plan(8, 600, cin, cout, k, s, k // 2, s - 1)
+                    yield igemm.conv1d_plan(8, 600, cin, cout, k, s, k // 2)
+                    yield igemm.convt_plan(8, 600, cin, cout, k, s, k // 2, s - 1)
 
 
 @pytest.mark.parametrize("core", CORES)
 def test_shared_memory_envelope(core):
-    """Every plan ``chip_smoke.py`` launches, and the corners of the limits
-    (K ≤ 7, stride ≤ 16), fit 227 KB of shared memory: the decoder tail's
-    three stages on the ``mma.sync`` core in three stages, the f32 convs on
-    the core of ``igemm_tf32x3.cuh`` in its ring."""
-    plans = [p for p in _chip_smoke_plans() if isinstance(p, igemm.Plan) == (core == "mma")]
-    assert len(plans) > (8 if core == "mma" else 25)
+    """Every f32 plan ``chip_smoke.py`` launches (the f32 convs and the
+    decoder tail's three stages), and the corners of the limits (K ≤ 7,
+    stride ≤ 16), fit 227 KB of shared memory in the ring of
+    ``igemm_tf32x3.cuh``."""
+    plans = list(_chip_smoke_plans())
+    assert len(plans) > 25 and all(isinstance(p, igemm.Tf32x3Plan) for p in plans)
     plans += list(_corners(core))
-    if core == "mma":
-        assert igemm.tail_plan(2048, 512, 64, 4, 5, 2, 2, 1) in plans  # M = 128, stage 3
+    assert igemm.convt_plan(2048, 512, 64, 4, 5, 2, 2, 1) in plans  # the tail at M = 128, stage 3
     for plan in plans:
         assert plan.smem_bytes <= igemm.SMEM_LIMIT, plan
-        if core == "mma":
-            assert plan.x_rows == (plan.tile_m - 1) * plan.sigma + plan.q
-            assert plan.stage_floats % 4 == 0 and plan.x_stride % 4 == 0  # 16-byte copies
-            assert plan.w_rows >= plan.q * plan.cw and plan.w_rows % 8 == 0
-        else:
-            assert isinstance(plan, igemm.Tf32x3Plan) and plan.stages in (2, 3)
-            assert plan.stage_floats % 32 == 0 and plan.land_rows * plan.cw * 4 % 128 == 0  # TMA boxes
+        assert isinstance(plan, igemm.Tf32x3Plan) and plan.stages in (2, 3)
+        assert plan.stage_floats % 32 == 0 and plan.land_rows * plan.cw * 4 % 128 == 0  # TMA boxes
 
 
 @pytest.mark.parametrize("core", CORES)
 def test_tiles_follow_the_shape(core):
     """Narrow N takes a narrow tile (the decoder's 4-channel layer straddles
     both parity classes in one 8-wide tile); Cin = 4 stages 4 channels a
-    chunk, so 5 taps reduce 24 deep (the f32 core: im2col planes, to 32 for
-    its pairs of k8 steps), not 5·8; wide layers take 64 columns (the f32
-    core 128)."""
-    plan = igemm.tail_plan if core == "mma" else igemm.convt_plan
+    chunk in im2col planes, so 5 taps reduce 32 deep (to a pair of k8
+    steps), not 5·8; wide layers take 128 columns, and a class reads only
+    the offsets it uses."""
+    plan = igemm.convt_plan
     last = plan(4096, 256, 64, 4, 5, 2, 2, 1)
     assert (last.n, last.tile_n, last.tile_m) == (8, 8, 128)
     dec1 = plan(4096, 64, 256, 128, 5, 2, 2, 1)
-    assert (dec1.n, dec1.tile_n, dec1.q, dec1.o_min) == (256, 64 if core == "mma" else 128, 3, -1)
+    assert (dec1.n, dec1.tile_n, dec1.q, dec1.o_min) == (256, 128, 3, -1)
     assert dec1.taps == ((4, 2, 0), (-1, 3, 1))
-    if core == "mma":
-        ed1 = igemm._mma_plan(32, 512, 4, 64, 5, 1, 1, 512, 512, 1, -2, 5, (tuple(range(5)),))
-        assert (ed1.cw, ed1.w_rows, ed1.tile_n) == (4, 24, 64)
-    else:
-        ed1 = igemm.conv1d_plan(32, 512, 4, 64, 5, 1, 2)
-        assert (ed1.cw, ed1.im2col, ed1.depth(0), ed1.a_planes, ed1.tile_n) == (4, True, 32, 8, 64)
-        assert [dec1.depth(t) for t in range(dec1.n_tiles)] == [48, 32]  # class 1 skips an offset
+    ed1 = igemm.conv1d_plan(32, 512, 4, 64, 5, 1, 2)
+    assert (ed1.cw, ed1.im2col, ed1.depth(0), ed1.a_planes, ed1.tile_n) == (4, True, 32, 8, 64)
+    assert [dec1.depth(t) for t in range(dec1.n_tiles)] == [48, 32]  # class 1 skips an offset
     with pytest.raises(ValueError, match="K <= 7"):
         plan(2, 9, 4, 4, 8, 2, 0, 0)
     with pytest.raises(ValueError, match="stride <= 16"):
@@ -369,20 +359,16 @@ def _header_ints(name):
 
 @pytest.mark.parametrize("core", CORES)
 def test_c_plan_mirrors_the_header(core):
-    """``CPlan`` (``CTf32x3Plan``) has the int fields of ``igemm::Plan``
-    (``igemm_tf32x3::Plan``) in the header's order, then the 16 × 8 tap
-    table, and carries the plan's values."""
-    header, cls = ("igemm.cuh", igemm.CPlan) if core == "mma" else ("igemm_tf32x3.cuh", igemm.CTf32x3Plan)
-    ints = _header_ints(header)
-    assert [f for f, _ in cls._fields_] == ints + ["taps"]
-    plan = (igemm.tail_plan if core == "mma" else igemm.convt_plan)(4096, 64, 256, 128, 5, 2, 2, 1)
+    """``CTf32x3Plan`` has the int fields of ``igemm_tf32x3::Plan`` in the
+    header's order, then the 16 × 8 tap table, and carries the plan's
+    values."""
+    ints = _header_ints("igemm_tf32x3.cuh")
+    assert [f for f, _ in igemm.CTf32x3Plan._fields_] == ints + ["taps"]
+    plan = igemm.convt_plan(4096, 64, 256, 128, 5, 2, 2, 1)
     c = plan.c_struct()
     assert (c.n, c.classes, c.rows, c.q, c.o_min) == (256, 2, 64, 3, -1)
-    if core == "mma":
-        assert (c.cw, c.cw_shift) == (32, 5)
     for f in ints:
-        want = {"cw_shift": plan.cw.bit_length() - 1}.get(f, getattr(plan, f, None))
-        assert getattr(c, f) == want, f
+        assert getattr(c, f) == getattr(plan, f), f
     assert c.smem_bytes == plan.smem_bytes
     table = bytes(c)[-igemm.MAX_CLASSES * igemm.MAX_Q:]
     assert list(np.frombuffer(table, np.int8)[:16]) == [4, 2, 0, -1, -1, -1, -1, -1,
@@ -505,7 +491,8 @@ def test_tf32x3_work_list_covers_each_tile_once():
         assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(bounds, bounds[1:] + [(p.chunks, None)]))
 
 
-def emulate_tf32x3(plan, x, w, bias=None, arrival=None, in_arrival_order=False, split=("x", "w")):
+def emulate_tf32x3(plan, x, w, bias=None, arrival=None, in_arrival_order=False, split=("x", "w"),
+                   relu=""):
     """The f32 core's arithmetic in its reduction order, in float64 where the
     card is exact: x and w each split once into big = rna(a) and small =
     rna(a − big) (``split`` names the operands that are, the other keeps
@@ -515,7 +502,10 @@ def emulate_tf32x3(plan, x, w, bias=None, arrival=None, in_arrival_order=False, 
     summed exactly and added into the pair's partial sum rounded toward zero
     to f32 (the first from zero); each pair's partial sum folded into the
     part's f32 sum by an IEEE add; the parts summed in part order (or in
-    ``arrival`` order, ``in_arrival_order``: the mutant); bias by an f32 add."""
+    ``arrival`` order, ``in_arrival_order``: the mutant); bias by an f32 add;
+    ``relu`` "store": max(·, 0) in the store, after the part sum and the bias
+    (the decoder tail's first two stages), "parts": also on each split-K
+    partial tile (the mutant)."""
     def halves(a, on):
         big = tf32_rna(a)
         return big.double(), (tf32_rna(a - big) if on else torch.zeros_like(a)).double()
@@ -556,7 +546,7 @@ def emulate_tf32x3(plan, x, w, bias=None, arrival=None, in_arrival_order=False, 
                             prod = a[..., sl] @ bm[sl]
                             part_sum = _rz32(prod if part_sum is None else part_sum.double() + prod)
                     acc = acc + part_sum
-            sums.append(acc)
+            sums.append(torch.relu(acc) if relu == "parts" and plan.parts > 1 else acc)
         order = list(arrival) if in_arrival_order else list(range(plan.parts))
         total = sums[order[0]]
         for q in order[1:]:
@@ -564,6 +554,8 @@ def emulate_tf32x3(plan, x, w, bias=None, arrival=None, in_arrival_order=False, 
         y[..., cols] = total
     if bias is not None:
         y = y + bias.repeat(plan.classes)
+    if relu:
+        y = torch.relu(y)
     return y.reshape(b, plan.rows * plan.classes, plan.cout)[:, :plan.lout]
 
 
@@ -632,6 +624,116 @@ def test_tf32x3_emulation_mutants_fail():
         assert float((one.double() - exact).abs().max()) > 1e-5 * scale, split
 
 
+def emulate_tail(x, stages):
+    """The decoder tail as ``decoder_tail_cuda`` computes it: the f32 core's
+    arithmetic on each of the three ``stage_plans``, h1 and h2 stored in
+    f32, the ReLU in the first two stages' store."""
+    b, m, c0 = x.shape
+    widths = (c0,) + tuple(int(w.shape[-1]) for w, _ in stages)
+    y = x
+    for i, (plan, (w, bias)) in enumerate(zip(stage_plans(b, m, widths), stages)):
+        y = emulate_tf32x3(plan, y, w, bias, relu="store" if i < 2 else "")
+    return y
+
+
+@pytest.mark.parametrize("b,m,widths", TAIL_SHAPES)
+def test_tf32x3_decoder_tail_emulation_matches_plain_and_jax(b, m, widths):
+    """The tail's three launches in the f32 core's reduction order (split-K
+    parts where the batch is small, the ReLU after the part sum) within
+    1e-6 of the output scale of the same chain in float64, of
+    ``decoder_tail_plain`` and of JAX's ``fused_decoder_tail`` (its Pallas
+    kernel in interpret mode)."""
+    rng = np.random.default_rng(b * 1000 + m + sum(widths) + 1)
+    x, stages = _tail_inputs(rng, b, m, widths)
+    tstages = [(_t(w), _t(bias)) for w, bias in stages]
+    got = emulate_tail(_t(x), tstages).double()
+    exact = run_tail(_t(x).double(), [(w.double(), bias.double()) for w, bias in tstages])
+    plain = decoder_tail_plain(_t(x), tstages)
+    theirs = torch.from_numpy(np.array(jax_decoder.fused_decoder_tail(
+        jnp.asarray(x), [(jnp.asarray(w), jnp.asarray(bias)) for w, bias in stages])))
+    scale = float(exact.abs().max())
+    assert got.shape == exact.shape == plain.shape == theirs.shape == (b, 8 * m, widths[-1])
+    for want in (exact, plain.double(), theirs.double()):
+        assert float((got - want).abs().max()) <= 1e-6 * scale
+
+
+def test_tf32x3_relu_on_split_k_partials_fails():
+    """A ReLU in the store of every split-K partial tile, and not only of
+    the summed tile, misses the float64 stage by far: at batch 1 the
+    decoder tail's first stage runs in parts, whose partial sums are often
+    negative where the whole sum is not. The store's ReLU after the part sum
+    stays within 1e-6 of the scale."""
+    rng = np.random.default_rng(12)
+    x = _t(rng.normal(size=(1, 64, 256)))
+    w = _t(rng.normal(size=(5, 256, 128)) / np.sqrt(5 * 256))
+    bias = _t(0.1 * rng.normal(size=(128,)))
+    plan = stage_plans(1, 64, (256, 128, 64, 4))[0]
+    assert plan.parts > 1
+    exact = torch.relu(run_plan(plan, x.double(), w.double(), bias.double()))
+    scale = float(exact.abs().max())
+    right = emulate_tf32x3(plan, x, w, bias, relu="store")
+    assert float((right.double() - exact).abs().max()) <= 1e-6 * scale
+    mutant = emulate_tf32x3(plan, x, w, bias, relu="parts")
+    assert float((mutant.double() - exact).abs().max()) > 1e-2 * scale
+
+
+def test_tail_wprep_is_held_per_fold_and_layout():
+    """The W' the decoder tail holds is tied to ``folded_stages``' cache
+    entry: a second call with the same weights finds the same
+    ``TailStages`` and its W' (none made again), one set per layout (batch 1
+    and batch 4096 differ); a ``load_state_dict``, an in-place weight
+    update and new BN statistics each give a new entry holding no W'. Under
+    grad mode every fold is new. The store keeps at most ``MAX_LAYOUTS``, the
+    least recently used dropped; a copy holds none."""
+    import copy
+
+    widths = (256, 128, 64, 4)
+    small, large = (decoder_ops._tail(b, 64, widths).layout for b in (1, 4096))
+    assert small != large
+    dec = GeneratorDecoder(latent_dim=8, max_notes=512).eval()
+    latent = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 8)).astype(np.float32))
+    made = []
+
+    def wprep(stages, layout):
+        return stages.held((0, layout), lambda: made.append(layout) or object())
+
+    def fold():
+        with torch.inference_mode():
+            return dec.folded_stages()
+
+    first = fold()
+    assert isinstance(first, decoder_ops.TailStages) and fold() is first
+    a, b = wprep(first, small), wprep(first, large)
+    assert wprep(fold(), small) is a and wprep(fold(), large) is b and len(made) == 2
+    assert first.layouts == [(0, small), (0, large)]
+
+    with torch.no_grad():
+        dec.deconv[3].weight.add_(0.05)
+    after_step = fold()
+    assert after_step is not first and after_step.layouts == []
+    wprep(after_step, small)
+    assert len(made) == 3
+
+    dec.train()
+    with torch.no_grad():
+        dec.tail(torch.zeros((2, 64, 256)) + latent.mean())  # moves the BN running statistics
+    dec.eval()
+    after_bn = fold()
+    assert after_bn is not after_step and after_bn.layouts == []
+
+    dec.load_state_dict(GeneratorDecoder(latent_dim=8, max_notes=512).state_dict())
+    loaded = fold()
+    assert loaded is not after_bn and loaded.layouts == [] and fold() is loaded
+
+    assert dec.folded_stages() is not dec.folded_stages()  # grad mode: folded afresh
+    for i in range(decoder_ops.MAX_LAYOUTS + 1):
+        wprep(loaded, ("layout", i))
+    assert loaded.layouts == [(0, ("layout", i)) for i in range(1, decoder_ops.MAX_LAYOUTS + 1)]
+    twin = copy.deepcopy(loaded)
+    assert isinstance(twin, decoder_ops.TailStages) and twin.layouts == []
+    assert all(torch.equal(u, v) for s, t in zip(twin, loaded) for u, v in zip(s, t))
+
+
 def test_tf32x3_x_path_follows_the_tensor_map_rule():
     """x goes by TMA where a tensor map can describe it (rows of Cin floats
     a multiple of 16 bytes, a 16-byte aligned base), else by 4-byte
@@ -644,22 +746,19 @@ def test_tf32x3_x_path_follows_the_tensor_map_rule():
 
 def test_f32_ablation_patches_apply_to_the_cores():
     """``profile_conv_bf16 --mode f32 --part ablate`` builds copies of the f32
-    core with one phase taken out by text patches: this tree's
-    ``igemm_tf32x3.cuh``, or the ``mma.sync`` core (``igemm.cuh``) where the
-    file runs in a tree from before it. Each patch finds its text once and
-    changes it."""
+    core (``igemm_tf32x3.cuh``, which the convs and the decoder tail
+    include) with one phase taken out by text patches. Each patch finds its
+    text once and changes it."""
     from melogan_torch import profile_conv_bf16 as tool
 
-    assert tool.f32_core() == ("igemm_tf32x3.cuh", tool.ABLATIONS_TF32X3)
-    for header, ablations in (("igemm_tf32x3.cuh", tool.ABLATIONS_TF32X3), ("igemm.cuh", tool.ABLATIONS_MMA)):
-        text = (ROOT / "melogan_torch" / "csrc" / header).read_text()
-        assert ablations["full"] == []
-        for name, patches in ablations.items():
-            patched = text
-            for old, new in patches:
-                assert patched.count(old) == 1 and old != new, (header, name)
-                patched = patched.replace(old, new)
-            assert (patched != text) == (name != "full")
+    text = (ROOT / "melogan_torch" / "csrc" / "igemm_tf32x3.cuh").read_text()
+    assert tool.ABLATIONS_TF32X3["full"] == []
+    for name, patches in tool.ABLATIONS_TF32X3.items():
+        patched = text
+        for old, new in patches:
+            assert patched.count(old) == 1 and old != new, name
+            patched = patched.replace(old, new)
+        assert (patched != text) == (name != "full")
 
 
 # --- the one-pass bf16 core (csrc/igemm_bf16.cuh) ---------------------------
