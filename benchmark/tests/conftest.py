@@ -1,0 +1,7 @@
+"""The repository on the path of the benchmark's CPU tests."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
