@@ -1170,7 +1170,10 @@ def cmd_profile(args):
     emotion prompts, ``--steps`` times under a ``StepTimer``, after one call
     outside the window; with ``--trace-dir`` a ``torch.profiler`` trace of
     the timed calls lands there as ``trace.json`` (Perfetto,
-    chrome://tracing)."""
+    chrome://tracing), and the program's spans in those calls as
+    ``spans.json``: per span name its count, host and self seconds
+    (``table``), and each span's name, thread, start and end in Unix ns
+    (the trace's clock), parent and root (``records``)."""
     from melogan_torch.config import GANConfig
     from melogan_torch.sampling import Sampler
     from melogan_torch.utils.profiling import StepTimer, device_trace

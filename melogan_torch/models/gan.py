@@ -43,6 +43,7 @@ from melogan_torch.models.layers import (
     trim_or_pad_length,
 )
 from melogan_torch.ops.decoder import TailStages, fold_bn_affine, fused_decoder_tail
+from melogan_torch.utils.profiling import span
 
 _CONVT = dict(kernel_size=5, stride=2, padding=2, output_padding=1)
 
@@ -60,7 +61,8 @@ class NoiseToLatent(nn.Module):
         self.net = nn.Sequential(Linear(in_dim, hidden), nn.ReLU(), Linear(hidden, out_dim))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return self.net(z)
+        with span("gan.noise_to_latent"):
+            return self.net(z)
 
 
 class GeneratorDecoder(nn.Module):
@@ -161,19 +163,22 @@ class GeneratorDecoder(nn.Module):
         return TailStages(stages)
 
     def forward(self, latent: torch.Tensor) -> torch.Tensor:
-        y = self.pre(latent)
-        # the reference reshapes to (B, 256, reduced_len); our layout is (B, L, C)
-        return self.tail(y.reshape(y.shape[0], 256, self.reduced_len).transpose(1, 2).contiguous())
+        with span("gan.decoder.pre"):
+            y = self.pre(latent)
+            # the reference reshapes to (B, 256, reduced_len); our layout is (B, L, C)
+            y = y.reshape(y.shape[0], 256, self.reduced_len).transpose(1, 2).contiguous()
+        return self.tail(y)
 
     def tail(self, y: torch.Tensor) -> torch.Tensor:
         """The three transposed convs from the pre-net's (B, max_notes/8,
         256) output: fused or layered, as ``fuses`` says."""
-        if self.fuses():
-            return trim_or_pad_length(fused_decoder_tail(y, self.folded_stages()), self.max_notes)
-        for conv_i, bn_i in ((0, 1), (3, 4)):
-            y = torch.relu(batch_norm_lc(self.deconv[bn_i], self.deconv[conv_i](y)))
-        # no final activation: raw note values
-        return trim_or_pad_length(self.deconv[6](y), self.max_notes)
+        with span("gan.decoder.tail"):
+            if self.fuses():
+                return trim_or_pad_length(fused_decoder_tail(y, self.folded_stages()), self.max_notes)
+            for conv_i, bn_i in ((0, 1), (3, 4)):
+                y = torch.relu(batch_norm_lc(self.deconv[bn_i], self.deconv[conv_i](y)))
+            # no final activation: raw note values
+            return trim_or_pad_length(self.deconv[6](y), self.max_notes)
 
 
 class Generator(nn.Module):
@@ -316,14 +321,15 @@ class FeatureEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if masks is not None and len(masks) != len(self.dropouts):
             raise ValueError(f"expected {len(self.dropouts)} dropout masks, got {len(masks)}")
-        i = 0
-        for m in self.net:
-            if isinstance(m, Dropout):
-                x = m(x, None if masks is None else masks[i], generator)
-                i += 1
-            else:
-                x = m(x)
-        return x
+        with span("gan.feature_encoder"):
+            i = 0
+            for m in self.net:
+                if isinstance(m, Dropout):
+                    x = m(x, None if masks is None else masks[i], generator)
+                    i += 1
+                else:
+                    x = m(x)
+            return x
 
     @classmethod
     def from_config(cls, cfg: GANConfig, dropout: Optional[float] = None) -> "FeatureEncoder":

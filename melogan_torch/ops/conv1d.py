@@ -17,6 +17,7 @@ import torch
 from melogan_torch.ops import _build
 from melogan_torch.ops.igemm import MAX_K, MAX_STRIDE, conv1d_plan
 from melogan_torch.precision import round_bf16
+from melogan_torch.utils.profiling import span
 
 
 def conv_out_len(l: int, k: int, stride: int, padding: int) -> int:
@@ -83,39 +84,40 @@ def conv1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 1,
     Takes CUDA float32 contiguous tensors only and raises on anything else
     (K ≤ 7, stride ≤ 16). Forward only: gradients come from
     ``ops.conv.conv1d``."""
-    if x.device.type != "cuda":
-        raise ValueError(f"conv1d_cuda needs CUDA tensors, got {x.device}")
-    if x.dim() != 3 or w.dim() != 3:
-        raise ValueError(f"conv1d: x must be (B, L, Cin) and w (K, Cin, Cout); "
-                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
-    b, l, cin = x.shape
-    k, wcin, cout = w.shape
-    if wcin != cin:
-        raise ValueError(f"conv1d: w has Cin {wcin}, x has {cin}")
-    if not (1 <= k <= MAX_K and 1 <= stride <= MAX_STRIDE and padding >= 0):
-        raise ValueError(f"conv1d: kernel takes K <= {MAX_K}, stride <= {MAX_STRIDE}, "
-                         f"padding >= 0; got K={k} stride={stride} padding={padding}")
-    dev = x.device
-    _build.check_operand("conv1d", x, "x", dev)
-    _build.check_operand("conv1d", w, "w", dev)
-    if bias is not None:
-        _build.check_operand("conv1d", bias, "bias", dev, (cout,))
-    lout = conv_out_len(l, k, stride, padding)
-    if lout <= 0:
-        raise ValueError(f"conv1d: output length {lout} <= 0")
-    y = torch.empty((b, lout, cout), device=dev, dtype=torch.float32)
-    if y.numel() == 0:
+    with span("ops.conv1d"):
+        if x.device.type != "cuda":
+            raise ValueError(f"conv1d_cuda needs CUDA tensors, got {x.device}")
+        if x.dim() != 3 or w.dim() != 3:
+            raise ValueError(f"conv1d: x must be (B, L, Cin) and w (K, Cin, Cout); "
+                             f"got {tuple(x.shape)} and {tuple(w.shape)}")
+        b, l, cin = x.shape
+        k, wcin, cout = w.shape
+        if wcin != cin:
+            raise ValueError(f"conv1d: w has Cin {wcin}, x has {cin}")
+        if not (1 <= k <= MAX_K and 1 <= stride <= MAX_STRIDE and padding >= 0):
+            raise ValueError(f"conv1d: kernel takes K <= {MAX_K}, stride <= {MAX_STRIDE}, "
+                             f"padding >= 0; got K={k} stride={stride} padding={padding}")
+        dev = x.device
+        _build.check_operand("conv1d", x, "x", dev)
+        _build.check_operand("conv1d", w, "w", dev)
+        if bias is not None:
+            _build.check_operand("conv1d", bias, "bias", dev, (cout,))
+        lout = conv_out_len(l, k, stride, padding)
+        if lout <= 0:
+            raise ValueError(f"conv1d: output length {lout} <= 0")
+        y = torch.empty((b, lout, cout), device=dev, dtype=torch.float32)
+        if y.numel() == 0:
+            return y
+        plan = conv1d_plan(b, l, cin, cout, k, stride, padding, bf16)
+        scratch = _build.scratch_for(plan, dev)
+        err = _lib().melogan_conv1d(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
+            y.data_ptr(), ctypes.byref(plan.c_struct()), scratch.data_ptr() if scratch is not None else None,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream, int(bf16),
+        )
+        _build.check(err, "conv1d launch")
+        _build.count_launch(conv1d_cuda, bf16)
         return y
-    plan = conv1d_plan(b, l, cin, cout, k, stride, padding, bf16)
-    scratch = _build.scratch_for(plan, dev)
-    err = _lib().melogan_conv1d(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), ctypes.byref(plan.c_struct()), scratch.data_ptr() if scratch is not None else None,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream, int(bf16),
-    )
-    _build.check(err, "conv1d launch")
-    _build.count_launch(conv1d_cuda, bf16)
-    return y
 
 
 conv1d_cuda.launches = 0

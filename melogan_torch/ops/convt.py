@@ -17,6 +17,7 @@ import torch
 from melogan_torch.ops import _build
 from melogan_torch.ops.igemm import check_limits, convt_plan, convt_taps
 from melogan_torch.precision import round_bf16
+from melogan_torch.utils.profiling import span
 
 
 def convt_out_len(l: int, k: int, stride: int, padding: int, output_padding: int) -> int:
@@ -86,40 +87,41 @@ def convt1d_cuda(x, w, bias: Optional[torch.Tensor] = None, stride: int = 2,
     Takes CUDA float32 contiguous tensors only and raises on anything else
     (K ≤ 7, stride ≤ 16); forward only (no autograd), so it refuses inputs
     that require grad."""
-    if x.device.type != "cuda":
-        raise ValueError(f"convt1d_cuda needs CUDA tensors, got {x.device}")
-    if x.dim() != 3 or w.dim() != 3:
-        raise ValueError(f"convt1d: x must be (B, L, Cin) and w (K, Cin, Cout); "
-                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
-    b, l, cin = x.shape
-    k, wcin, cout = w.shape
-    if wcin != cin:
-        raise ValueError(f"convt1d: w has Cin {wcin}, x has {cin}")
-    if stride < 1 or padding < 0 or output_padding < 0 or output_padding >= stride:
-        raise ValueError(f"convt1d: bad geometry stride={stride} padding={padding} "
-                         f"output_padding={output_padding}")
-    check_limits("convt1d", k, stride)
-    dev = x.device
-    _build.check_operand("convt1d", x, "x", dev)
-    _build.check_operand("convt1d", w, "w", dev)
-    if bias is not None:
-        _build.check_operand("convt1d", bias, "bias", dev, (cout,))
-    lout = convt_out_len(l, k, stride, padding, output_padding)
-    if lout <= 0:
-        raise ValueError(f"convt1d: output length {lout} <= 0")
-    y = torch.empty((b, lout, cout), device=dev, dtype=torch.float32)
-    if y.numel() == 0:
+    with span("ops.convt1d"):
+        if x.device.type != "cuda":
+            raise ValueError(f"convt1d_cuda needs CUDA tensors, got {x.device}")
+        if x.dim() != 3 or w.dim() != 3:
+            raise ValueError(f"convt1d: x must be (B, L, Cin) and w (K, Cin, Cout); "
+                             f"got {tuple(x.shape)} and {tuple(w.shape)}")
+        b, l, cin = x.shape
+        k, wcin, cout = w.shape
+        if wcin != cin:
+            raise ValueError(f"convt1d: w has Cin {wcin}, x has {cin}")
+        if stride < 1 or padding < 0 or output_padding < 0 or output_padding >= stride:
+            raise ValueError(f"convt1d: bad geometry stride={stride} padding={padding} "
+                             f"output_padding={output_padding}")
+        check_limits("convt1d", k, stride)
+        dev = x.device
+        _build.check_operand("convt1d", x, "x", dev)
+        _build.check_operand("convt1d", w, "w", dev)
+        if bias is not None:
+            _build.check_operand("convt1d", bias, "bias", dev, (cout,))
+        lout = convt_out_len(l, k, stride, padding, output_padding)
+        if lout <= 0:
+            raise ValueError(f"convt1d: output length {lout} <= 0")
+        y = torch.empty((b, lout, cout), device=dev, dtype=torch.float32)
+        if y.numel() == 0:
+            return y
+        plan = convt_plan(b, l, cin, cout, k, stride, padding, output_padding, bf16)
+        scratch = _build.scratch_for(plan, dev)
+        err = _lib().melogan_convt1d(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
+            y.data_ptr(), ctypes.byref(plan.c_struct()), scratch.data_ptr() if scratch is not None else None,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream, int(bf16),
+        )
+        _build.check(err, "convt1d launch")
+        _build.count_launch(convt1d_cuda, bf16)
         return y
-    plan = convt_plan(b, l, cin, cout, k, stride, padding, output_padding, bf16)
-    scratch = _build.scratch_for(plan, dev)
-    err = _lib().melogan_convt1d(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), ctypes.byref(plan.c_struct()), scratch.data_ptr() if scratch is not None else None,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream, int(bf16),
-    )
-    _build.check(err, "convt1d launch")
-    _build.count_launch(convt1d_cuda, bf16)
-    return y
 
 
 convt1d_cuda.launches = 0

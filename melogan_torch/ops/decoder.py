@@ -21,6 +21,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 from melogan_torch.ops import _build, igemm
+from melogan_torch.utils.profiling import span
 
 K = 5
 STRIDE = 2
@@ -204,42 +205,43 @@ def decoder_tail_cuda(x, stages: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
     same stream. Raises on what the kernel does not take: non-CUDA, non-f32,
     non-contiguous or misshapen operands, or a plan outside the core's
     envelope."""
-    if x.device.type != "cuda":
-        raise ValueError(f"decoder_tail_cuda needs CUDA tensors, got {x.device}")
-    if len(stages) != 3:
-        raise ValueError(f"decoder_tail: expected 3 stages, got {len(stages)}")
-    if x.dim() != 3:
-        raise ValueError(f"decoder_tail: x must be (B, M, C0), got {tuple(x.shape)}")
-    b, m, c0 = x.shape
-    dev = x.device
-    widths = (c0,) + tuple(int(w.shape[-1]) for w, _ in stages)
-    if m < 1:
-        raise ValueError(f"decoder_tail: M={m} must be positive")
-    _build.check_operand("decoder_tail", x, "x", dev, (b, m, c0))
-    for i, (w, bias) in enumerate(stages):
-        _build.check_operand("decoder_tail", w, f"w{i + 1}", dev, (K, widths[i], widths[i + 1]))
-        _build.check_operand("decoder_tail", bias, f"b{i + 1}", dev, (widths[i + 1],))
-    y = torch.empty((b, 8 * m, widths[3]), device=dev, dtype=torch.float32)
-    if b == 0:
+    with span("ops.decoder_tail"):
+        if x.device.type != "cuda":
+            raise ValueError(f"decoder_tail_cuda needs CUDA tensors, got {x.device}")
+        if len(stages) != 3:
+            raise ValueError(f"decoder_tail: expected 3 stages, got {len(stages)}")
+        if x.dim() != 3:
+            raise ValueError(f"decoder_tail: x must be (B, M, C0), got {tuple(x.shape)}")
+        b, m, c0 = x.shape
+        dev = x.device
+        widths = (c0,) + tuple(int(w.shape[-1]) for w, _ in stages)
+        if m < 1:
+            raise ValueError(f"decoder_tail: M={m} must be positive")
+        _build.check_operand("decoder_tail", x, "x", dev, (b, m, c0))
+        for i, (w, bias) in enumerate(stages):
+            _build.check_operand("decoder_tail", w, f"w{i + 1}", dev, (K, widths[i], widths[i + 1]))
+            _build.check_operand("decoder_tail", bias, f"b{i + 1}", dev, (widths[i + 1],))
+        y = torch.empty((b, 8 * m, widths[3]), device=dev, dtype=torch.float32)
+        if b == 0:
+            return y
+        tail = _tail(b, m, widths)
+        stream = torch.cuda.current_stream(dev)
+        if isinstance(stages, TailStages):
+            wprep = _held_wprep(stages, tail, dev, stream)
+        else:
+            wprep = _prepare(stages, tail, dev, stream)
+        h1 = torch.empty((b, 2 * m, widths[1]), device=dev, dtype=torch.float32)
+        h2 = torch.empty((b, 4 * m, widths[2]), device=dev, dtype=torch.float32)
+        ws = torch.empty(tail.ws_floats, device=dev, dtype=torch.float32) if tail.ws_floats else None
+        (_, b1), (_, b2), (_, b3) = stages
+        err = _lib().melogan_decoder_tail(
+            x.data_ptr(), wprep.data_ptr(), b1.data_ptr(), b2.data_ptr(), b3.data_ptr(),
+            h1.data_ptr(), h2.data_ptr(), y.data_ptr(), ws.data_ptr() if ws is not None else None,
+            tail.c_plans, dev.index, stream.cuda_stream,
+        )
+        _build.check(err, "decoder_tail launch")
+        _build.count_launch(decoder_tail_cuda)
         return y
-    tail = _tail(b, m, widths)
-    stream = torch.cuda.current_stream(dev)
-    if isinstance(stages, TailStages):
-        wprep = _held_wprep(stages, tail, dev, stream)
-    else:
-        wprep = _prepare(stages, tail, dev, stream)
-    h1 = torch.empty((b, 2 * m, widths[1]), device=dev, dtype=torch.float32)
-    h2 = torch.empty((b, 4 * m, widths[2]), device=dev, dtype=torch.float32)
-    ws = torch.empty(tail.ws_floats, device=dev, dtype=torch.float32) if tail.ws_floats else None
-    (_, b1), (_, b2), (_, b3) = stages
-    err = _lib().melogan_decoder_tail(
-        x.data_ptr(), wprep.data_ptr(), b1.data_ptr(), b2.data_ptr(), b3.data_ptr(),
-        h1.data_ptr(), h2.data_ptr(), y.data_ptr(), ws.data_ptr() if ws is not None else None,
-        tail.c_plans, dev.index, stream.cuda_stream,
-    )
-    _build.check(err, "decoder_tail launch")
-    _build.count_launch(decoder_tail_cuda)
-    return y
 
 
 decoder_tail_cuda.launches = 0

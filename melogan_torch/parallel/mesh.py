@@ -45,13 +45,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from melogan_torch.utils.profiling import span
+
 
 def all_reduce(t: torch.Tensor, group) -> None:
-    """``dist.all_reduce`` (sum, in place) inside a ``dp.all_reduce``
-    profiler span, so a ``torch.profiler`` trace shows each collective's
+    """``dist.all_reduce`` (sum, in place) inside a ``dp.all_reduce`` span
+    (``utils/profiling.py``), so a ``torch.profiler`` trace shows each collective's
     host time, its wait included (the operator's own event covers only the
     enqueue)."""
-    with torch.profiler.record_function("dp.all_reduce"):
+    with span("dp.all_reduce"):
         dist.all_reduce(t, group=group)
 
 

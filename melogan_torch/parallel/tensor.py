@@ -47,15 +47,16 @@ import torch.distributed as dist
 from torch import nn
 
 from melogan_torch.parallel.mesh import Mesh, partition_params
+from melogan_torch.utils.profiling import span
 from melogan_torch.utils.weights import flax_axes
 
 MODULES = ("generator", "feature_encoder", "critic", "ed")
 
 
 def all_reduce(t: torch.Tensor, group) -> None:
-    """``dist.all_reduce`` (sum, in place) inside a ``tp.all_reduce``
-    profiler span."""
-    with torch.profiler.record_function("tp.all_reduce"):
+    """``dist.all_reduce`` (sum, in place) inside a ``tp.all_reduce`` span
+    (``utils/profiling.py``)."""
+    with span("tp.all_reduce"):
         dist.all_reduce(t, group=group)
 
 

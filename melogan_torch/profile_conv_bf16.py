@@ -309,7 +309,7 @@ def _device_ms(fn, calls: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if str(ev.device_type).endswith("CUDA"))
+             if str(ev.device_type).endswith("CUDA") and not getattr(ev, "is_user_annotation", False))
     return us / calls / 1e3
 
 

@@ -6,14 +6,12 @@ Builds ``Sampler(GANConfig(max_notes=...), device="cuda")`` with seeded
 random weights (``--fast-math``: ``Sampler(fast_math=True)``, the one-pass
 bf16 products), warms it up, then
 
-1. times the stages of the sample step with CUDA events, each over
-   ``--repeats`` runs of the same inputs, at the sampler's precision: jitter
-   and noise draws, the feature encoder, NoiseToLatent plus the decoder
-   pre-net, the decoder tail (the decoder-tail kernel, its folded stages from
-   their cache; with ``--fast-math`` the layered path, three ``convt1d``
-   launches in bf16 mode with BatchNorm and ReLU between), and the
-   device→host copy of the notes (through page-locked memory, as
-   ``Sampler`` does);
+1. traces ``--repeats`` whole ``sample_notes`` calls under
+   ``utils.profiling.device_trace`` and lists the program's spans in them
+   (``span_table``): per span, its count, and host ms and self ms a call
+   (the name check and index, the draws, the forward with the feature
+   encoder, NoiseToLatent, the decoder pre-net and tail inside it, the copy
+   to the host with its page-locked allocation);
 2. wall-clocks whole ``sample_notes`` calls (host clock, ending in the copy);
 3. traces one ``sample_notes`` call with ``torch.profiler`` and lists device
    time by kernel name;
@@ -30,8 +28,8 @@ Prints one JSON object per part; needs CUDA.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
+import tempfile
 import time
 
 import torch
@@ -39,8 +37,8 @@ import torch
 from melogan_torch import EMOTIONS
 from melogan_torch.config import GANConfig
 from melogan_torch.ops.decoder import fused_decoder_tail
-from melogan_torch.precision import using
-from melogan_torch.sampling import FEATURE_JITTER_STD, Sampler, _to_numpy
+from melogan_torch.sampling import Sampler
+from melogan_torch.utils.profiling import device_trace, span_table
 
 
 def _event_ms(fn, repeats: int) -> float:
@@ -54,40 +52,18 @@ def _event_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def stage_times(sampler: Sampler, batch: int, repeats: int) -> dict:
-    dev = sampler.device
-    gen, fe = sampler.generator, sampler.feature_encoder
-    dec = gen.decoder
-    idx = torch.arange(batch, device=dev) % len(EMOTIONS)
-    rng = torch.Generator(device=dev).manual_seed(0)
-    fast = using("fast") if sampler.fast_math else contextlib.nullcontext()
-    with fast, torch.inference_mode():
-        base = sampler._base_features[idx]
-        feats = base + FEATURE_JITTER_STD * torch.randn(base.shape, generator=rng, device=dev)
-        noise = torch.randn((batch, sampler.cfg.noise_dim), generator=rng, device=dev)
-        emb = fe(feats)
-        latent = gen.noise_to_latent(torch.cat([noise, emb], dim=1))
-        y = dec.pre(latent).reshape(batch, 256, dec.reduced_len).transpose(1, 2).contiguous()
-        notes = dec.tail(y)
-
-        def draws():
-            b = sampler._base_features[idx]
-            b + FEATURE_JITTER_STD * torch.randn(b.shape, generator=rng, device=dev)
-            torch.randn((batch, sampler.cfg.noise_dim), generator=rng, device=dev)
-
-        def prenet():
-            z = dec.pre(gen.noise_to_latent(torch.cat([noise, emb], dim=1)))
-            z.reshape(batch, 256, dec.reduced_len).transpose(1, 2).contiguous()
-
-        times = {
-            "draws_ms": _event_ms(draws, repeats),
-            "feature_encoder_ms": _event_ms(lambda: fe(feats), repeats),
-            "noise_to_latent_and_prenet_ms": _event_ms(prenet, repeats),
-            "decoder_tail_ms": _event_ms(lambda: dec.tail(y), repeats),
-            "to_host_ms": _event_ms(lambda: _to_numpy(notes), repeats),
-        }
-    times["sum_ms"] = sum(times.values())
-    return times
+def span_times(sampler: Sampler, batch: int, repeats: int) -> dict:
+    """The program's spans over ``repeats`` whole ``sample_notes`` calls
+    under ``device_trace``: per span name, its count and host and self ms a
+    call."""
+    emotions = [EMOTIONS[i % len(EMOTIONS)] for i in range(batch)]
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with device_trace(trace_dir):
+            for seed in range(repeats):
+                sampler.sample_notes(emotions, seed=seed)
+    return {name: {"count": row["count"], "host_ms": row["host_s"] * 1e3 / repeats,
+                   "self_ms": row["self_s"] * 1e3 / repeats}
+            for name, row in span_table().items()}
 
 
 def wall_times(sampler: Sampler, batch: int, repeats: int) -> list:
@@ -112,7 +88,8 @@ def device_kernels_per_call(fn, name: str = "", calls: int = 2) -> float:
             fn()
         torch.cuda.synchronize()
     n = sum(ev.count for ev in prof.key_averages()
-            if str(ev.device_type).endswith("CUDA") and name in ev.key)
+            if str(ev.device_type).endswith("CUDA") and not getattr(ev, "is_user_annotation", False)
+            and name in ev.key)
     return n / calls
 
 
@@ -156,7 +133,7 @@ def device_us_per_call(fn, calls: int = 5) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if str(ev.device_type).endswith("CUDA"):
+        if str(ev.device_type).endswith("CUDA") and not getattr(ev, "is_user_annotation", False):
             total += getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
     return total / calls
 
@@ -200,8 +177,8 @@ def kernel_table(sampler: Sampler, batch: int, top: int = 12) -> list:
         sampler.sample_notes(emotions, seed=0)
     rows = []
     for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue  # host-side ops; their kernels are listed themselves
+        if not str(ev.device_type).endswith("CUDA") or getattr(ev, "is_user_annotation", False):
+            continue  # host-side ops and the spans' device ranges; their kernels are listed themselves
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:  # older torch
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -224,7 +201,7 @@ def main(argv=None) -> None:
     sampler.sample_notes(["happy"] * args.batch, seed=0)  # build and warm up
     info = {"device": torch.cuda.get_device_name(sampler.device), "batch": args.batch,
             "max_notes": args.max_notes, "fast_math": args.fast_math}
-    print(json.dumps({**info, "stages": stage_times(sampler, args.batch, args.repeats)}))
+    print(json.dumps({**info, "spans": span_times(sampler, args.batch, args.repeats)}))
     print(json.dumps({**info, "sample_notes_wall_ms": wall_times(sampler, args.batch, args.repeats)}))
     table = kernel_table(sampler, args.batch)
     print(json.dumps({**info, "profiler_top_kernels": table}))

@@ -73,8 +73,8 @@ def kernel_table(fn, steps: int, top: int = 15) -> dict:
                 host.append({"name": ev.key[:90], "calls": ev.count,
                              "self_host_ms": ev.self_cpu_time_total / 1e3 / steps})
             continue
-        if "#" in ev.key:
-            continue  # annotated ranges (Optimizer.step#...): their kernels are listed themselves
+        if getattr(ev, "is_user_annotation", False) or "#" in ev.key:
+            continue  # annotated ranges (Optimizer.step#..., spans): their kernels are listed themselves
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:  # older torch
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)

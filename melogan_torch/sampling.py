@@ -37,6 +37,7 @@ from melogan_torch.models.gan import FeatureEncoder, Generator
 from melogan_torch.models.layers import gan_init_
 from melogan_torch.parallel.mesh import Mesh
 from melogan_torch.precision import using
+from melogan_torch.utils.profiling import span
 from melogan_torch.utils.weights import load_state_dicts
 
 # Hand-tuned per-emotion numeric feature bases (reference app.py:55-61).
@@ -61,15 +62,18 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     ``python -m melogan_torch.profile_sample``)."""
     if t.device.type == "cpu":
         return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t)
+    with span("sampler.pin_alloc"):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with span("sampler.copy"):
+        host.copy_(t)
     return host.numpy()
 
 
 def _to_host(blocks) -> np.ndarray:
     """The blocks of ``Sampler._forward_blocks`` joined on the host."""
-    outs = [_to_numpy(o) for o in blocks]
-    return outs[0] if len(outs) == 1 else np.concatenate(outs)
+    with span("sampler.to_host"):
+        outs = [_to_numpy(o) for o in blocks]
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
 
 class Sampler:
@@ -186,7 +190,8 @@ class Sampler:
 
     # ------------------------------------------------------------------
     def _forward(self, gen, fe, features: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        with using("fast") if self.fast_math else contextlib.nullcontext(), torch.inference_mode():
+        fast = using("fast") if self.fast_math else contextlib.nullcontext()
+        with span("sampler.forward"), fast, torch.inference_mode():
             emb = fe(features)
             latent = None
             if self.cfg.integration_mode == "conditioning":
@@ -214,13 +219,15 @@ class Sampler:
 
     def sample_notes(self, emotions, seed: int = 0) -> np.ndarray:
         """Generate (B, max_notes, 4) note arrays for a list of emotion names."""
-        unknown = [e for e in emotions if e not in EMOTIONS]
-        if unknown:
-            raise ValueError(
-                f"unknown emotion(s) {unknown}; valid emotions are {list(EMOTIONS)}"
-            )
-        idx = torch.as_tensor([EMOTIONS.index(e) for e in emotions], device=self.device)
-        return _to_host(self._step(idx, seed))
+        with span("sampler.sample_notes"):
+            with span("sampler.index"):
+                unknown = [e for e in emotions if e not in EMOTIONS]
+                if unknown:
+                    raise ValueError(
+                        f"unknown emotion(s) {unknown}; valid emotions are {list(EMOTIONS)}"
+                    )
+                idx = torch.as_tensor([EMOTIONS.index(e) for e in emotions], device=self.device)
+            return _to_host(self._step(idx, seed))
 
     def _step(self, idx: torch.Tensor, seed: int):
         """The device work of ``sample_notes``: jitter and noise drawn for the
@@ -229,11 +236,12 @@ class Sampler:
         the devices (``_forward_blocks``); nothing waits for them."""
         with self._var_lock:  # pair the reads (see swap_variables)
             gen, fe, base_all, replicas = self._gen, self._fe, self._base_features, self._replicas
-        rng = torch.Generator(device=self.device).manual_seed(seed)
-        base = base_all[idx]
-        features = base + FEATURE_JITTER_STD * torch.randn(
-            base.shape, generator=rng, device=self.device)
-        noise = torch.randn((idx.shape[0], self.cfg.noise_dim), generator=rng, device=self.device)
+        with span("sampler.draw"):
+            rng = torch.Generator(device=self.device).manual_seed(seed)
+            base = base_all[idx]
+            features = base + FEATURE_JITTER_STD * torch.randn(
+                base.shape, generator=rng, device=self.device)
+            noise = torch.randn((idx.shape[0], self.cfg.noise_dim), generator=rng, device=self.device)
         return self._forward_blocks(gen, fe, replicas, features, noise)
 
     def swap_variables(self, gen_variables, fe_variables, emotion_features=None) -> None:

@@ -43,6 +43,7 @@ from melogan_torch.train import gan_step
 from melogan_torch.train.harness import rank_device, rank_writer, with_precision
 from melogan_torch.utils import weights
 from melogan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from melogan_torch.utils.profiling import span
 from melogan_torch.utils.weights import load_gan_final, load_gan_final_full  # noqa: F401  (the JAX module's names)
 
 
@@ -79,8 +80,9 @@ def device_gather(arrays, dev: torch.device, mesh=None):
     data = put_replicated(tuple(np.ascontiguousarray(a) for a in arrays), mesh, dev)
 
     def gather(idx: np.ndarray):
-        i = torch.as_tensor(idx, device=dev)
-        return tuple(a[i] for a in data)
+        with span("gan.gather"):
+            i = torch.as_tensor(idx, device=dev)
+            return tuple(a[i] for a in data)
 
     return gather
 

@@ -45,6 +45,7 @@ from melogan_torch.models.layers import gan_init_, torch_default_init_
 from melogan_torch.parallel.mesh import Mesh, data_parallel, microbatch_constrainer
 from melogan_torch.precision import mode_of
 from melogan_torch.train.harness import refuse_spectral_norm
+from melogan_torch.utils.profiling import span
 from melogan_torch.utils.weights import to_tensors
 
 
@@ -375,12 +376,14 @@ def _apply(opt: torch.optim.Adam, params: List[torch.Tensor], loss: torch.Tensor
     they are first replaced by their means over the ranks (one flat
     ``all_reduce``): every loss here is a mean over equal shards, so that
     mean is the gradient of the global batch's loss."""
-    grads = torch.autograd.grad(loss, params)
-    if mesh is not None:
-        mesh.all_reduce_mean_(grads)
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
+    with span("gan.apply"):
+        grads = torch.autograd.grad(loss, params)
+        if mesh is not None:
+            mesh.all_reduce_mean_(grads)
+        for p, g in zip(params, grads):
+            p.grad = g
+        with span("gan.adam"):
+            opt.step()
 
 
 # more than the autograd nodes of one step's gradient penalties' double backwards
@@ -495,18 +498,19 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
         )
 
     def critic_update(state: GANTrainState, batch, draws: Optional[CriticDraws]):
-        b = batch[0].shape[0]
-        if draws is None:
-            draws = draw_critic(state, b)
-        dp = dp_mesh(b)
-        with data_parallel(dp):
-            return _critic_update(state, shard(batch), shard(draws), dp)
+        with span("gan.critic_update"):
+            b = batch[0].shape[0]
+            if draws is None:
+                draws = draw_critic(state, b)
+            dp = dp_mesh(b)
+            with data_parallel(dp):
+                return _critic_update(state, shard(batch), shard(draws), dp)
 
     def _critic_update(state: GANTrainState, batch, draws: CriticDraws, dp: Optional[Mesh]):
         real, _, latents, numeric = batch
         b = real.shape[0]
         critic = state.critic
-        with torch.no_grad():
+        with span("gan.fake"), torch.no_grad():
             # G in train mode: batch statistics, and its running stats advance
             emb = state.feature_encoder(numeric, masks=draws.fe_masks)
             fake, _ = state.generator(draws.noise, latent_input(latents), emb)
@@ -516,24 +520,27 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
             # the critic has no cross-sample op (no batch-norm)
             interp = (alpha * real + (1.0 - alpha) * fake).detach().requires_grad_(True)
             s = critic(torch.cat([real, fake, interp], dim=0), torch.cat([emb, emb, emb], dim=0))
-            (g,) = torch.autograd.grad(s[2 * b:].sum(), interp, create_graph=True)
-            gp = _penalty(g)
+            with span("gan.penalty"):
+                (g,) = torch.autograd.grad(s[2 * b:].sum(), interp, create_graph=True)
+                gp = _penalty(g)
             dr, df = s[:b].mean(), s[b:2 * b].mean()
         else:
             dr = critic(real, emb).mean()
             df = critic(fake, emb).mean()
-            gp = gradient_penalty(critic, real, fake, emb, alpha)
+            with span("gan.penalty"):
+                gp = gradient_penalty(critic, real, fake, emb, alpha)
         loss = df - dr + lambda_gp * gp
         _apply(state.opt_d, list(critic.parameters()), loss, dp)
         return loss.detach(), gp.detach(), dr.detach(), df.detach()
 
     def gen_update(state: GANTrainState, batch, draws: Optional[GenDraws]):
-        b = batch[0].shape[0]
-        if draws is None:
-            draws = draw_gen(state, b)
-        dp = dp_mesh(b)
-        with data_parallel(dp):
-            return _gen_update(state, shard(batch), shard(draws), dp)
+        with span("gan.gen_update"):
+            b = batch[0].shape[0]
+            if draws is None:
+                draws = draw_gen(state, b)
+            dp = dp_mesh(b)
+            with data_parallel(dp):
+                return _gen_update(state, shard(batch), shard(draws), dp)
 
     def _gen_update(state: GANTrainState, batch, draws: GenDraws, dp: Optional[Mesh]):
         _, emot_idx, latents, numeric = batch
@@ -567,7 +574,8 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
         return adv.detach(), emo.detach(), fm.detach()
 
     def critic_updates(state, batches, draws):
-        number_forward_above_backward(state.device)
+        with span("gan.number_nodes"):
+            number_forward_above_backward(state.device)
         outs = [critic_update(state, tuple(f[k] for f in batches), None if draws is None else draws[k])
                 for k in range(batches[0].shape[0])]
         return [torch.stack(col) for col in zip(*outs)]
@@ -575,28 +583,29 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
     def group_step(state: GANTrainState, batches, draws: Optional[GroupDraws] = None):
         """batches: (notes, emotion_idx, latents, numeric), each stacked to
         (critic_iters, B, ...)."""
-        d_losses, gps, drs, dfs = critic_updates(state, batches, None if draws is None else draws.critic)
-        last = tuple(f[-1] for f in batches)
-        adv, emo, fm = gen_update(state, last, None if draws is None else draws.gen)
-        if state.ema_params is not None:
-            d = np.float32(cfg.ema_decay)
-            one_minus = float(np.float32(1.0) - d)
-            with torch.no_grad():
-                for n, p in state.generator.named_parameters():
-                    e = state.ema_params[n]
-                    e.copy_(float(d) * e + one_minus * p)
-        state.step += 1
-        metrics = {
-            "loss_d_sum": d_losses.sum(),
-            "gp_mean": gps.mean(),
-            "loss_g_adv": adv,
-            "loss_g_emo": emo,
-            "d_real_sum": drs.sum(),
-            "d_fake_sum": dfs.sum(),
-        }
-        if fm_on or fm_ed_on:
-            metrics["loss_g_fm"] = fm
-        return state, _rank_mean(metrics, batches)
+        with span("gan.group"):
+            d_losses, gps, drs, dfs = critic_updates(state, batches, None if draws is None else draws.critic)
+            last = tuple(f[-1] for f in batches)
+            adv, emo, fm = gen_update(state, last, None if draws is None else draws.gen)
+            if state.ema_params is not None:
+                d = np.float32(cfg.ema_decay)
+                one_minus = float(np.float32(1.0) - d)
+                with span("gan.ema"), torch.no_grad():
+                    for n, p in state.generator.named_parameters():
+                        e = state.ema_params[n]
+                        e.copy_(float(d) * e + one_minus * p)
+            state.step += 1
+            metrics = {
+                "loss_d_sum": d_losses.sum(),
+                "gp_mean": gps.mean(),
+                "loss_g_adv": adv,
+                "loss_g_emo": emo,
+                "d_real_sum": drs.sum(),
+                "d_fake_sum": dfs.sum(),
+            }
+            if fm_on or fm_ed_on:
+                metrics["loss_g_fm"] = fm
+            return state, _rank_mean(metrics, batches)
 
     def _rank_mean(metrics, batches):
         dp = dp_mesh(batches[0].shape[1])
@@ -605,12 +614,13 @@ def make_train_steps(cfg: GANConfig, hyper: Optional[HyperParams] = None,
     def critic_only_step(state: GANTrainState, batches,
                          draws: Optional[Sequence[CriticDraws]] = None):
         """The epoch tail: one critic update per stacked batch."""
-        d_losses, gps, drs, dfs = critic_updates(state, batches, draws)
-        return state, _rank_mean({
-            "loss_d_sum": d_losses.sum(),
-            "gp_mean": gps.mean(),
-            "d_real_sum": drs.sum(),
-            "d_fake_sum": dfs.sum(),
-        }, batches)
+        with span("gan.group"):
+            d_losses, gps, drs, dfs = critic_updates(state, batches, draws)
+            return state, _rank_mean({
+                "loss_d_sum": d_losses.sum(),
+                "gp_mean": gps.mean(),
+                "d_real_sum": drs.sum(),
+                "d_fake_sum": dfs.sum(),
+            }, batches)
 
     return TrainStepFns(group=group_step, tail=critic_only_step)

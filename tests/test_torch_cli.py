@@ -626,6 +626,10 @@ def test_profile_prints_jax_keys_and_a_trace(corpus, tmp_path, capsys):
     assert out["batch"] == 4 and out["steps"] == 3 and out["trace_dir"] == trace
     with open(os.path.join(trace, "trace.json")) as f:
         assert json.load(f)["traceEvents"]
+    with open(os.path.join(trace, "spans.json")) as f:
+        spans = json.load(f)
+    assert spans["table"]["sampler.sample_notes"]["count"] == 3 and spans["dropped"] == 0
+    assert len([r for r in spans["records"] if r["name"] == "sampler.sample_notes"]) == 3
 
 
 def _keys(tree):
